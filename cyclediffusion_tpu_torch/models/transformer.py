@@ -1,0 +1,103 @@
+"""Spatial transformer blocks for the cross-attention UNet (counterpart of
+``cyclediffusion_tpu.models.transformer``; the default separate-q/k/v path).
+
+``CrossAttention``: bias-free q/k/v, 1/sqrt(d) scale, biased output
+projection.  ``BasicTransformerBlock``: pre-LayerNorm self-attention ->
+cross-attention -> GEGLU feed-forward, each residual.  ``SpatialTransformer``:
+GroupNorm -> 1x1 in -> blocks over (h w) tokens -> 1x1 out, residual.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch.nn.functional as F
+from torch import nn
+
+from cyclediffusion_tpu_torch.models.nn import GroupNorm, multi_head_attention
+
+
+class CrossAttention(nn.Module):
+    """Multi-head attention, q from x, k/v from context (or x if None)."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int,
+                 context_dim: Optional[int] = None):
+        super().__init__()
+        inner = heads * dim_head
+        ctx_dim = query_dim if context_dim is None else context_dim
+        self.heads = heads
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(ctx_dim, inner, bias=False)
+        self.to_v = nn.Linear(ctx_dim, inner, bias=False)
+        self.to_out = nn.Sequential(nn.Linear(inner, query_dim))
+
+    def forward(self, x, context=None):
+        ctx = x if context is None else context
+        q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        return self.to_out(multi_head_attention(q, k, v, self.heads))
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.proj = nn.Linear(dim_in, dim_out * 2)
+
+    def forward(self, x):
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        # jax.nn.gelu defaults to the tanh approximation
+        return h * F.gelu(gate, approximate="tanh")
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward with 4x expansion (``net.1`` is the reference's
+    dropout slot)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.net = nn.Sequential(GEGLU(dim, dim * 4), nn.Identity(),
+                                 nn.Linear(dim * 4, dim))
+
+    def forward(self, x):
+        return self.net(x)
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, dim: int, heads: int, dim_head: int,
+                 context_dim: Optional[int] = None):
+        super().__init__()
+        self.attn1 = CrossAttention(dim, heads, dim_head)
+        self.ff = FeedForward(dim)
+        self.attn2 = CrossAttention(dim, heads, dim_head, context_dim)
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+
+    def forward(self, x, context=None):
+        x = self.attn1(self.norm1(x)) + x
+        x = self.attn2(self.norm2(x), context=context) + x
+        return self.ff(self.norm3(x)) + x
+
+
+class SpatialTransformer(nn.Module):
+    """NCHW in and out; the blocks run over token-major (B, h*w, C)."""
+
+    def __init__(self, in_channels: int, heads: int, dim_head: int,
+                 depth: int = 1, context_dim: Optional[int] = None):
+        super().__init__()
+        inner = heads * dim_head
+        self.norm = GroupNorm(32, in_channels, 1e-6)
+        self.proj_in = nn.Conv2d(in_channels, inner, 1)
+        self.transformer_blocks = nn.ModuleList(
+            BasicTransformerBlock(inner, heads, dim_head, context_dim)
+            for _ in range(depth))
+        self.proj_out = nn.Conv2d(inner, in_channels, 1)
+
+    def forward(self, x, context=None):
+        b, _, h, w = x.shape
+        hidden = self.proj_in(self.norm(x))
+        inner = hidden.shape[1]
+        hidden = hidden.flatten(2).transpose(1, 2)           # (b, h*w, inner)
+        for block in self.transformer_blocks:
+            hidden = block(hidden, context=context)
+        hidden = hidden.transpose(1, 2).reshape(b, inner, h, w)
+        return x + self.proj_out(hidden)

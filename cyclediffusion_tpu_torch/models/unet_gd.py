@@ -1,0 +1,203 @@
+"""The guided-diffusion-family UNet with spatial transformers — the LDM/SD
+cross-attention UNet (counterpart of ``cyclediffusion_tpu.models.unet_gd``).
+
+This slice covers the SD-v1 topology: conv resampling, no scale-shift norm,
+no class labels, spatial-transformer attention.  The reference's stateful
+head-count selection (``num_heads`` reassigned inside the layer loop when
+``num_head_channels`` is set) is kept in :func:`_attn_layout`, so converted
+checkpoints attend identically.  Module names mirror the reference
+(``input_blocks.3.0.in_layers.2``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cyclediffusion_tpu_torch.models.nn import GroupNorm, gd_timestep_embedding
+from cyclediffusion_tpu_torch.models.transformer import SpatialTransformer
+
+
+@dataclasses.dataclass(frozen=True)
+class GDUNetConfig:
+    in_channels: int = 3
+    model_channels: int = 128
+    out_channels: int = 3
+    num_res_blocks: int = 2
+    attention_resolutions: Tuple[int, ...] = (16,)  # downsample factors (ds)
+    channel_mult: Tuple[float, ...] = (1, 2, 4, 8)
+    num_heads: int = -1
+    num_head_channels: int = -1
+    use_spatial_transformer: bool = True
+    transformer_depth: int = 1
+    context_dim: Optional[int] = None
+    legacy: bool = True
+
+    @staticmethod
+    def sd_v1() -> "GDUNetConfig":
+        """Stable Diffusion v1 UNet (configs/stable-diffusion/v1-inference.yaml)."""
+        return GDUNetConfig(
+            in_channels=4, model_channels=320, out_channels=4, num_res_blocks=2,
+            attention_resolutions=(4, 2, 1), channel_mult=(1, 2, 4, 4),
+            num_heads=8, use_spatial_transformer=True, transformer_depth=1,
+            context_dim=768, legacy=False,
+        )
+
+    @staticmethod
+    def tiny(context_dim: int = 24) -> "GDUNetConfig":
+        """The CPU-runnable miniature of ``LatentCoreSpec.tiny``."""
+        return GDUNetConfig(
+            in_channels=4, model_channels=32, out_channels=4, num_res_blocks=1,
+            attention_resolutions=(1, 2), channel_mult=(1, 2), num_heads=4,
+            use_spatial_transformer=True, context_dim=context_dim, legacy=False,
+        )
+
+
+def _attn_layout(cfg: GDUNetConfig, ch: int, num_heads_state: int):
+    """Replicate the reference's head selection (stateful num_heads)."""
+    num_heads = num_heads_state
+    if cfg.num_head_channels == -1:
+        dim_head = ch // num_heads
+    else:
+        num_heads = ch // cfg.num_head_channels
+        dim_head = cfg.num_head_channels
+    if cfg.legacy:
+        dim_head = ch // num_heads if cfg.use_spatial_transformer else cfg.num_head_channels
+    return num_heads, dim_head
+
+
+def _conv3x3(cin: int, cout: int, stride: int = 1):
+    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1)
+
+
+class GDResBlock(nn.Module):
+    """guided-diffusion ResBlock with additive timestep conditioning."""
+
+    def __init__(self, in_channels: int, out_channels: int, emb_dim: int,
+                 norm_eps: float = 1e-5):
+        super().__init__()
+        self.in_layers = nn.Sequential(
+            GroupNorm(32, in_channels, norm_eps), nn.SiLU(),
+            _conv3x3(in_channels, out_channels))
+        self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_dim, out_channels))
+        self.out_layers = nn.Sequential(
+            GroupNorm(32, out_channels, norm_eps), nn.SiLU(), nn.Identity(),
+            _conv3x3(out_channels, out_channels))
+        self.skip_connection = (
+            nn.Identity() if in_channels == out_channels
+            else nn.Conv2d(in_channels, out_channels, 1))
+
+    def forward(self, x, emb):
+        h = self.in_layers(x)
+        h = h + self.emb_layers(emb)[:, :, None, None]
+        return self.skip_connection(x) + self.out_layers(h)
+
+
+class GDDownsample(nn.Module):
+    """Symmetric-pad stride-2 conv."""
+
+    def __init__(self, channels: int, out_channels: int):
+        super().__init__()
+        self.op = _conv3x3(channels, out_channels, stride=2)
+
+    def forward(self, x):
+        return self.op(x)
+
+
+class GDUpsample(nn.Module):
+    def __init__(self, channels: int, out_channels: int):
+        super().__init__()
+        self.conv = _conv3x3(channels, out_channels)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+def _apply_layers(layers, h, emb, context):
+    for layer in layers:
+        if isinstance(layer, GDResBlock):
+            h = layer(h, emb)
+        elif isinstance(layer, SpatialTransformer):
+            h = layer(h, context)
+        else:
+            h = layer(h)
+    return h
+
+
+class GDUNet(nn.Module):
+    """``forward(x (B,H,W,C) NHWC, t (B,), context (B,T,ctx))`` -> eps NHWC."""
+
+    def __init__(self, cfg: GDUNetConfig):
+        super().__init__()
+        if not cfg.use_spatial_transformer or cfg.context_dim is None:
+            raise NotImplementedError(
+                "this port covers the spatial-transformer (SD/LDM) UNet")
+        self.config = cfg
+        mc = cfg.model_channels
+        emb_dim = mc * 4
+        self.time_embed = nn.Sequential(
+            nn.Linear(mc, emb_dim), nn.SiLU(), nn.Linear(emb_dim, emb_dim))
+
+        num_heads = cfg.num_heads
+
+        def make_attn(ch):
+            nonlocal num_heads
+            num_heads, dim_head = _attn_layout(cfg, ch, num_heads)
+            return SpatialTransformer(ch, num_heads, dim_head,
+                                      depth=cfg.transformer_depth,
+                                      context_dim=cfg.context_dim)
+
+        ch = int(cfg.channel_mult[0] * mc)
+        self.input_blocks = nn.ModuleList(
+            [nn.ModuleList([_conv3x3(cfg.in_channels, ch)])])
+        input_chans = [ch]
+        ds = 1
+        for level, mult in enumerate(cfg.channel_mult):
+            for _ in range(cfg.num_res_blocks):
+                out = int(mult * mc)
+                layers = [GDResBlock(ch, out, emb_dim)]
+                ch = out
+                if ds in cfg.attention_resolutions:
+                    layers.append(make_attn(ch))
+                self.input_blocks.append(nn.ModuleList(layers))
+                input_chans.append(ch)
+            if level != len(cfg.channel_mult) - 1:
+                self.input_blocks.append(nn.ModuleList([GDDownsample(ch, ch)]))
+                input_chans.append(ch)
+                ds *= 2
+
+        self.middle_block = nn.ModuleList(
+            [GDResBlock(ch, ch, emb_dim), make_attn(ch), GDResBlock(ch, ch, emb_dim)])
+
+        self.output_blocks = nn.ModuleList()
+        for level, mult in list(enumerate(cfg.channel_mult))[::-1]:
+            for i in range(cfg.num_res_blocks + 1):
+                out = int(mult * mc)
+                layers = [GDResBlock(ch + input_chans.pop(), out, emb_dim)]
+                ch = out
+                if ds in cfg.attention_resolutions:
+                    layers.append(make_attn(ch))
+                if level and i == cfg.num_res_blocks:
+                    layers.append(GDUpsample(ch, ch))
+                    ds //= 2
+                self.output_blocks.append(nn.ModuleList(layers))
+
+        self.out = nn.Sequential(
+            GroupNorm(32, ch, 1e-5), nn.SiLU(), _conv3x3(ch, cfg.out_channels))
+
+    def forward(self, x, t, context):
+        emb = self.time_embed(
+            gd_timestep_embedding(t, self.config.model_channels).to(x.dtype))
+        h = x.permute(0, 3, 1, 2)
+        hs = []
+        for layers in self.input_blocks:
+            h = _apply_layers(layers, h, emb, context)
+            hs.append(h)
+        h = _apply_layers(self.middle_block, h, emb, context)
+        for layers in self.output_blocks:
+            h = _apply_layers(layers, torch.cat([h, hs.pop()], dim=1), emb, context)
+        return self.out(h).permute(0, 2, 3, 1)

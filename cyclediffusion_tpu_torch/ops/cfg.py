@@ -1,0 +1,56 @@
+"""Classifier-free guidance as one dual-batch model call (counterpart of
+``cyclediffusion_tpu.ops.cfg``).
+
+scale == 1 -> conditional only, scale == 0 -> unconditional only, otherwise
+one model call on the concatenated ``[uncond; cond]`` batch followed by the
+guidance combine.  A Python-number scale takes the 0/1 shortcuts; a tensor
+scale (per-candidate sweeps) always runs the dual batch, whose combine is
+exact for 0 and 1 too.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+# model_fn(x, t, cond) -> eps
+ModelFn = Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
+
+
+def _is_static(scale) -> bool:
+    return isinstance(scale, (int, float))
+
+
+def dual_batch_inputs(x, t):
+    """Duplicate (x, t) into the [uncond; cond] dual batch."""
+    return torch.cat([x, x], dim=0), torch.cat([t, t], dim=0)
+
+
+def make_cfg_combine(uncond, cond, scale):
+    """-> (c_in, combine): the [uncond; cond] context batch and the guidance
+    combine ``e_uc + scale * (e_c - e_uc)`` over a dual-batch output."""
+    c_in = torch.cat([uncond, cond], dim=0)
+
+    def combine(out):
+        e_uncond, e_cond = torch.chunk(out, 2, dim=0)
+        return e_uncond + scale * (e_cond - e_uncond)
+
+    return c_in, combine
+
+
+def cfg_model_fn(model_fn: ModelFn, uncond, cond, scale) -> Callable:
+    """Wrap ``model_fn`` into a guidance-scaled eps predictor ``fn(x, t)``."""
+    if uncond is None or (_is_static(scale) and scale == 1.0):
+        def fn(x, t):
+            return model_fn(x, t, cond)
+    elif _is_static(scale) and scale == 0.0:
+        def fn(x, t):
+            return model_fn(x, t, uncond)
+    else:
+        c_in, combine = make_cfg_combine(uncond, cond, scale)
+
+        def fn(x, t):
+            x_in, t_in = dual_batch_inputs(x, t)
+            return combine(model_fn(x_in, t_in, c_in))
+    return fn

@@ -1,0 +1,171 @@
+"""LatentDiffusion core: UNet + KL first stage + CLIP text conditioning
+(counterpart of ``LatentCoreSpec`` / ``LatentDiffusionCore`` in
+``cyclediffusion_tpu.pipelines.latent``).
+
+The modules run in the core's dtype (bf16 on the card); the sampler around
+them stays fp32: :meth:`LatentDiffusionCore.apply_model` casts the latent
+to the core's dtype and its eps back to fp32, and the first-stage posterior
+is sampled in fp32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from cyclediffusion_tpu_torch.convert.from_jax import load_flax_params
+from cyclediffusion_tpu_torch.models.autoencoder import (
+    AutoencoderKL,
+    DDConfig,
+    DiagonalGaussian,
+)
+from cyclediffusion_tpu_torch.models.text_encoders import CLIPTextConfig, CLIPTextEncoder
+from cyclediffusion_tpu_torch.models.unet_gd import GDUNet, GDUNetConfig
+from cyclediffusion_tpu_torch.ops import schedule
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentCoreSpec:
+    """One text-conditioned latent diffusion model (KL first stage, CLIP)."""
+
+    name: str
+    unet: GDUNetConfig
+    first_stage: DDConfig
+    embed_dim: int
+    scale_factor: float
+    linear_start: float
+    linear_end: float
+    num_timesteps: int = 1000
+    cond_cfg: Optional[CLIPTextConfig] = None
+    resolution: int = 256          # pixel-space resolution
+
+    @property
+    def image_size(self) -> int:
+        """Latent spatial size."""
+        return self.resolution // 2 ** (len(self.first_stage.ch_mult) - 1)
+
+    @property
+    def channels(self) -> int:
+        return self.unet.in_channels
+
+    @staticmethod
+    def sd_v1() -> "LatentCoreSpec":
+        return LatentCoreSpec(
+            name="sd_v1", unet=GDUNetConfig.sd_v1(), first_stage=DDConfig.sd_f8(),
+            embed_dim=4, scale_factor=0.18215,
+            linear_start=0.00085, linear_end=0.0120,
+            cond_cfg=CLIPTextConfig.vit_l_14(), resolution=512,
+        )
+
+    @staticmethod
+    def tiny(resolution: int = 32) -> "LatentCoreSpec":
+        """CPU-runnable miniature (latent 8x8) — the JAX package's
+        ``LatentCoreSpec.tiny(cond_kind="clip")``."""
+        return LatentCoreSpec(
+            name="tiny_latent_clip_kl",
+            unet=GDUNetConfig.tiny(context_dim=24),
+            first_stage=DDConfig(ch=16, ch_mult=(1, 2, 4), num_res_blocks=1,
+                                 resolution=resolution, z_channels=4,
+                                 double_z=True, attn_resolutions=()),
+            embed_dim=4, scale_factor=0.18215,
+            linear_start=0.00085, linear_end=0.012, num_timesteps=100,
+            cond_cfg=CLIPTextConfig(vocab_size=96, hidden_size=24, num_layers=2,
+                                    num_heads=4, max_positions=16,
+                                    intermediate_size=48),
+            resolution=resolution,
+        )
+
+
+@torch.no_grad()
+def _fill_random_(module: nn.Module, generator: torch.Generator) -> None:
+    """Overwrite every parameter with seeded normal draws — zero-initialised
+    layers included, so attention reaches the output of a random model.
+    Matrices and kernels get std 1/sqrt(fan_in), norm scales 1 + 0.1 N(0,1),
+    biases 0.1 N(0,1)."""
+    for name, p in module.named_parameters():
+        z = torch.randn(p.shape, generator=generator, device=p.device)
+        if p.ndim >= 2:
+            z = z * (p[0].numel() ** -0.5)
+        elif name.endswith("weight"):
+            z = 1.0 + 0.1 * z
+        else:
+            z = 0.1 * z
+        p.copy_(z.to(p.dtype))
+
+
+class LatentDiffusionCore:
+    """The three modules of the model on one device, in one dtype, frozen."""
+
+    def __init__(self, spec: LatentCoreSpec, device="cpu", dtype=torch.float32):
+        self.spec = spec
+        self.device = torch.device(device)
+        self.dtype = dtype
+        with self.device:
+            self.unet = GDUNet(spec.unet)
+            self.first_stage = AutoencoderKL(spec.first_stage, spec.embed_dim)
+            self.cond_model = CLIPTextEncoder(spec.cond_cfg)
+        for m in self.modules():
+            m.to(dtype=dtype).eval().requires_grad_(False)
+
+    def modules(self):
+        return (self.unet, self.first_stage, self.cond_model)
+
+    # ---- constructors -------------------------------------------------- #
+
+    @classmethod
+    def random_init(cls, spec: LatentCoreSpec, seed: int = 0, device="cpu",
+                    dtype=torch.float32) -> "LatentDiffusionCore":
+        """Seeded random weights (see :func:`_fill_random_`), drawn on the
+        core's device."""
+        core = cls(spec, device, dtype)
+        gen = torch.Generator(device=core.device).manual_seed(seed)
+        for m in core.modules():
+            _fill_random_(m, gen)
+        return core
+
+    @classmethod
+    def from_jax_params(cls, spec: LatentCoreSpec, params: dict, device="cpu",
+                        dtype=torch.float32) -> "LatentDiffusionCore":
+        """Weights from the JAX core's parameter tree (numpy leaves):
+        ``{"unet": ..., "first_stage": ..., "cond": ...}``."""
+        core = cls(spec, device, dtype)
+        load_flax_params(core.unet, params["unet"])
+        load_flax_params(core.first_stage, params["first_stage"])
+        load_flax_params(core.cond_model, params["cond"])
+        return core
+
+    # ---- model surface -------------------------------------------------- #
+
+    @torch.no_grad()
+    def apply_model(self, x, t, context):
+        """fp32 NHWC latent -> fp32 eps, the UNet running in the core dtype."""
+        return self.unet(x.to(self.dtype), t, context.to(self.dtype)).float()
+
+    @torch.no_grad()
+    def get_learned_conditioning(self, token_ids):
+        ids = torch.as_tensor(np.asarray(token_ids), dtype=torch.int64,
+                              device=self.device)
+        return self.cond_model(ids)
+
+    @torch.no_grad()
+    def encode_first_stage(self, image_m11, noise):
+        """[-1,1] NHWC image -> x0 latent: the KL posterior sampled with
+        ``noise`` (fp32), times the scale factor."""
+        moments = self.first_stage.encode_moments(image_m11.to(self.dtype)).float()
+        return DiagonalGaussian(moments).sample(noise) * self.spec.scale_factor
+
+    @torch.no_grad()
+    def decode_first_stage(self, z):
+        """Latent -> [-1,1] NHWC image (fp32)."""
+        z = (z / self.spec.scale_factor).to(self.dtype)
+        return self.first_stage.decode(z).float()
+
+    def make_ddim_schedule(self, custom_steps: int, eta: float):
+        betas = schedule.make_beta_schedule(
+            "linear", self.spec.num_timesteps,
+            linear_start=self.spec.linear_start, linear_end=self.spec.linear_end)
+        return schedule.DDIMSchedule.create(betas, custom_steps, eta)

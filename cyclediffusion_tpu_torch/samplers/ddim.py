@@ -1,0 +1,149 @@
+"""Latent-family DDIM sampler: DPM-Encoder and eps-replay decoding
+(counterpart of ``cyclediffusion_tpu.samplers.ddim``).
+
+Each ``lax.scan`` of the JAX module is a Python loop here; the per-step
+coefficients are gathered on the host into time-major tables of 0-d fp32
+tensors.  Randomness comes from an explicit ``torch.Generator``, and every
+draw can be replaced by pre-drawn noise (the seam the parity tests use to
+feed both implementations the same numbers).  Layout is NHWC; the latent
+code's eps stack is time-major ``(n, B, H, W, C)``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from cyclediffusion_tpu_torch.ops import steps
+from cyclediffusion_tpu_torch.ops.schedule import DDIMSchedule
+
+# fn(x: (B,H,W,C) fp32, t: (B,) int64) -> eps (B,H,W,C) fp32
+EpsModel = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+class _StepTables(NamedTuple):
+    """Time-major per-step coefficients for a chain of length L."""
+
+    t: list                 # L Python ints: raw timesteps
+    a_t: torch.Tensor       # (L,) fp32
+    a_prev: torch.Tensor    # (L,)
+    sigma: torch.Tensor     # (L,)
+    s1ma: torch.Tensor      # (L,) sqrt(1 - a_t)
+    index_is_zero: list     # L bools
+
+
+def _chain_tables(sched: DDIMSchedule, refine_steps: int, length: int) -> _StepTables:
+    """Tables for walking ``index = refine_steps-1-i`` for i in [0, length)."""
+    idx = np.arange(refine_steps - 1, refine_steps - 1 - length, -1)
+    gather = lambda tbl: tbl[torch.from_numpy(idx)]
+    return _StepTables(
+        t=[int(x) for x in sched.timesteps[torch.from_numpy(idx)]],
+        a_t=gather(sched.alphas),
+        a_prev=gather(sched.alphas_prev),
+        sigma=gather(sched.sigmas),
+        s1ma=gather(sched.sqrt_one_minus_alphas),
+        index_is_zero=[bool(i == 0) for i in idx],
+    )
+
+
+def _randn(shape, like: torch.Tensor, generator: Optional[torch.Generator]):
+    return torch.randn(shape, generator=generator, dtype=like.dtype,
+                       device=like.device)
+
+
+def _eps_with_fresh_tail(eps, refine_steps: int, x_T, generator):
+    """Stored eps padded with fresh noise to ``refine_steps`` entries (the
+    reference's fallback past the end of the stored list)."""
+    n = 0 if eps is None else int(eps.shape[0])
+    if n < refine_steps:
+        fresh = _randn((refine_steps - n,) + tuple(x_T.shape), x_T, generator)
+        return fresh if eps is None else torch.cat([eps, fresh], dim=0)
+    return eps[:refine_steps]
+
+
+def num_recovered_eps(sched_steps: int, white_box_steps: int, skip_steps: int) -> int:
+    """Number of eps tensors the DPM-Encoder recovers (reference stop rule
+    ``i < white_box_steps - skip_steps - 1`` over ``S - skip_steps`` steps;
+    with ``white_box_steps = S + 1`` the full chain)."""
+    refine_steps = sched_steps - skip_steps
+    return max(0, min(refine_steps, white_box_steps - skip_steps - 1))
+
+
+def _t_vec(t: int, bsz: int, device) -> torch.Tensor:
+    return torch.full((bsz,), t, dtype=torch.int64, device=device)
+
+
+@torch.no_grad()
+def dpm_encode(
+    model_fn: EpsModel,
+    sched: DDIMSchedule,
+    x0: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    *,
+    white_box_steps: int,
+    skip_steps: int = 0,
+    xT_noise: Optional[torch.Tensor] = None,
+    posterior_noises: Optional[torch.Tensor] = None,
+):
+    """DPM-Encoder: recover the latent code ``z = (x_T, eps_1..eps_n)`` of x0.
+
+    Returns ``(x_T, eps)`` with ``eps`` time-major ``(n, B, H, W, C)``.
+    ``xT_noise`` (x0-shaped) and ``posterior_noises`` (eps-shaped) replace
+    the draws from ``generator``.
+    """
+    refine_steps = sched.num_steps - skip_steps
+    n = num_recovered_eps(sched.num_steps, white_box_steps, skip_steps)
+    if refine_steps < 1 or n < 1:
+        raise ValueError(f"empty chain: refine_steps={refine_steps}, n={n}")
+
+    if xT_noise is None:
+        xT_noise = _randn(x0.shape, x0, generator)
+    xT = steps.q_sample(x0, sched.alphas[refine_steps - 1], xT_noise)
+    if posterior_noises is None:
+        posterior_noises = _randn((n,) + tuple(x0.shape), x0, generator)
+
+    tb = _chain_tables(sched, refine_steps, n)
+    bsz = x0.shape[0]
+    eps = torch.empty((n,) + tuple(x0.shape), dtype=x0.dtype, device=x0.device)
+    xt = xT
+    for i in range(n):
+        xt_next = steps.sample_xt_next(
+            x0, xt, tb.a_t[i], tb.a_prev[i], tb.sigma[i], posterior_noises[i],
+            tb.index_is_zero[i])
+        e_t = model_fn(xt, _t_vec(tb.t[i], bsz, x0.device))
+        eps[i] = steps.compute_eps(
+            xt, xt_next, e_t, tb.a_t[i], tb.a_prev[i], tb.sigma[i], tb.s1ma[i])
+        xt = xt_next
+    return xT, eps
+
+
+@torch.no_grad()
+def ddim_decode(
+    model_fn: EpsModel,
+    sched: DDIMSchedule,
+    x_T: torch.Tensor,
+    eps: Optional[torch.Tensor],
+    generator: Optional[torch.Generator] = None,
+    *,
+    skip_steps: int = 0,
+):
+    """Replay a DDIM chain from ``x_T`` consuming stored eps per step
+    (``eps`` time-major ``(n, B, H, W, C)``, or None for plain sampling);
+    steps past ``n`` draw fresh noise from ``generator``.  Returns the final
+    sample (x at index 0)."""
+    refine_steps = sched.num_steps - skip_steps
+    if refine_steps < 1:
+        raise ValueError(f"empty chain: refine_steps={refine_steps}")
+
+    eps_full = _eps_with_fresh_tail(eps, refine_steps, x_T, generator)
+    tb = _chain_tables(sched, refine_steps, refine_steps)
+    bsz = x_T.shape[0]
+    x = x_T
+    for i in range(refine_steps):
+        e_t = model_fn(x, _t_vec(tb.t[i], bsz, x.device))
+        x, _ = steps.ddim_step(
+            x, e_t, tb.a_t[i], tb.a_prev[i], tb.sigma[i], tb.s1ma[i],
+            eps_full[i])
+    return x

@@ -1,0 +1,42 @@
+"""The step probe's host-side pieces: kernel kinds, the alternating order of
+its runs, and the swap of the flash entry points for their plain versions
+(undone on leaving, also on an error)."""
+
+import pytest
+
+from cyclediffusion_tpu_torch.ops import flash_attention as fa
+from cyclediffusion_tpu_torch.tools import step_probe
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("void (anonymous namespace)::flash_fwd_bf16_kernel<40>(__nv_bfloat16 const*)",
+     "flash kernels (K1, K2)"),
+    ("void cudnn::engines_precompiled::nchwToNhwcKernel<__nv_bfloat16>", "cuDNN layout conversions"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "convolutions"),
+    ("nvjet_tst_168x128_64x5_1x2_h_bz_coopA_bias_TNN", "GEMMs"),
+    ("void at::native::(anonymous namespace)::RowwiseMomentsCUDAKernel<c10::BFloat16>", "GroupNorm"),
+    ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<c10::BFloat16>",
+     "LayerNorm"),
+    ("void at::native::elementwise_kernel<128, 4, direct_copy_kernel_cuda>", "copies"),
+    ("void at::native::elementwise_kernel<128, 4, CUDAFunctor_add<c10::BFloat16>>", "elementwise"),
+    ("some_new_kernel", "other"),
+])
+def test_kernel_kind(name, kind):
+    assert step_probe.kernel_kind(name) == kind
+
+
+def test_alternating_order():
+    assert list(step_probe.alternating(3)) == [
+        "kernels", "plain", "plain", "kernels", "kernels", "plain"]
+
+
+def test_attention_swap_is_undone():
+    kernels = fa.flash_attention_packed, fa.flash_attention_bhtd
+    with step_probe.attention("kernels"):
+        assert (fa.flash_attention_packed, fa.flash_attention_bhtd) == kernels
+    with pytest.raises(RuntimeError):
+        with step_probe.attention("plain"):
+            assert fa.flash_attention_packed is fa.attention_packed_reference
+            assert fa.flash_attention_bhtd is fa.attention_reference
+            raise RuntimeError("inside")
+    assert (fa.flash_attention_packed, fa.flash_attention_bhtd) == kernels
