@@ -8,22 +8,38 @@ Phases (each prints its results; any failure exits non-zero):
 
 1. Device: refuses to run without CUDA; prints the card's name and power
    limit (nvidia-smi).
-2. Build: compiles the flash-attention kernels from ``csrc/`` with nvcc.
-3. Kernel against plain: each kernel and its plain PyTorch version on the
-   same inputs, at the SD shapes in bf16, at a ragged shape, and in fp32
+2. Build: compiles the two kernel libraries from ``csrc/`` with nvcc, one
+   process each, started together.
+3. Kernel against plain: each of the four kernels (K1, K2 flash attention;
+   K3, K4 folded self-attention) and its plain PyTorch version on the same
+   inputs, at the main-path shapes in bf16, at a ragged shape, and in fp32
    with TF32 off; max abs error relative to max|plain| against a stated
-   bound, median times.
-4. The slice: SD-v1 at 512 px (full widths, seeded random weights, bf16),
-   2 translate requests through ``StochasticTextPipeline`` — 50 DDIM steps,
-   eta 0.1, encoder scale 1, decoder scale 5 — with the kernels' launch
-   counts checked (5 of each per UNet call), and one UNet call checked
-   against the same call with plain attention.
+   bound; median times of the kernel, the plain version and a library
+   comparison (``scaled_dot_product_attention`` for K1/K2, the split path
+   Linear -> SDPA -> Linear for K3/K4), timed only and never on the path;
+   each kernel's bound from its work at the main-path shape.
+4. The translate slice: SD-v1 at 512 px (full widths, seeded random
+   weights, bf16), 2 translate requests through ``StochasticTextPipeline``
+   — 50 DDIM steps, eta 0.1, encoder scale 1, decoder scale 5 — with the
+   kernels' launch counts checked (5 of K1 and of K2 per UNet call), and one
+   UNet call checked against the same call with plain attention.
+4b. The folded modes: one batch-4 UNet call each with ``folded_attn="qo"``
+   and ``"1"`` (same weights): 5 launches of K3 (or K4) and of K1, none of
+   K2; eps against the default mode's; the step's ms in each mode.
 5. Round trip: encode, then decode under the same text and scale 1, with
    deterministic cuDNN; with the UNet in fp32 the replay must give back the
    encoded latent (the bf16 round trip is printed, not bounded).
+6. The ensemble: the task model (``TextUnsupervisedTranslation`` through the
+   factory, ``CYCLEDIFFUSION_FOLDED_ATTN=qo``) encodes and ranks one 512 px
+   image: SD-v1 bf16, a full-width ViT-B/32 scorer with random weights, 2
+   trials x skips [10, 25] x decoder scales [1, 5] = 8 candidates in chunks
+   of 4.  Checks the UNet call count, 5 K3 launches per UNet call, the
+   returned image against the winning candidate (bit-equal), the winner
+   against the argmax of the scores recomputed candidate by candidate with
+   ``DirectionalCLIP.__call__``, and the winning combo.
 
-The last two lines of output are the kernels' JSON record and the result
-``{"ok": true, "device": {...}}``.
+The last three lines of output are the card's name and power limit, the
+kernels' JSON record and the result ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -46,8 +62,26 @@ BF16_REL_BOUND = 1e-2
 FP32_REL_BOUND = 1e-4  # fp32, TF32 off: only the summation order differs
 UNET_REL_BOUND = 5e-2  # whole bf16 UNet, kernels vs plain attention, / max|eps|
 ROUND_TRIP_BOUND = 1e-3  # max|replay - x0| on the latent, fp32 UNet (|x0| ~ 2.5)
+# fp32 DirectionalCLIP scores, the batched ranking vs one candidate at a time
+# (the GEMMs may sum in another order at another batch size)
+SCORE_BOUND = 1e-4
 STEPS = 50
 ETA = 0.1
+# the card's published peaks (H100 SXM, dense): bf16 tensor cores, fp32 CUDA
+# cores, HBM bandwidth
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_BYTES = 3.35e12
+
+KERNELS = {  # name -> (id, source under the repo, the TPU kernel it replaces)
+    "flash_attention_bhtd": ("K1", "cyclediffusion_tpu_torch/csrc/flash_attention.cu",
+                             "cyclediffusion_tpu/ops/flash_attention.py:187"),
+    "flash_attention_packed": ("K2", "cyclediffusion_tpu_torch/csrc/flash_attention.cu",
+                               "cyclediffusion_tpu/ops/flash_attention.py:267"),
+    "qout_self_attention_block": ("K3", "cyclediffusion_tpu_torch/csrc/folded_attention.cu",
+                                  "cyclediffusion_tpu/ops/flash_attention.py:421"),
+    "fused_self_attention_block": ("K4", "cyclediffusion_tpu_torch/csrc/folded_attention.cu",
+                                   "cyclediffusion_tpu/ops/flash_attention.py:482"),
+}
 
 
 def fail(msg: str) -> None:
@@ -78,41 +112,105 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
+def work(name: str, shp, dtype_name: str):
+    """(flops, bytes) of one call: the matrix products' operations and each
+    input read once, each output written once.  Shapes as in ``cases``."""
+    elt = 2 if dtype_name == "bf16" else 4
+    if name == "flash_attention_packed":
+        b, tq, tk, h, d = shp
+        return 4 * b * h * tq * tk * d, elt * b * h * d * (2 * tq + 2 * tk)
+    if name == "flash_attention_bhtd":
+        b, h, tq, tk, d = shp
+        return 4 * b * h * tq * tk * d, elt * b * h * d * (2 * tq + 2 * tk)
+    if name == "qout_self_attention_block":
+        b, tq, tk, c, h = shp     # H*D = C
+        flops = 4 * b * tq * tk * c + 2 * (2 * b * tq * c * c)
+        return flops, elt * (2 * b * tq * c + 2 * b * tk * c + 2 * c * c + c)
+    b, t, c, h = shp              # fused_self_attention_block
+    flops = 4 * b * t * t * c + 4 * (2 * b * t * c * c)
+    return flops, elt * (2 * b * t * c + 4 * c * c + c)
+
+
+def bound_of(name: str, shp, dtype_name: str):
+    """(least ms on the card, "operations" or "bytes")."""
+    flops, nbytes = work(name, shp, dtype_name)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def phase_kernels(torch, fa):
     """Phase 3: every kernel against its plain version on the card."""
+    F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def rand(shape, dtype):
-        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    def rand(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    def heads(x, h):
+        b, t, w = x.shape
+        return x.view(b, t, h, w // h).transpose(1, 2)
+
+    def split_path(x, wq, k, v, wo, bo, h):
+        """Linear -> SDPA -> Linear: the library's way to the folded block."""
+        o = F.scaled_dot_product_attention(heads(F.linear(x, wq), h), heads(k, h),
+                                           heads(v, h))
+        return F.linear(o.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1), wo, bo)
 
     bf16, f32 = torch.bfloat16, torch.float32
-    # (kernel, label, dtype, shape args); packed: (B, Tq, Tk, H, d),
-    # bhtd: (B, H, Tq, Tk, d).  "main path": what the slice below gives the
-    # kernels (2 requests x the CFG pair); its numbers go to the JSON record
+    # (kernel, label, dtype, shape); packed: (B, Tq, Tk, H, d), bhtd:
+    # (B, H, Tq, Tk, d), qout: (B, Tq, Tk, C, H), fused: (B, T, C, H), with
+    # H*d = C.  "main path": what the slices below give the kernels (2
+    # requests, or one image's 2 candidates, x the CFG pair); its numbers go
+    # to the JSON record
     cases = [
         ("flash_attention_packed", "main path", bf16, (4, 4096, 4096, 8, 40)),
         ("flash_attention_bhtd", "main path", bf16, (4, 8, 1024, 1024, 80)),
-        ("flash_attention_packed", "sd 64x64", bf16, (2, 4096, 4096, 8, 40)),
-        ("flash_attention_bhtd", "sd 32x32", bf16, (2, 8, 1024, 1024, 80)),
+        ("qout_self_attention_block", "main path", bf16, (4, 4096, 4096, 320, 8)),
+        ("fused_self_attention_block", "main path", bf16, (4, 4096, 320, 8)),
         ("flash_attention_packed", "ragged", bf16, (2, 300, 200, 4, 64)),
         ("flash_attention_bhtd", "ragged", bf16, (1, 2, 1024, 77, 40)),
+        ("qout_self_attention_block", "ragged", bf16, (2, 300, 200, 256, 4)),
+        ("fused_self_attention_block", "ragged", bf16, (2, 300, 256, 4)),
         ("flash_attention_packed", "sd 64x64", f32, (2, 4096, 4096, 8, 40)),
         ("flash_attention_bhtd", "sd 32x32", f32, (2, 8, 1024, 1024, 80)),
+        ("qout_self_attention_block", "sd 64x64", f32, (2, 4096, 4096, 320, 8)),
+        ("fused_self_attention_block", "sd 64x64", f32, (2, 4096, 320, 8)),
     ]
     record = {}
     for name, label, dtype, shp in cases:
         if name == "flash_attention_packed":
             b, tq, tk, h, d = shp
             q, k, v = rand((b, tq, h * d), dtype), rand((b, tk, h * d), dtype), rand((b, tk, h * d), dtype)
-            scale = d ** -0.5
-            kernel = functools.partial(fa.flash_attention_packed, q, k, v, h, scale)
-            plain = functools.partial(fa.attention_packed_reference, q, k, v, h, scale)
-        else:
+            kernel = functools.partial(fa.flash_attention_packed, q, k, v, h, d ** -0.5)
+            plain = functools.partial(fa.attention_packed_reference, q, k, v, h, d ** -0.5)
+            library = functools.partial(F.scaled_dot_product_attention, heads(q, h),
+                                        heads(k, h), heads(v, h))
+        elif name == "flash_attention_bhtd":
             b, h, tq, tk, d = shp
             q, k, v = rand((b, h, tq, d), dtype), rand((b, h, tk, d), dtype), rand((b, h, tk, d), dtype)
-            scale = d ** -0.5
-            kernel = functools.partial(fa.flash_attention_bhtd, q, k, v, scale)
-            plain = functools.partial(fa.attention_reference, q, k, v, scale)
+            kernel = functools.partial(fa.flash_attention_bhtd, q, k, v, d ** -0.5)
+            plain = functools.partial(fa.attention_reference, q, k, v, d ** -0.5)
+            library = functools.partial(F.scaled_dot_product_attention, q, k, v)
+        else:
+            if name == "qout_self_attention_block":
+                b, tq, tk, c, h = shp
+            else:
+                b, tq, c, h = shp
+                tk = tq
+            x = rand((b, tq, c), dtype)
+            wq, wk, wv = (rand((c, c), dtype, c ** -0.5) for _ in range(3))
+            wo, bo = rand((c, c), dtype, c ** -0.5), rand((c,), dtype, 0.1)
+            if name == "qout_self_attention_block":
+                x_kv = rand((b, tk, c), dtype)
+                k, v = F.linear(x_kv, wk), F.linear(x_kv, wv)
+                kernel = functools.partial(fa.qout_self_attention_block, x, wq, k, v, wo, bo, h)
+                plain = functools.partial(fa.qout_self_attention_reference, x, wq, k, v, wo, bo, h)
+                library = functools.partial(split_path, x, wq, k, v, wo, bo, h)
+            else:
+                kernel = functools.partial(fa.fused_self_attention_block, x, wq, wk, wv, wo, bo, h)
+                plain = functools.partial(fa.fused_self_attention_reference, x, wq, wk, wv, wo, bo, h)
+                library = lambda x=x, wq=wq, wk=wk, wv=wv, wo=wo, bo=bo, h=h: split_path(
+                    x, wq, F.linear(x, wk), F.linear(x, wv), wo, bo, h)
         out = kernel()
         torch.cuda.synchronize()
         want = plain()
@@ -126,14 +224,19 @@ def phase_kernels(torch, fa):
         again = kernel()
         if not torch.equal(out, again):
             fail(f"{name} {label} {dtype}: two launches differ")
-        ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(plain)
-        say(f"kernel {name} [{label}] {str(dtype).split('.')[-1]} shape={shp}: "
+        dname = "bf16" if dtype == bf16 else "fp32"
+        ms, plain_ms, library_ms = (cuda_time_ms(fn) for fn in (kernel, plain, library))
+        bound_ms, bound_by = bound_of(name, shp, dname)
+        say(f"kernel {KERNELS[name][0]} {name} [{label}] {dname} shape={shp}: "
             f"max_abs_err={err:.3e}, max|plain|={peak:.3e}, ratio {rel:.3e} "
-            f"(bound {bound:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"(bound {bound:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {library_ms:.4f} ms; least time {bound_ms:.4f} ms ({bound_by})")
         if not rel <= bound:
             fail(f"{name} {label} {dtype}: max_abs_err / max|plain| = {rel} > {bound}")
         if label == "main path":
-            record[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            record[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": library_ms}
     return record
 
 
@@ -212,8 +315,9 @@ def phase_slice(torch, fa, attention, HashTokenizer, LatentCoreSpec,
         if counts[name] != 5 * unet_calls[0]:
             fail(f"{name}: {counts[name]} launches, expected 5 per UNet call "
                  f"({5 * unet_calls[0]})")
-    say(f"slice: launches {counts} = 5 per UNet call for each kernel; the "
-        f"folded-attention kernels K3/K4 are not ported, so nothing can launch them")
+    if counts["qout_self_attention_block"] or counts["fused_self_attention_block"]:
+        fail(f"default mode launched a folded kernel: {counts}")
+    say(f"slice: launches {counts} = 5 per UNet call of K1 and of K2")
 
     # per-UNet-step time at the CFG dual batch of the 2 requests
     step_ms = cuda_time_ms(lambda: core.apply_model(x_warm, t_warm, ctx), reps=10)
@@ -231,6 +335,9 @@ def phase_slice(torch, fa, attention, HashTokenizer, LatentCoreSpec,
     if not rel <= UNET_REL_BOUND:
         fail(f"UNet with kernels disagrees with plain attention: {rel}")
 
+    folded_counts = phase_folded_modes(torch, fa, spec, LatentDiffusionCore, x_chk,
+                                       t_warm, ctx, eps_kernel, step_ms)
+
     rt_bf16 = round_trip(torch, core, pipe, images, src)
     say(f"round trip, bf16 UNet: max|replay - x0| = {rt_bf16:.3e} (not bounded: a "
         f"bf16 cast of the replayed latent that rounds one element the other way "
@@ -246,6 +353,170 @@ def phase_slice(torch, fa, attention, HashTokenizer, LatentCoreSpec,
         f"(bound {ROUND_TRIP_BOUND:.0e})")
     if not err <= ROUND_TRIP_BOUND:
         fail(f"round trip error {err} > {ROUND_TRIP_BOUND}")
+    del core, pipe
+    torch.cuda.empty_cache()
+    return counts, folded_counts
+
+
+def phase_folded_modes(torch, fa, spec, LatentDiffusionCore, x, t, ctx, eps_default,
+                       default_ms):
+    """Phase 4b: one batch-4 UNet call in each folded mode -> the launch
+    counts of the ``"1"`` call (the path that runs K4)."""
+    counts = {}
+    for mode, kernel in (("qo", "qout_self_attention_block"),
+                         ("1", "fused_self_attention_block")):
+        core = LatentDiffusionCore.random_init(spec, seed=0, device="cuda",
+                                               dtype=torch.bfloat16, folded_attn=mode)
+        core.apply_model(x, t, ctx)      # warm-up, off the counted call
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        eps = core.apply_model(x, t, ctx)
+        torch.cuda.synchronize()
+        counts[mode] = dict(fa.launch_counts)
+        c = counts[mode]
+        others = {"qout_self_attention_block", "fused_self_attention_block"} - {kernel}
+        if (c[kernel] != 5 or c["flash_attention_bhtd"] != 5
+                or c["flash_attention_packed"] != 0 or any(c[o] for o in others)):
+            fail(f"folded_attn={mode!r}: launches {c}, expected 5 of {kernel}, 5 of "
+                 f"flash_attention_bhtd and none of the others per UNet call")
+        rel = float((eps - eps_default).abs().max() / eps_default.abs().max())
+        ms = cuda_time_ms(lambda: core.apply_model(x, t, ctx), reps=10)
+        say(f"folded mode {mode!r}: launches {c} in one UNet call; eps vs the default "
+            f"mode: max abs diff / max|eps| = {rel:.3e} (bound {UNET_REL_BOUND:.0e}); "
+            f"UNet step {ms:.3f} ms median (default mode {default_ms:.3f} ms)")
+        if not rel <= UNET_REL_BOUND:
+            fail(f"folded_attn={mode!r} disagrees with the default mode: {rel}")
+        del core
+        torch.cuda.empty_cache()
+    return counts["1"]
+
+
+def expected_unet_calls(pipe, num_recovered_eps) -> int:
+    """UNet calls of one encode + generate: per skip, its chunks times the
+    chain length (the recovered eps on encode, the refine steps on decode)."""
+    S, D = pipe.sched.num_steps, len(pipe.dec_scales)
+    combos = pipe._combos()
+    chunk = pipe.candidate_chunk
+    calls = 0
+    for skip in sorted(set(pipe.skip_steps)):
+        k = sum(1 for _, _, sk in combos if sk == skip)
+        n = num_recovered_eps(S, pipe.white_box_steps, skip)
+        calls += n * -(-k // (chunk or k)) + (S - skip) * -(-k * D // (chunk or k * D))
+    return calls
+
+
+def phase_ensemble(torch, fa, Args, TextUnsupervisedTranslation, num_recovered_eps):
+    """Phase 6: one image through the task model's encode + ranked forward."""
+    gan = Args(gan_type="SDStochasticText", source_model_type="sd-v1-4.ckpt",
+               source_init_seed=0, custom_steps=STEPS, white_box_steps=STEPS + 1,
+               eta=ETA, encoder_unconditional_guidance_scales=[1],
+               decoder_unconditional_guidance_scales=[1, 5], n_trials=2,
+               skip_steps=[10, 25], candidate_chunk=4)
+    os.environ["CYCLEDIFFUSION_FOLDED_ATTN"] = "qo"
+    try:
+        model = TextUnsupervisedTranslation(Args(gan=gan), base_seed=0, device="cuda")
+    finally:
+        del os.environ["CYCLEDIFFUSION_FOLDED_ATTN"]
+    pipe = model.gan_wrapper
+    core, dclip = pipe.core, pipe.directional_clip
+    say(f"ensemble: SD-v1 {core.dtype} folded_attn={core.folded_attn!r}, scorer ViT-B/32 "
+        f"({sum(p.numel() for p in dclip.scorer.model.parameters()):,} params, "
+        f"{dclip.scorer.dtype}); {pipe.n_trials} trials x enc {pipe.enc_scales} x skips "
+        f"{pipe.skip_steps} x dec {pipe.dec_scales}, candidate_chunk {pipe.candidate_chunk}")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    small = torch.rand((1, 3, 8, 8), generator=gen, device="cuda")
+    image = torch.nn.functional.interpolate(small, size=(512, 512), mode="bilinear",
+                                            align_corners=False).permute(0, 2, 3, 1)
+    src, dst = ["a photo of a cat"], ["a photo of a dog"]
+    # warm-up: one UNet call at each chain batch (2 or 4 candidates x the
+    # CFG pair), off the counted run
+    ctx = pipe.get_condition(src)
+    for bsz in (4, 8):
+        core.apply_model(torch.zeros((bsz, 64, 64, 4), device="cuda"),
+                         torch.full((bsz,), 981, dtype=torch.int64, device="cuda"),
+                         ctx.expand(bsz, -1, -1))
+    torch.cuda.synchronize()
+
+    # spies: what the ranked forward generated and how it scored it
+    seen = {}
+    apply_model, generate, rank, forward = (core.apply_model, pipe.generate, pipe.rank,
+                                            pipe.forward)
+    unet_calls = [0]
+
+    def counted(*a):
+        unet_calls[0] += 1
+        return apply_model(*a)
+
+    def spy_generate(*a, **k):
+        seen["candidates"] = generate(*a, **k)
+        return seen["candidates"]
+
+    def spy_rank(*a, **k):
+        seen["scores"], seen["best"] = rank(*a, **k)
+        return seen["scores"], seen["best"]
+
+    def spy_forward(*a, **k):
+        seen["image"], seen["combos"] = forward(*a, **k)
+        return seen["image"], seen["combos"]
+
+    core.apply_model, pipe.generate, pipe.rank, pipe.forward = (
+        counted, spy_generate, spy_rank, spy_forward)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    (_, img), _, _ = model.forward([0], image.cpu().numpy(), src, dst)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(fa.launch_counts)
+    for name in ("generate", "rank", "forward"):
+        delattr(pipe, name)      # the spies were instance attributes
+    core.apply_model = apply_model
+    peak = torch.cuda.max_memory_allocated()
+
+    want_calls = expected_unet_calls(pipe, num_recovered_eps)
+    say(f"ensemble: 1 sample in {secs:.3f} s, {unet_calls[0]} UNet calls (expected "
+        f"{want_calls}), launches {counts}; peak device memory {peak / 2**30:.2f} GiB")
+    if unet_calls[0] != want_calls:
+        fail(f"ensemble ran {unet_calls[0]} UNet calls, expected {want_calls}")
+    if (counts["qout_self_attention_block"] != 5 * unet_calls[0]
+            or counts["flash_attention_bhtd"] != 5 * unet_calls[0]
+            or counts["flash_attention_packed"] or counts["fused_self_attention_block"]):
+        fail(f"ensemble launches {counts}: expected 5 of K3 and of K1 per UNet call")
+    cands = seen["candidates"]
+    n_cand = len(pipe._combos()) * len(pipe.dec_scales)
+    if len(cands) != n_cand or tuple(img.shape) != (1, 512, 512, 3):
+        fail(f"{len(cands)} candidates (expected {n_cand}), image {tuple(img.shape)}")
+    if not torch.isfinite(img).all():
+        fail("ensemble image has non-finite values")
+    best = int(seen["best"][0])
+    if not torch.equal(img[0], cands[best][0]):
+        fail(f"the returned image is not candidate {best}, the winner")
+
+    # every candidate scored alone through DirectionalCLIP.__call__
+    single = torch.stack([dclip(c, image, src, dst)[1][0] for c in cands])
+    batched = seen["scores"][0]
+    diff = float((single - batched).abs().max())
+    order = torch.argsort(single, descending=True)
+    gap = float(single[order[0]] - single[order[1]])
+    say(f"ensemble: scores {[round(float(v), 5) for v in batched]}; winner {best}; "
+        f"one-by-one scores differ by at most {diff:.3e} (bound {SCORE_BOUND:.0e}); "
+        f"their top-two gap {gap:.3e}")
+    if not diff <= SCORE_BOUND:
+        fail(f"batched and one-by-one DirectionalCLIP scores differ by {diff}")
+    if gap > SCORE_BOUND and best != int(order[0]):
+        fail(f"winner {best} is not the one-by-one argmax {int(order[0])}")
+    if float(single[best]) < float(single[order[0]]) - SCORE_BOUND:
+        fail(f"winner {best} scores below the best by more than {SCORE_BOUND}")
+
+    D = len(pipe.dec_scales)
+    _, es, sk = pipe._combos()[best // D]
+    combo = (es, pipe.dec_scales[best % D], sk)
+    if seen["combos"][0] != combo:
+        fail(f"forward reported combo {seen['combos'][0]}, the winner {best} "
+             f"decodes to {combo}")
+    say(f"ensemble: forward's winning combo (enc_scale, dec_scale, skip) "
+        f"{seen['combos'][0]} decodes back to candidate {best}")
     return counts
 
 
@@ -288,27 +559,40 @@ def main() -> None:
         LatentDiffusionCore,
     )
     from cyclediffusion_tpu_torch.pipelines.latent_text import StochasticTextPipeline
+    from cyclediffusion_tpu_torch.runtime.config import Args
+    from cyclediffusion_tpu_torch.samplers import num_recovered_eps
+    from cyclediffusion_tpu_torch.tasks.text_unsupervised_translation import (
+        TextUnsupervisedTranslation,
+    )
     from cyclediffusion_tpu_torch.text import HashTokenizer
     from cyclediffusion_tpu_torch.tools.step_probe import attention
 
     t0 = time.perf_counter()
-    info = fa.load_kernels()
-    say(f"build: {info.path.name} {'built' if info.built else 'found'} in "
-        f"{info.seconds:.2f} s (load {time.perf_counter() - t0:.2f} s)")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"build: {line.strip()}")
+    infos = fa.load_kernels()
+    for info in infos:
+        say(f"build: {info.path.name} {'built' if info.built else 'found'} in "
+            f"{info.seconds:.2f} s")
+        for line in info.log.splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"build: {line.strip()}")
+    say(f"build: both libraries loaded in {time.perf_counter() - t0:.2f} s")
 
     record = phase_kernels(torch, fa)
-    counts = phase_slice(torch, fa, attention, HashTokenizer, LatentCoreSpec,
-                         LatentDiffusionCore, StochasticTextPipeline)
+    slice_counts, k4_counts = phase_slice(torch, fa, attention, HashTokenizer,
+                                          LatentCoreSpec, LatentDiffusionCore,
+                                          StochasticTextPipeline)
+    ens_counts = phase_ensemble(torch, fa, Args, TextUnsupervisedTranslation,
+                                num_recovered_eps)
 
-    source = "cyclediffusion_tpu_torch/csrc/flash_attention.cu"
-    replaces = {"flash_attention_packed": "cyclediffusion_tpu/ops/flash_attention.py:267",
-                "flash_attention_bhtd": "cyclediffusion_tpu/ops/flash_attention.py:187"}
-    kernels = [{"name": name, "route": "cuda", "source": source,
-                "replaces": replaces[name], "launches": counts[name], **record[name]}
-               for name in ("flash_attention_packed", "flash_attention_bhtd")]
+    # launches on the path that runs each kernel: the translate slice (K1,
+    # K2), the ensemble (K3), the UNet call in folded mode "1" (K4)
+    launches = {"flash_attention_bhtd": slice_counts["flash_attention_bhtd"],
+                "flash_attention_packed": slice_counts["flash_attention_packed"],
+                "qout_self_attention_block": ens_counts["qout_self_attention_block"],
+                "fused_self_attention_block": k4_counts["fused_self_attention_block"]}
+    kernels = [{"name": name, "route": "cuda", "source": KERNELS[name][1],
+                "replaces": KERNELS[name][2], "launches": launches[name], **record[name]}
+               for name in KERNELS]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,26 +11,35 @@ HWIO -> OIHW; norm ``scale`` -> ``weight``; ``Embed.embedding`` ->
 ``weight``; ``bias`` and raw parameters (``position_embedding``) as they are.
 The ``_Kernel`` / ``_KernelBias`` holders are ordinary ``{kernel[, bias]}``
 dicts, so they land on ``Linear(bias=False)`` / ``Linear``.
+
+The CLIP scorer's tree goes the same way: ``conv1`` HWIO -> OIHW without a
+bias; ``class_embedding``, ``positional_embedding``, ``proj`` and
+``text_projection`` as raw parameters; ``in_proj`` as one
+``Linear(w, 3w)``; ``ln_1`` / ``ln_2`` keep their names.
+:func:`from_openai_state_dict` maps OpenAI's own ``ViT-B-32.pt`` names onto
+the same modules.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import re
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
-_MID_NAMES = {"mid_block_1": "mid.block_1", "mid_attn_1": "mid.attn_1",
-              "mid_block_2": "mid.block_2"}
+# Flax names whose numbered tail is part of the module's name, not an index
+_KEPT_NAMES = {"mid_block_1": "mid.block_1", "mid_attn_1": "mid.attn_1",
+               "mid_block_2": "mid.block_2", "ln_1": "ln_1", "ln_2": "ln_2"}
 
 
 def module_name(flax_name: str) -> str:
     """One Flax path component -> its dotted port path: an all-digit
     ``_``-separated token is split off with dots (``up_0_block_1`` ->
     ``up.0.block.1``)."""
-    if flax_name in _MID_NAMES:
-        return _MID_NAMES[flax_name]
+    if flax_name in _KEPT_NAMES:
+        return _KEPT_NAMES[flax_name]
     toks = flax_name.split("_")
     out = toks[0]
     for prev, tok in zip(toks, toks[1:]):
@@ -92,3 +101,45 @@ def flax_to_state_dict(tree: dict, module: nn.Module) -> Dict[str, torch.Tensor]
 def load_flax_params(module: nn.Module, tree: dict) -> None:
     """Load a Flax tree into ``module`` in place (cast to its dtype/device)."""
     module.load_state_dict(flax_to_state_dict(tree, module), strict=True)
+
+
+# OpenAI CLIP state-dict names -> the port's CLIPModel names
+_OPENAI_RENAMES = (
+    (r"^(visual\.)transformer\.resblocks\.(\d+)\.", r"\1resblocks.\2."),
+    (r"^transformer\.resblocks\.(\d+)\.", r"text.resblocks.\1."),
+    (r"^(token_embedding|positional_embedding|text_projection|ln_final)\b", r"text.\1"),
+    (r"\.attn\.in_proj_(weight|bias)$", r".in_proj.\1"),
+    (r"\.attn\.out_proj\.", r".out_proj."),
+    (r"\.mlp\.(c_fc|c_proj)\.", r".\1."),
+)
+
+
+def from_openai_state_dict(state_dict: Mapping[str, object],
+                           module: nn.Module) -> Dict[str, torch.Tensor]:
+    """OpenAI's CLIP state dict (``ViT-B-32.pt``'s names, torch tensors or
+    numpy arrays) -> a complete state dict for the port's ``CLIPModel``.
+    ``logit_scale`` is dropped: scoring uses cosine similarity only.  Raises
+    on an unmapped key, an unset parameter or a shape mismatch."""
+    targets = module.state_dict()
+    out, unmapped, bad = {}, [], []
+    for key, value in state_dict.items():
+        if key == "logit_scale":
+            continue
+        name = key
+        for pat, rep in _OPENAI_RENAMES:
+            name = re.sub(pat, rep, name)
+        if name not in targets:
+            unmapped.append(key)
+            continue
+        arr = torch.as_tensor(np.asarray(value, dtype=np.float32))
+        if tuple(arr.shape) != tuple(targets[name].shape):
+            bad.append(f"{name}: {tuple(arr.shape)} vs {tuple(targets[name].shape)}")
+            continue
+        out[name] = arr
+    missing = sorted(set(targets) - set(out) - {b.split(":")[0] for b in bad})
+    if unmapped or missing or bad:
+        raise ValueError(
+            f"OpenAI CLIP conversion mismatch: unmapped keys {unmapped[:8]} "
+            f"({len(unmapped)}), unset parameters {missing[:8]} ({len(missing)}), "
+            f"shape mismatches {bad[:8]} ({len(bad)})")
+    return out

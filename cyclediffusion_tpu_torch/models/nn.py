@@ -30,6 +30,33 @@ def gd_timestep_embedding(t: torch.Tensor, dim: int,
     return emb
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device must exist (the port's
+    entry points run on the card unless the caller passes ``"cpu"``)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available; "
+                           "pass device='cpu' to run on the CPU")
+    return device
+
+
+@torch.no_grad()
+def fill_random_(module: nn.Module, generator: torch.Generator) -> None:
+    """Overwrite every parameter with seeded normal draws — zero-initialised
+    layers included, so attention reaches the output of a random model.
+    Matrices and kernels get std 1/sqrt(fan_in), norm scales 1 + 0.1 N(0,1),
+    biases 0.1 N(0,1)."""
+    for name, p in module.named_parameters():
+        z = torch.randn(p.shape, generator=generator, device=p.device)
+        if p.ndim >= 2:
+            z = z * (p[0].numel() ** -0.5)
+        elif name.endswith("weight"):
+            z = 1.0 + 0.1 * z
+        else:
+            z = 0.1 * z
+        p.copy_(z.to(p.dtype))
+
+
 def silu(x):
     return F.silu(x)
 

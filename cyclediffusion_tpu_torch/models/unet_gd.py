@@ -129,9 +129,12 @@ def _apply_layers(layers, h, emb, context):
 
 
 class GDUNet(nn.Module):
-    """``forward(x (B,H,W,C) NHWC, t (B,), context (B,T,ctx))`` -> eps NHWC."""
+    """``forward(x (B,H,W,C) NHWC, t (B,), context (B,T,ctx))`` -> eps NHWC.
 
-    def __init__(self, cfg: GDUNetConfig):
+    ``folded_attn`` (``None``, ``"qo"`` or ``"1"``) goes to every spatial
+    transformer's self-attention (see ``transformer.CrossAttention``)."""
+
+    def __init__(self, cfg: GDUNetConfig, folded_attn: Optional[str] = None):
         super().__init__()
         if not cfg.use_spatial_transformer or cfg.context_dim is None:
             raise NotImplementedError(
@@ -149,7 +152,8 @@ class GDUNet(nn.Module):
             num_heads, dim_head = _attn_layout(cfg, ch, num_heads)
             return SpatialTransformer(ch, num_heads, dim_head,
                                       depth=cfg.transformer_depth,
-                                      context_dim=cfg.context_dim)
+                                      context_dim=cfg.context_dim,
+                                      folded_attn=folded_attn)
 
         ch = int(cfg.channel_mult[0] * mc)
         self.input_blocks = nn.ModuleList(

@@ -1,31 +1,41 @@
 """Flash attention for the SD UNet's long self-attention (counterpart of
 ``cyclediffusion_tpu.ops.flash_attention``).
 
-Two kernels, written in CUDA C++ for Hopper in ``csrc/flash_attention.cu``
-(see the note at the top of that file for what bounds them and how they are
-built), replace the two Pallas kernels on the SD-v1 translate path:
+Four kernels, written in CUDA C++ for Hopper (see the notes at the top of
+``csrc/flash_attention.cu`` and ``csrc/folded_attention.cu`` for what bounds
+them and how they are built), replace the four Pallas kernels:
 
 * :func:`flash_attention_packed` (K2) — token-major q ``(B, Tq, H*D)``, k/v
   ``(B, Tk, H*D)``; replaces ``flash_attention_packed`` / ``_packed_kernel``.
 * :func:`flash_attention_bhtd` (K1) — head-major q ``(B, H, Tq, D)``, k/v
   ``(B, H, Tk, D)``; replaces ``flash_attention_bhtd`` / ``_flash_kernel``.
+* :func:`qout_self_attention_block` (K3) — q projection, attention and
+  output projection with bias, k/v given; replaces
+  ``qout_self_attention_block`` / ``_qout_kernel``.
+* :func:`fused_self_attention_block` (K4) — the same with the k/v
+  projections too; replaces ``fused_self_attention_block`` /
+  ``_folded_kernel``.
 
 Each wrapper takes its plain PyTorch version (:func:`attention_reference`,
-:func:`attention_packed_reference`) for tensors on the CPU, and only there:
-for a CUDA tensor it launches its kernel or raises.  Each launch adds one to
-the wrapper's entry in :data:`launch_counts`.
+:func:`attention_packed_reference`, :func:`qout_self_attention_reference`,
+:func:`fused_self_attention_reference`) for tensors on the CPU, and only
+there: for a CUDA tensor it launches its kernel or raises.  Each call that
+launches adds one to the wrapper's entry in :data:`launch_counts`.
 
 :func:`multi_head_attention_fused` dispatches by shape with the JAX
 package's thresholds: Tq >= 2048 with Tk >= 512 to K2, 1024 <= Tq < 2048
 with Tk >= 512 to K1, everything shorter (the <=256-token levels, the
-77-token cross-attention) to plain attention.
+77-token cross-attention) to plain attention.  K3/K4 are chosen by the
+transformer's ``CrossAttention`` (``folded_attn``).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import math
+from typing import List
 
 import torch
 
@@ -40,7 +50,22 @@ MIN_FLASH_TOKENS = 1024
 
 # kernel launches per wrapper since the last reset (plain-version calls on
 # CPU tensors are not launches and do not count)
-launch_counts = {"flash_attention_packed": 0, "flash_attention_bhtd": 0}
+launch_counts = {"flash_attention_packed": 0, "flash_attention_bhtd": 0,
+                 "qout_self_attention_block": 0, "fused_self_attention_block": 0}
+
+_VP, _CI, _CF, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# the CUDA libraries: name -> (sources under csrc/, headers hashed and .cu
+# built; the C entry points' argument types, each returning a CUDA error code)
+_LIBRARIES = {
+    "flash_attention": (("flash_attention.cu", "attention_common.cuh"), {
+        "cd_flash_attention_packed": [_VP] * 4 + [_CI] * 5 + [_CF, _CI, _VP],
+        "cd_flash_attention_bhtd": [_VP] * 4 + [_CI] * 5 + [_CL] * 9 + [_CF, _CI, _VP],
+    }),
+    "folded_attention": (("folded_attention.cu", "attention_common.cuh"), {
+        "cd_qout_self_attention": [_VP] * 7 + [_CI] * 6 + [_CL] * 4 + [_CF, _CI, _VP],
+        "cd_fused_self_attention": [_VP] * 8 + [_CI] * 5 + [_CF, _CI, _VP],
+    }),
+}
 
 
 def reset_launch_counts() -> None:
@@ -49,23 +74,24 @@ def reset_launch_counts() -> None:
 
 
 @functools.cache
-def _kernels():
+def _library(name: str):
     """(build info, loaded library) — nvcc runs on the first call only."""
-    info = cuda_build.build_library("flash_attention", ["flash_attention.cu"])
+    sources, signatures = _LIBRARIES[name]
+    info = cuda_build.build_library(name, sources)
     lib = ctypes.CDLL(str(info.path))
-    vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.cd_flash_attention_packed.argtypes = (
-        [vp] * 4 + [ci] * 5 + [cf, ci, vp])
-    lib.cd_flash_attention_packed.restype = ci
-    lib.cd_flash_attention_bhtd.argtypes = (
-        [vp] * 4 + [ci] * 5 + [cl] * 9 + [cf, ci, vp])
-    lib.cd_flash_attention_bhtd.restype = ci
+    for fn_name, argtypes in signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = _CI
     return info, lib
 
 
-def load_kernels() -> cuda_build.BuildInfo:
-    """Build (if needed) and load the kernels; returns the build record."""
-    return _kernels()[0]
+def load_kernels() -> List[cuda_build.BuildInfo]:
+    """Build (if needed) and load every kernel library, one nvcc process per
+    library, all started together; returns the build records."""
+    with concurrent.futures.ThreadPoolExecutor(len(_LIBRARIES)) as pool:
+        futures = [pool.submit(_library, name) for name in _LIBRARIES]
+        return [f.result()[0] for f in futures]
 
 
 def attention_reference(q, k, v, sm_scale: float):
@@ -141,7 +167,7 @@ def flash_attention_packed(q, k, v, num_heads: int, sm_scale: float):
     q, k, v = (_kernel_ready(x, contiguous=True) for x in (q, k, v))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        rc = _kernels()[1].cd_flash_attention_packed(
+        rc = _library("flash_attention")[1].cd_flash_attention_packed(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, tq, tk, num_heads, d, float(sm_scale),
             int(q.dtype == torch.bfloat16),
@@ -168,13 +194,139 @@ def flash_attention_bhtd(q, k, v, sm_scale: float):
     q, k, v = (_kernel_ready(x, contiguous=False) for x in (q, k, v))
     out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        rc = _kernels()[1].cd_flash_attention_bhtd(
+        rc = _library("flash_attention")[1].cd_flash_attention_bhtd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, tq, tk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             float(sm_scale), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error("flash_attention_bhtd", rc)
     launch_counts["flash_attention_bhtd"] += 1
+    return out
+
+
+def _folded_attention(q, k, v, num_heads: int, sm_scale: float):
+    """Token-major attention at the folded kernels' rounding points: fp32
+    logits, p = exp(s - max) rounded to the input dtype, l the fp32 sum of
+    that rounded p, P.V accumulated in fp32, the normalised result rounded
+    once to the input dtype."""
+    qh, kh, vh = (_heads(x, num_heads) for x in (q, k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", qh.float(), kh.float()) * sm_scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).to(v.dtype).float()
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vh.float()) / p.sum(dim=-1, keepdim=True)
+    return _tokens(o.to(v.dtype))
+
+
+def _project(x, w, b=None):
+    """x W^T (+ b), accumulated in fp32 and rounded once to x's dtype."""
+    out = torch.nn.functional.linear(x.float(), w.float())
+    return (out if b is None else out + b.float()).to(x.dtype)
+
+
+def qout_self_attention_reference(x, wq, k, v, wo, bo, num_heads: int):
+    """The plain version of K3 (same arguments as
+    :func:`qout_self_attention_block`)."""
+    d = wq.shape[0] // num_heads
+    q = _project(x, wq)
+    return _project(_folded_attention(q, k, v, num_heads, d ** -0.5), wo, bo)
+
+
+def fused_self_attention_reference(x, wq, wk, wv, wo, bo, num_heads: int):
+    """The plain version of K4: k and v projected from x, rounded once, then
+    :func:`qout_self_attention_reference`."""
+    return qout_self_attention_reference(x, wq, _project(x, wk), _project(x, wv),
+                                         wo, bo, num_heads)
+
+
+def _check_folded(name: str, x, weights, kv, num_heads: int) -> int:
+    """Shape checks of K3/K4 on any device; returns the head dim."""
+    b, _, c = x.shape
+    wq, wo, bo = weights[0], weights[-2], weights[-1]
+    hd = wq.shape[0]
+    ok = (num_heads > 0 and hd % num_heads == 0 and bo.shape == (c,)
+          and wo.shape == (c, hd) and all(w.shape == (hd, c) for w in weights[:-2])
+          and all(t.ndim == 3 and t.shape[0] == b and t.shape[2] == hd for t in kv)
+          and (not kv or kv[0].shape == kv[1].shape))
+    if not ok:
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, weights "
+                         f"{[tuple(w.shape) for w in weights]}, k/v "
+                         f"{[tuple(t.shape) for t in kv]}, heads={num_heads}")
+    if x.shape[1] == 0 or any(t.shape[1] == 0 for t in kv):
+        raise ValueError(f"{name}: empty query or key axis")
+    return hd // num_heads
+
+
+def _check_folded_kernel_inputs(name: str, tensors, d: int, c: int, hd: int) -> None:
+    x = tensors[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: tensors on {x.device}; the kernel needs CUDA")
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"{name}: tensors on different devices")
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in tensors):
+        raise ValueError(f"{name}: dtypes {[t.dtype for t in tensors]}; the kernel "
+                         "takes float32 or bfloat16, all the same (weights cast first)")
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
+    if c % 64 or hd % 64:
+        raise ValueError(f"{name}: widths C={c}, H*D={hd}; the kernel takes "
+                         "multiples of 64")
+    if x.shape[0] * x.shape[1] > 65535 * 64:
+        raise ValueError(f"{name}: batch*tokens exceeds the grid's limit")
+
+
+def qout_self_attention_block(x, wq, k, v, wo, bo, num_heads: int):
+    """K3: ``(softmax((x Wq^T) k^T / sqrt(d)) v) Wo^T + bo`` with k and v given.
+
+    x (B, Tq, C); ``nn.Linear`` weights as they are, never transposed per
+    call: wq (H*D, C), wo (C, H*D), bo (C,); k/v (B, Tk, H*D), token-major,
+    possibly strided views with a contiguous last dim.  All in x's dtype.
+    Returns (B, Tq, C)."""
+    d = _check_folded("qout_self_attention_block", x, (wq, wo, bo), (k, v), num_heads)
+    if x.device.type == "cpu":
+        return qout_self_attention_reference(x, wq, k, v, wo, bo, num_heads)
+    b, tq, c = x.shape
+    tk, hd = k.shape[1], wq.shape[0]
+    _check_folded_kernel_inputs("qout_self_attention_block", (x, wq, k, v, wo, bo),
+                                d, c, hd)
+    x, wq, wo, bo = (_kernel_ready(t, contiguous=True) for t in (x, wq, wo, bo))
+    k, v = (_kernel_ready(t, contiguous=False) for t in (k, v))
+    out = torch.empty((b, tq, c), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _library("folded_attention")[1].cd_qout_self_attention(
+            x.data_ptr(), wq.data_ptr(), k.data_ptr(), v.data_ptr(), wo.data_ptr(),
+            bo.data_ptr(), out.data_ptr(), b, tq, tk, c, num_heads, d,
+            k.stride(0), k.stride(1), v.stride(0), v.stride(1), d ** -0.5,
+            int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on_error("qout_self_attention_block", rc)
+    launch_counts["qout_self_attention_block"] += 1
+    return out
+
+
+def fused_self_attention_block(x, wq, wk, wv, wo, bo, num_heads: int):
+    """K4: :func:`qout_self_attention_block` with k = x Wk^T and v = x Wv^T
+    computed by the kernel (wk, wv (H*D, C)).  Two launches behind one call
+    (the [k | v] projection into a workspace, then K3's kernel on it); the
+    call counts as one launch of K4."""
+    d = _check_folded("fused_self_attention_block", x, (wq, wk, wv, wo, bo), (),
+                      num_heads)
+    if x.device.type == "cpu":
+        return fused_self_attention_reference(x, wq, wk, wv, wo, bo, num_heads)
+    b, t, c = x.shape
+    hd = wq.shape[0]
+    _check_folded_kernel_inputs("fused_self_attention_block", (x, wq, wk, wv, wo, bo),
+                                d, c, hd)
+    x, wq, wk, wv, wo, bo = (_kernel_ready(w, contiguous=True)
+                             for w in (x, wq, wk, wv, wo, bo))
+    kv = torch.empty((b, t, 2 * hd), dtype=x.dtype, device=x.device)
+    out = torch.empty((b, t, c), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _library("folded_attention")[1].cd_fused_self_attention(
+            x.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), wo.data_ptr(),
+            bo.data_ptr(), kv.data_ptr(), out.data_ptr(), b, t, c, num_heads, d,
+            d ** -0.5, int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on_error("fused_self_attention_block", rc)
+    launch_counts["fused_self_attention_block"] += 1
     return out
 
 

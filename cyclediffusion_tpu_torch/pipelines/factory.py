@@ -1,0 +1,149 @@
+"""Pipeline factory: a config's ``[gan]`` section -> a pipeline (counterpart
+of ``cyclediffusion_tpu.pipelines.factory``).
+
+``source_*`` keys feed the source wrapper and ``target_*`` keys are renamed
+to ``source_*`` when ``target=True``; ``gan_type`` picks what is built.  This
+slice builds ``SDStochasticText``: ``source_model_type = tiny`` is the
+CPU-runnable miniature, any other value SD v1 at its published widths.  The
+real checkpoints are not loaded yet: the weights come from the JAX
+package's parameter trees (``jax_params``) or from ``source_init_seed``.
+Without the CLIP assets the tokenizer is the hashed one and the
+DirectionalCLIP scorer a seeded stand-in of the right widths.
+
+``CYCLEDIFFUSION_FOLDED_ATTN`` (``qo`` or ``1``; anything else is off) is
+read here, once per build, as the JAX program reads it, and passed down as
+the core's ``folded_attn``: the modules never read the environment.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from typing import Optional
+
+import torch
+
+from cyclediffusion_tpu_torch.energy.clean_clip import CLIPScorer, DirectionalCLIP
+from cyclediffusion_tpu_torch.models.clip import CLIPConfig
+from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
+from cyclediffusion_tpu_torch.pipelines.latent_text import (
+    StochasticTextPipeline,
+    sd_stochastic_text_pipeline,
+)
+from cyclediffusion_tpu_torch.runtime import context
+from cyclediffusion_tpu_torch.text import CLIPBPETokenizer, HashTokenizer
+
+logger = logging.getLogger(__name__)
+
+FOLDED_ATTN_ENV = "CYCLEDIFFUSION_FOLDED_ATTN"
+
+# gan_types of the JAX package this port does not build yet -> ROADMAP item
+_NOT_PORTED = {
+    "LatentDiffStochastic": "ROADMAP §A queue item 3 (the other model families)",
+    "LatentDiffStochasticText": "ROADMAP §A queue item 3 (the other model families)",
+    "DDPM_DDIM": "ROADMAP §A queue item 3 (the other model families)",
+}
+
+# the tiny pipeline's scorer: the JAX factory's miniature ViT
+TINY_CLIP = CLIPConfig(embed_dim=16, image_resolution=32, vision_width=32,
+                       vision_layers=2, vision_heads=2, patch_size=8, vocab_size=96,
+                       context_length=16, text_width=32, text_layers=2, text_heads=2)
+
+
+def folded_attn_from_env() -> Optional[str]:
+    value = os.environ.get(FOLDED_ATTN_ENV)
+    return value if value in ("qo", "1") else None
+
+
+def _collect_kwargs(gan_args, target: bool) -> dict:
+    kwargs = {}
+    for kw, arg in gan_args:
+        if kw == "gan_type":
+            continue
+        if not kw.startswith("source_") and not kw.startswith("target_"):
+            kwargs[kw] = arg
+        elif target and kw.startswith("target_"):
+            kwargs["source_" + kw[len("target_"):]] = arg
+        elif not target and kw.startswith("source_"):
+            kwargs[kw] = arg
+    return kwargs
+
+
+def _scorer(tiny: bool, seed: int, params, device) -> CLIPScorer:
+    config = TINY_CLIP if tiny else CLIPConfig.vit_b_32()
+    if params is not None:
+        return CLIPScorer.from_jax_params(params, config, device)
+    return CLIPScorer.random_init(seed, config, device)
+
+
+def _build_sd_text(kwargs: dict, device, dtype, jax_params) -> StochasticTextPipeline:
+    model_type = kwargs.pop("source_model_type")
+    seed = int(kwargs.pop("source_init_seed", 0))
+    if kwargs.pop("fast_key_every", None) not in (None, 0, 1):
+        raise NotImplementedError("fast mode (fast_key_every) is not ported yet: "
+                                  "ROADMAP §A queue item 2")
+    pipe_kw = dict(
+        custom_steps=kwargs.pop("custom_steps"),
+        eta=kwargs.pop("eta"),
+        white_box_steps=kwargs.pop("white_box_steps"),
+        skip_steps=kwargs.pop("skip_steps"),
+        encoder_unconditional_guidance_scales=kwargs.pop(
+            "encoder_unconditional_guidance_scales"),
+        decoder_unconditional_guidance_scales=kwargs.pop(
+            "decoder_unconditional_guidance_scales"),
+        n_trials=kwargs.pop("n_trials"),
+        candidate_chunk=kwargs.pop("candidate_chunk", None),
+    )
+    if kwargs:
+        raise ValueError(f"unused gan kwargs: {kwargs}")
+    tiny = model_type.startswith("tiny")
+    spec = LatentCoreSpec.tiny() if tiny else LatentCoreSpec.sd_v1()
+    if dtype is None:
+        dtype = torch.bfloat16 if not tiny and torch.device(device).type == "cuda" \
+            else torch.float32
+    folded = folded_attn_from_env()
+    jax_params = jax_params or {}
+    if "core" in jax_params:
+        core = LatentDiffusionCore.from_jax_params(spec, jax_params["core"], device,
+                                                   dtype, folded)
+    else:
+        core = LatentDiffusionCore.random_init(spec, seed, device, dtype, folded)
+
+    if tiny:
+        tokenizer = HashTokenizer(96, 16)
+        dclip = context.get_directional_clip(required=False, device=device)
+        if dclip is None:
+            dclip = DirectionalCLIP(_scorer(True, seed + 1, jax_params.get("clip"), device),
+                                    HashTokenizer(96, 16))
+        return StochasticTextPipeline(core, tokenizer, dclip, **pipe_kw)
+
+    bpe = os.environ.get("CYCLEDIFFUSION_CLIP_BPE")
+    if bpe:
+        tokenizer = CLIPBPETokenizer(bpe)
+    else:
+        logger.warning("CYCLEDIFFUSION_CLIP_BPE unset: prompts go through the "
+                       "hashed tokenizer, which no checkpoint understands")
+        tokenizer = HashTokenizer(49408, 77)
+    dclip = context.get_directional_clip(required=False, device=device)
+    if dclip is None:
+        dclip = DirectionalCLIP(_scorer(False, seed + 1, jax_params.get("clip"), device),
+                                tokenizer)
+    return sd_stochastic_text_pipeline(core, tokenizer, dclip, **pipe_kw)
+
+
+def get_gan_wrapper(gan_args, target: bool = False, *, device="cuda", dtype=None,
+                    jax_params: Optional[dict] = None) -> StochasticTextPipeline:
+    """Build the pipeline a ``[gan]`` section describes.
+
+    ``jax_params`` (optional): ``{"core": {"unet", "first_stage", "cond"},
+    "clip": <CLIPModel tree>}`` with numpy leaves, the JAX pipeline's
+    weights.  ``dtype`` defaults to bf16 for SD v1 on CUDA, fp32 otherwise.
+    """
+    gan_type = dict(list(gan_args))["gan_type"]
+    kwargs = _collect_kwargs(gan_args, target)
+    if gan_type == "SDStochasticText":
+        return _build_sd_text(kwargs, device, dtype, jax_params)
+    if gan_type in _NOT_PORTED:
+        raise NotImplementedError(f"gan_type {gan_type} is not ported yet: "
+                                  f"{_NOT_PORTED[gan_type]}")
+    raise ValueError(f"unknown gan_type {gan_type}")

@@ -23,6 +23,7 @@ from cyclediffusion_tpu_torch.models.autoencoder import (
     DDConfig,
     DiagonalGaussian,
 )
+from cyclediffusion_tpu_torch.models.nn import fill_random_, resolve_device
 from cyclediffusion_tpu_torch.models.text_encoders import CLIPTextConfig, CLIPTextEncoder
 from cyclediffusion_tpu_torch.models.unet_gd import GDUNet, GDUNetConfig
 from cyclediffusion_tpu_torch.ops import schedule
@@ -80,32 +81,20 @@ class LatentCoreSpec:
         )
 
 
-@torch.no_grad()
-def _fill_random_(module: nn.Module, generator: torch.Generator) -> None:
-    """Overwrite every parameter with seeded normal draws — zero-initialised
-    layers included, so attention reaches the output of a random model.
-    Matrices and kernels get std 1/sqrt(fan_in), norm scales 1 + 0.1 N(0,1),
-    biases 0.1 N(0,1)."""
-    for name, p in module.named_parameters():
-        z = torch.randn(p.shape, generator=generator, device=p.device)
-        if p.ndim >= 2:
-            z = z * (p[0].numel() ** -0.5)
-        elif name.endswith("weight"):
-            z = 1.0 + 0.1 * z
-        else:
-            z = 0.1 * z
-        p.copy_(z.to(p.dtype))
-
-
 class LatentDiffusionCore:
-    """The three modules of the model on one device, in one dtype, frozen."""
+    """The three modules of the model on one device, in one dtype, frozen.
 
-    def __init__(self, spec: LatentCoreSpec, device="cpu", dtype=torch.float32):
+    ``folded_attn`` (``None``, ``"qo"``, ``"1"``) selects the UNet's long
+    self-attention path (see ``models.transformer.CrossAttention``)."""
+
+    def __init__(self, spec: LatentCoreSpec, device="cuda", dtype=torch.float32,
+                 folded_attn: Optional[str] = None):
         self.spec = spec
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
+        self.folded_attn = folded_attn
         with self.device:
-            self.unet = GDUNet(spec.unet)
+            self.unet = GDUNet(spec.unet, folded_attn)
             self.first_stage = AutoencoderKL(spec.first_stage, spec.embed_dim)
             self.cond_model = CLIPTextEncoder(spec.cond_cfg)
         for m in self.modules():
@@ -117,22 +106,24 @@ class LatentDiffusionCore:
     # ---- constructors -------------------------------------------------- #
 
     @classmethod
-    def random_init(cls, spec: LatentCoreSpec, seed: int = 0, device="cpu",
-                    dtype=torch.float32) -> "LatentDiffusionCore":
-        """Seeded random weights (see :func:`_fill_random_`), drawn on the
+    def random_init(cls, spec: LatentCoreSpec, seed: int = 0, device="cuda",
+                    dtype=torch.float32, folded_attn: Optional[str] = None
+                    ) -> "LatentDiffusionCore":
+        """Seeded random weights (see :func:`models.nn.fill_random_`), drawn on the
         core's device."""
-        core = cls(spec, device, dtype)
+        core = cls(spec, device, dtype, folded_attn)
         gen = torch.Generator(device=core.device).manual_seed(seed)
         for m in core.modules():
-            _fill_random_(m, gen)
+            fill_random_(m, gen)
         return core
 
     @classmethod
-    def from_jax_params(cls, spec: LatentCoreSpec, params: dict, device="cpu",
-                        dtype=torch.float32) -> "LatentDiffusionCore":
+    def from_jax_params(cls, spec: LatentCoreSpec, params: dict, device="cuda",
+                        dtype=torch.float32, folded_attn: Optional[str] = None
+                        ) -> "LatentDiffusionCore":
         """Weights from the JAX core's parameter tree (numpy leaves):
         ``{"unet": ..., "first_stage": ..., "cond": ...}``."""
-        core = cls(spec, device, dtype)
+        core = cls(spec, device, dtype, folded_attn)
         load_flax_params(core.unet, params["unet"])
         load_flax_params(core.first_stage, params["first_stage"])
         load_flax_params(core.cond_model, params["cond"])

@@ -1,6 +1,5 @@
 """Text-guided stochastic translation with SD v1 (counterpart of
-``StochasticTextPipeline`` in ``cyclediffusion_tpu.pipelines.latent_text``,
-without the DirectionalCLIP ranking).
+``StochasticTextPipeline`` in ``cyclediffusion_tpu.pipelines.latent_text``).
 
 * ``encode(image, encode_text)`` -> z-ensemble ordered ``trial -> enc_scale
   -> skip``, each z flattened with x_T first and then each eps, every entry
@@ -8,11 +7,17 @@ without the DirectionalCLIP ranking).
 * ``generate(z_ensemble, decode_text)`` -> each z under each decoder
   guidance scale, as [0, 1] NHWC images, in the same order as the JAX
   pipeline (decoder scale innermost).
+* ``forward(z_ensemble, original, encode_text, decode_text)`` -> the
+  candidate with the best DirectionalCLIP score per sample, and the winning
+  (enc_scale, dec_scale, skip) combos.
 
-Candidates sharing a skip value are folded into the batch axis (``K*B``), so
-one chain of UNet calls serves them all, with the per-candidate guidance
-scale a tensor (the always-dual-batch CFG path, as in JAX).  The VAE
-posterior is sampled once per image and shared by all chains.
+Candidates sharing a skip value are folded into the batch axis (``K*B``), at
+most ``candidate_chunk`` of them per chain, so one chain of UNet calls
+serves them all, with the per-candidate guidance scale a tensor (the
+always-dual-batch CFG path, as in JAX).  Chunking caps memory and changes no
+result: every candidate's noise is drawn in candidate order before the
+chunks are cut.  The VAE posterior is sampled once per image and shared by
+all chains.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from cyclediffusion_tpu_torch.energy.clean_clip import DirectionalCLIP, normalize
 from cyclediffusion_tpu_torch.ops.cfg import cfg_model_fn
 from cyclediffusion_tpu_torch.pipelines.latent import LatentDiffusionCore
 from cyclediffusion_tpu_torch.samplers import ddim_decode, dpm_encode, num_recovered_eps
@@ -30,11 +36,17 @@ from cyclediffusion_tpu_torch.samplers import ddim_decode, dpm_encode, num_recov
 _VAE_BATCH = 8
 
 
+def _chunks(items: list, size: Optional[int]):
+    size = size or len(items)
+    return [items[i:i + size] for i in range(0, len(items), size)]
+
+
 class StochasticTextPipeline:
     def __init__(
         self,
         core: LatentDiffusionCore,
         tokenizer,
+        directional_clip: Optional[DirectionalCLIP] = None,
         *,
         custom_steps: int,
         eta: float,
@@ -43,11 +55,18 @@ class StochasticTextPipeline:
         encoder_unconditional_guidance_scales: Sequence[float],
         decoder_unconditional_guidance_scales: Sequence[float],
         n_trials: int,
+        candidate_chunk: Optional[int] = None,
     ):
         if eta <= 0:
             raise ValueError("the DPM-Encoder needs eta > 0 (it divides by sigma)")
+        if candidate_chunk is not None and candidate_chunk < 1:
+            raise ValueError(f"candidate_chunk={candidate_chunk} must be >= 1")
         self.core = core
         self.tokenizer = tokenizer
+        self.directional_clip = directional_clip
+        # cap on the candidates folded into one chain: the UNet batch is
+        # 2 * batch * chunk (the CFG pair)
+        self.candidate_chunk = candidate_chunk
         self.white_box_steps = white_box_steps
         self.skip_steps = list(skip_steps)
         self.enc_scales = list(encoder_unconditional_guidance_scales)
@@ -99,7 +118,8 @@ class StochasticTextPipeline:
 
     def _decode_chains(self, xT, eps, c_ctx, uc_ctx, scales, generator, skip):
         """Replay over K candidates at one skip, folded into the batch ->
-        latent samples (K, B, h, w, c)."""
+        latent samples (K, B, h, w, c).  Steps past the stored eps draw
+        fresh noise from ``generator``."""
         K, B = xT.shape[0], xT.shape[1]
         n = eps.shape[1]
         xT_f = xT.reshape((K * B,) + xT.shape[2:])
@@ -154,11 +174,12 @@ class StochasticTextPipeline:
         results = {}
         for skip in sorted(set(self.skip_steps)):
             idxs = [i for i, (_, _, sk) in enumerate(combos) if sk == skip]
-            xT, eps = self._encode_chains(
-                x0, c_ctx, uc_ctx, [combos[i][1] for i in idxs],
-                [noises[i] for i in idxs], skip)
-            for j, i in enumerate(idxs):
-                results[i] = (xT[j], eps[j])
+            for sub in _chunks(idxs, self.candidate_chunk):
+                xT, eps = self._encode_chains(
+                    x0, c_ctx, uc_ctx, [combos[i][1] for i in sub],
+                    [noises[i] for i in sub], skip)
+                for j, i in enumerate(sub):
+                    results[i] = (xT[j], eps[j])
 
         z_ensemble = []
         for i in range(len(combos)):
@@ -177,30 +198,101 @@ class StochasticTextPipeline:
     def generate(self, z_ensemble, decode_text,
                  generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
         """Each z x each decoder scale -> [0,1] NHWC image (order preserved).
-        Steps past a z's stored eps draw fresh noise from ``generator``."""
+        Steps past a z's stored eps draw fresh noise from ``generator``, per
+        candidate in candidate order."""
         bsz = z_ensemble[0].shape[0]
         c_ctx = self.get_condition(decode_text)
         uc_ctx = self.uncond(bsz)
         D = len(self.dec_scales)
         imgs: List[Optional[torch.Tensor]] = [None] * (len(z_ensemble) * D)
         for skip in sorted(set(self.skip_steps)):
-            work = []  # (xT, eps, scale, flat position)
+            work = []  # (xT, eps with its fresh tail, scale, flat position)
             for i in range(len(z_ensemble)):
                 if self.skip_steps[i % len(self.skip_steps)] != skip:
                     continue
                 xT, eps = self._unflatten(z_ensemble[i], skip)
                 for d, ds in enumerate(self.dec_scales):
-                    work.append((xT, eps, ds, i * D + d))
-            if not work:
-                continue
-            samples = self._decode_chains(
-                torch.stack([w[0] for w in work]), torch.stack([w[1] for w in work]),
-                c_ctx, uc_ctx, [w[2] for w in work], generator, skip)
-            flat = samples.reshape((-1,) + samples.shape[2:])
-            decoded = torch.cat([
-                self.core.decode_first_stage(flat[i:i + _VAE_BATCH])
-                for i in range(0, flat.shape[0], _VAE_BATCH)])
-            decoded = decoded.reshape(samples.shape[:2] + decoded.shape[1:])
-            for j, w in enumerate(work):
-                imgs[w[3]] = (decoded[j] + 1.0) / 2.0
+                    fresh = self.sched.num_steps - skip - eps.shape[0]
+                    full = eps if fresh <= 0 else torch.cat([eps, torch.randn(
+                        (fresh,) + tuple(xT.shape), generator=generator,
+                        dtype=xT.dtype, device=xT.device)])
+                    work.append((xT, full, ds, i * D + d))
+            for sub in _chunks(work, self.candidate_chunk):
+                samples = self._decode_chains(
+                    torch.stack([w[0] for w in sub]), torch.stack([w[1] for w in sub]),
+                    c_ctx, uc_ctx, [w[2] for w in sub], generator, skip)
+                flat = samples.reshape((-1,) + samples.shape[2:])
+                decoded = torch.cat([
+                    self.core.decode_first_stage(flat[i:i + _VAE_BATCH])
+                    for i in range(0, flat.shape[0], _VAE_BATCH)])
+                decoded = decoded.reshape(samples.shape[:2] + decoded.shape[1:])
+                for j, w in enumerate(sub):
+                    imgs[w[3]] = (decoded[j] + 1.0) / 2.0
         return [im for im in imgs if im is not None]
+
+    # ---- ranking ------------------------------------------------------------ #
+
+    def rank(self, img_ensemble: Sequence[torch.Tensor], original_img01, encode_text,
+             decode_text):
+        """DirectionalCLIP scores of every candidate -> (scores (B, n) fp32,
+        best candidate per sample (B,)).  The text features and the
+        original's are computed once; candidates are embedded in
+        micro-batches."""
+        if self.directional_clip is None:
+            raise ValueError("ranking needs a DirectionalCLIP scorer (directional_clip)")
+        dclip = self.directional_clip
+        enc_feat = dclip.text_features(encode_text)
+        dec_feat = dclip.text_features(decode_text)
+        orig_feat = dclip.scorer.embed_image(original_img01)
+        stacked = torch.stack(list(img_ensemble))          # (n, B, H, W, C)
+        n, bsz = stacked.shape[:2]
+        img_feat = dclip.scorer.embed_images_microbatched(
+            stacked.reshape((n * bsz,) + stacked.shape[2:])).reshape(n, bsz, -1)
+        img_dir = normalize(img_feat - orig_feat[None])
+        text_dir = normalize(dec_feat - enc_feat)
+        scores = torch.einsum("nbz,bz->bn", img_dir, text_dir)
+        return scores, torch.argmax(scores, dim=1)
+
+    def forward(self, z_ensemble, original_img01, encode_text, decode_text,
+                generator: Optional[torch.Generator] = None):
+        """Decode every candidate, rank by DirectionalCLIP -> (best image
+        (B, H, W, C), per-sample winning (enc_scale, dec_scale, skip))."""
+        img_ensemble = self.generate(z_ensemble, decode_text, generator)
+        n_expected = (len(self.dec_scales) * len(self.enc_scales)
+                      * len(self.skip_steps) * self.n_trials)
+        if len(img_ensemble) != n_expected:
+            raise ValueError(f"{len(img_ensemble)} candidates, expected {n_expected}")
+        original = torch.as_tensor(original_img01, dtype=torch.float32,
+                                   device=self.core.device)
+        _, best = self.rank(img_ensemble, original, encode_text, decode_text)
+        best = best.to(self.core.device)
+        img = torch.stack(img_ensemble, dim=1)[
+            torch.arange(best.shape[0], device=best.device), best]
+        # flat candidate order is trial -> enc_scale -> skip (encode) with the
+        # decoder scale innermost (generate's i*D + d), so a trial's inner
+        # index is ((e*S) + s)*D + d.  The reference's own report swaps the
+        # dec/skip strides (stable_diffusion_stochastic_text_wrapper.py:236-247);
+        # these are the JAX package's corrected tuples.
+        D, S = len(self.dec_scales), len(self.skip_steps)
+        n_inner = D * len(self.enc_scales) * S
+        combos = []
+        for bi in (int(j) % n_inner for j in best.tolist()):
+            combos.append((self.enc_scales[bi // (D * S)], self.dec_scales[bi % D],
+                           self.skip_steps[(bi // D) % S]))
+        return img, combos
+
+    def __call__(self, z_ensemble, original_img01, encode_text, decode_text,
+                 generator: Optional[torch.Generator] = None):
+        img, combos = self.forward(z_ensemble, original_img01, encode_text,
+                                   decode_text, generator)
+        print("best scales:", combos)
+        return img
+
+
+def sd_stochastic_text_pipeline(core: LatentDiffusionCore, tokenizer,
+                                dclip: Optional[DirectionalCLIP], **kw
+                                ) -> StochasticTextPipeline:
+    """The pipeline behind the ``SDStochasticText`` gan_type."""
+    if core.spec.cond_cfg is None:
+        raise ValueError("SDStochasticText needs a CLIP text-conditioned core")
+    return StochasticTextPipeline(core, tokenizer, dclip, **kw)

@@ -1,3 +1,4 @@
-"""Host-side text tokenization for the text conditioning."""
+"""Host-side text tokenization for the text conditioning and the CLIP
+scorer."""
 
-from cyclediffusion_tpu_torch.text.tokenizer import HashTokenizer  # noqa: F401
+from cyclediffusion_tpu_torch.text.tokenizer import CLIPBPETokenizer, HashTokenizer  # noqa: F401

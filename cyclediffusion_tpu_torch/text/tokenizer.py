@@ -1,16 +1,23 @@
-"""Asset-free text tokenization (counterpart of
-``cyclediffusion_tpu.text.tokenizer.HashTokenizer``).
+"""Text tokenization (counterpart of ``cyclediffusion_tpu.text.tokenizer``).
 
-The SD-v1 slice runs with random weights and no BPE vocab, so its prompts go
-through a hashed vocabulary: stable ids across processes, no linguistic
-meaning, and the same ids as the JAX package's ``HashTokenizer``.
+* :class:`CLIPBPETokenizer` — OpenAI CLIP byte-level BPE, as
+  ``clip.tokenize``: the SD conditioning text encoder and the ViT-B/32
+  scorer both read its ids.  Needs the standard
+  ``bpe_simple_vocab_16e6.txt.gz`` merges file.
+* :class:`HashTokenizer` — a hashed vocabulary for runs without vocab
+  assets: stable ids across processes, no linguistic meaning.
+
+Both give the same ids as the JAX package's classes of the same names.
 """
 
 from __future__ import annotations
 
+import functools
+import gzip
+import os
 import re
 import zlib
-from typing import Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -18,6 +25,117 @@ import numpy as np
 def _basic_clean(text: str) -> str:
     text = re.sub(r"\s+", " ", text)
     return text.strip().lower()
+
+
+@functools.cache
+def _bytes_to_unicode() -> Dict[int, str]:
+    """CLIP's reversible byte -> printable unicode character table."""
+    bs = (list(range(ord("!"), ord("~") + 1)) + list(range(ord("\xa1"), ord("\xac") + 1))
+          + list(range(ord("\xae"), ord("\xff") + 1)))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, [chr(c) for c in cs]))
+
+
+def _get_pairs(word) -> set:
+    return set(zip(word, word[1:]))
+
+
+_CLIP_PAT = re.compile(
+    r"""<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d|[a-zA-Z]+|[0-9]|[^\sa-zA-Z0-9]+""",
+    re.IGNORECASE)
+
+
+class CLIPBPETokenizer:
+    """Byte-level BPE with the CLIP merges table: ``<|startoftext|>`` /
+    ``<|endoftext|>`` wrapping, zero padding to ``context_length``, and
+    truncation that keeps the end token."""
+
+    def __init__(self, bpe_path: str, context_length: int = 77):
+        if not os.path.exists(bpe_path):
+            raise FileNotFoundError(
+                f"CLIP BPE merges file not found: {bpe_path}. Provide the standard "
+                "bpe_simple_vocab_16e6.txt.gz asset.")
+        self.context_length = context_length
+        self.byte_encoder = _bytes_to_unicode()
+        opener = gzip.open if bpe_path.endswith(".gz") else open
+        with opener(bpe_path, "rt", encoding="utf-8") as f:
+            lines = f.read().split("\n")
+        # clip/simple_tokenizer.py's slice; the pair filter drops the blank
+        # tail lines of short synthetic files
+        merges = [tuple(m.split()) for m in lines[1:49152 - 256 - 2 + 1]]
+        merges = [m for m in merges if len(m) == 2]
+        vocab = list(self.byte_encoder.values())
+        vocab = vocab + [v + "</w>" for v in vocab]
+        vocab += ["".join(m) for m in merges] + ["<|startoftext|>", "<|endoftext|>"]
+        self.encoder = {tok: i for i, tok in enumerate(vocab)}
+        self.bpe_ranks = {m: i for i, m in enumerate(merges)}
+        self.cache = {"<|startoftext|>": "<|startoftext|>",
+                      "<|endoftext|>": "<|endoftext|>"}
+        self.sot = self.encoder["<|startoftext|>"]
+        self.eot = self.encoder["<|endoftext|>"]
+        self.vocab_size = len(self.encoder)
+
+    def _bpe(self, token: str) -> str:
+        """Merge the lowest-ranked adjacent pair until none is in the table."""
+        if token in self.cache:
+            return self.cache[token]
+        word = tuple(token[:-1]) + (token[-1] + "</w>",)
+        pairs = _get_pairs(word)
+        if not pairs:
+            return token + "</w>"
+        while True:
+            bigram = min(pairs, key=lambda p: self.bpe_ranks.get(p, float("inf")))
+            if bigram not in self.bpe_ranks:
+                break
+            first, second = bigram
+            merged: List[str] = []
+            i = 0
+            while i < len(word):
+                if first not in word[i:]:
+                    merged.extend(word[i:])
+                    break
+                j = word.index(first, i)
+                merged.extend(word[i:j])
+                i = j
+                if i < len(word) - 1 and word[i + 1] == second:
+                    merged.append(first + second)
+                    i += 2
+                else:
+                    merged.append(word[i])
+                    i += 1
+            word = tuple(merged)
+            if len(word) == 1:
+                break
+            pairs = _get_pairs(word)
+        out = " ".join(word)
+        self.cache[token] = out
+        return out
+
+    def encode_text(self, text: str) -> List[int]:
+        ids: List[int] = []
+        for token in re.findall(_CLIP_PAT, _basic_clean(text)):
+            token = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
+            ids.extend(self.encoder[t] for t in self._bpe(token).split(" "))
+        return ids
+
+    def __call__(self, texts: Sequence[str] | str) -> np.ndarray:
+        """``(len(texts), context_length)`` int32 token ids."""
+        if isinstance(texts, str):
+            texts = [texts]
+        out = np.zeros((len(texts), self.context_length), dtype=np.int32)
+        for i, text in enumerate(texts):
+            toks = [self.sot] + self.encode_text(text) + [self.eot]
+            if len(toks) > self.context_length:
+                toks = toks[:self.context_length]
+                toks[-1] = self.eot
+            out[i, :len(toks)] = toks
+        return out
 
 
 class HashTokenizer:

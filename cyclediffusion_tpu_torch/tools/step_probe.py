@@ -22,15 +22,25 @@ that a drift of the host or the card hits both sides alike:
   clock around work that ends in a synchronize.
 * ``profile``: ``torch.profiler`` over ``CALLS`` eager calls with the
   kernels; device-kernel time and launches per call, grouped by kind.
+* ``folded``: the same UNet step in the three self-attention modes of the
+  64x64 level — the default (K2 between separate projections), ``qo`` (K3)
+  and ``1`` (K4) — one core per mode from the same seed, in rotating order
+  (default, qo, 1, 1, qo, default, ...): eager host and device ms and the
+  CUDA-graph replay ms per call.
 
-Prints one line per measurement and, last, a JSON summary of every run.
+Each run's line ends with the card's SM clock, power, temperature and
+throttle reasons (nvidia-smi) read just after it: the card's speed drifts
+within one call.  Prints one line per measurement and, last, a JSON summary
+of every run.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import statistics
+import subprocess
 import time
 
 import torch
@@ -41,14 +51,17 @@ from cyclediffusion_tpu_torch.pipelines.latent_text import StochasticTextPipelin
 from cyclediffusion_tpu_torch.text import HashTokenizer
 
 MODES = ("kernels", "plain")
+FOLDED_MODES = ("default", "qo", "1")
 STEPS = 50
-ROUNDS = 3     # alternating rounds, each runs both modes once
+ROUNDS = 3     # alternating rounds, each runs every mode once
 CALLS = 10     # UNet calls per eager, graph and profile measurement
 
 # device-kernel name fragments -> kind, first match wins (convolutions
 # before GEMMs: cuDNN's implicit-GEMM conv kernels carry "gemm" too)
 KINDS = (
     ("flash_fwd", "flash kernels (K1, K2)"),
+    ("qout_", "folded kernels (K3, K4)"),
+    ("kv_proj", "folded kernels (K3, K4)"),
     ("nchwToNhwc", "cuDNN layout conversions"),
     ("nhwcToNchw", "cuDNN layout conversions"),
     ("fprop", "convolutions"),
@@ -75,24 +88,67 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
+# each kernel's wrapper in ops/flash_attention.py -> its plain version
+PLAIN_VERSIONS = {
+    "flash_attention_packed": "attention_packed_reference",
+    "flash_attention_bhtd": "attention_reference",
+    "qout_self_attention_block": "qout_self_attention_reference",
+    "fused_self_attention_block": "fused_self_attention_reference",
+}
+
+
 @contextlib.contextmanager
 def attention(mode: str):
-    """The dispatcher's flash entry points as they are ("kernels"), or
+    """The kernels' entry points (K1-K4) as they are ("kernels"), or
     replaced by their plain versions ("plain") inside the block."""
-    saved = fa.flash_attention_packed, fa.flash_attention_bhtd
+    saved = {name: getattr(fa, name) for name in PLAIN_VERSIONS}
     if mode == "plain":
-        fa.flash_attention_packed = fa.attention_packed_reference
-        fa.flash_attention_bhtd = fa.attention_reference
+        for name, plain in PLAIN_VERSIONS.items():
+            setattr(fa, name, getattr(fa, plain))
     try:
         yield
     finally:
-        fa.flash_attention_packed, fa.flash_attention_bhtd = saved
+        for name, fn in saved.items():
+            setattr(fa, name, fn)
 
 
-def alternating(rounds: int):
-    """kernels, plain, plain, kernels, kernels, plain, ... (2 * rounds)."""
+def alternating(rounds: int, modes=MODES):
+    """``modes`` forward, then backward, then forward, ... (``rounds`` passes):
+    kernels, plain, plain, kernels, kernels, plain, ... by default."""
     for r in range(rounds):
-        yield from (MODES if r % 2 == 0 else MODES[::-1])
+        yield from (modes if r % 2 == 0 else modes[::-1])
+
+
+def card_state() -> str:
+    """The card's SM clock, power draw and limit, temperature and active
+    throttle reasons, as nvidia-smi reads them now."""
+    query = "clocks.sm,power.draw,power.limit,temperature.gpu,clocks_throttle_reasons.active"
+    proc = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60)
+    return proc.stdout.strip().splitlines()[0] if proc.returncode == 0 else "unknown"
+
+
+def folded_steps(x, t, ctx, calls: int, rounds: int) -> list:
+    """The ``folded`` measurement: one record per run, modes rotating."""
+    steps = {}
+    for mode in FOLDED_MODES:
+        core = LatentDiffusionCore.random_init(
+            LatentCoreSpec.sd_v1(), seed=0, device="cuda", dtype=torch.bfloat16,
+            folded_attn=None if mode == "default" else mode)
+        step = functools.partial(core.apply_model, x, t, ctx)
+        steps[mode] = (step, graph_of(step)[0])
+    runs = []
+    for i, mode in enumerate(alternating(rounds, FOLDED_MODES)):
+        step, graph = steps[mode]
+        host, dev = eager_ms(step, calls)
+        rep = graph_ms(graph, calls)
+        card = card_state()
+        runs.append({"mode": mode, "host_ms": host, "device_ms": dev, "graph_ms": rep,
+                     "card": card})
+        print(f"folded run {i} [{mode}]: eager host {host:.3f} ms/call, device span "
+              f"{dev:.3f} ms/call; graph replay {rep:.3f} ms/call; card after: {card}",
+              flush=True)
+    return runs
 
 
 def eager_ms(step, calls: int):
@@ -203,8 +259,10 @@ def main() -> dict:
     def step():
         return core.apply_model(x, t, ctx)
 
-    summary = {"device": torch.cuda.get_device_name(0), "eager": [], "graph": [],
-               "translate": []}
+    summary = {"device": torch.cuda.get_device_name(0), "card": card_state(),
+               "eager": [], "graph": [], "translate": []}
+    print(f"card: {summary['card']} (SM MHz, W drawn, W limit, C, throttle reasons)",
+          flush=True)
     graphs = {}
     for mode in MODES:
         with attention(mode):
@@ -226,9 +284,10 @@ def main() -> dict:
             summary["graph"].append({"mode": mode, "device_ms": rep})
             secs = translate_s(core, pipe, images, src, dst, seed=3 + i)
             summary["translate"].append({"mode": mode, "s_per_request": secs})
+            card = card_state()
             print(f"run {i} [{mode}]: eager host {host:.3f} ms/call, device span "
                   f"{dev:.3f} ms/call; graph replay {rep:.3f} ms/call; translate "
-                  f"{secs:.4f} s/request", flush=True)
+                  f"{secs:.4f} s/request; card after: {card}", flush=True)
 
     for key in ("eager", "graph", "translate"):
         for mode in MODES:
@@ -245,6 +304,12 @@ def main() -> dict:
           f"{sum(n for _, n in kinds.values()):.0f} launches per call", flush=True)
     for kind, (ms, n) in kinds.items():
         print(f"  {ms:8.3f} ms  {n:6.0f} launches  {kind}", flush=True)
+
+    summary["folded"] = folded_steps(x, t, ctx, CALLS, ROUNDS)
+    for mode in FOLDED_MODES:
+        nums = [r["graph_ms"] for r in summary["folded"] if r["mode"] == mode]
+        print(f"folded [{mode}] graph_ms: median {statistics.median(nums):.4f}, "
+              f"runs {[round(n, 4) for n in nums]}", flush=True)
 
     print(json.dumps(summary), flush=True)
     return summary

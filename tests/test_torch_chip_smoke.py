@@ -39,3 +39,54 @@ def test_chip_smoke_fails_without_gpu(where, tmp_path):
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
     assert "FAIL" in proc.stdout
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.parametrize("name,shape,gflop,mb", [
+    ("flash_attention_bhtd", (4, 8, 1024, 1024, 80), 10.7, 21.0),
+    ("flash_attention_packed", (4, 4096, 4096, 8, 40), 85.9, 41.9),
+    ("qout_self_attention_block", (4, 4096, 4096, 320, 8), 92.6, 42.35),
+    ("fused_self_attention_block", (4, 4096, 320, 8), 99.3, 21.8),
+])
+def test_kernel_work_and_bounds_at_the_main_path_shapes(smoke, name, shape, gflop, mb):
+    """Each kernel's matrix-product work and compulsory traffic at the
+    main-path shapes; all four are bound by operations on the H100."""
+    flops, nbytes = smoke.work(name, shape, "bf16")
+    assert abs(flops / 1e9 - gflop) < 0.05 and abs(nbytes / 1e6 - mb) < 0.05
+    ms, by = smoke.bound_of(name, shape, "bf16")
+    assert by == "operations" and ms == pytest.approx(1e3 * flops / 989e12)
+
+
+@pytest.mark.parametrize("chunk", [None, 1, 3])
+def test_expected_unet_calls_counts_the_chains(smoke, chunk):
+    """The smoke's expected UNet call count equals what encode + generate
+    run on the tiny pipeline (2 trials x skips [0, 2] x 2 decoder scales)."""
+    import torch
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
+    from cyclediffusion_tpu_torch.pipelines.latent_text import StochasticTextPipeline
+    from cyclediffusion_tpu_torch.samplers import num_recovered_eps
+    from cyclediffusion_tpu_torch.text import HashTokenizer
+
+    core = LatentDiffusionCore.random_init(LatentCoreSpec.tiny(), device="cpu")
+    pipe = StochasticTextPipeline(
+        core, HashTokenizer(96, 16), custom_steps=4, eta=0.1, white_box_steps=4,
+        skip_steps=[0, 2], encoder_unconditional_guidance_scales=[1],
+        decoder_unconditional_guidance_scales=[1, 3], n_trials=2, candidate_chunk=chunk)
+    calls = [0]
+    apply_model = core.apply_model
+
+    def counted(*a):
+        calls[0] += 1
+        return apply_model(*a)
+
+    core.apply_model = counted
+    gen = torch.Generator().manual_seed(0)
+    z = pipe.encode(torch.rand(1, 32, 32, 3), ["a cat"], gen)
+    pipe.generate(z, ["a dog"], gen)
+    assert calls[0] == smoke.expected_unet_calls(pipe, num_recovered_eps)

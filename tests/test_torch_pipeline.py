@@ -97,7 +97,8 @@ def cores():
     }
     tree = fill_flax_tree(shapes, 3)
     jcore = JCore(jspec, jax.tree.map(jnp.asarray, tree))
-    return jcore, LatentDiffusionCore.from_jax_params(LatentCoreSpec.tiny(), tree)
+    return jcore, LatentDiffusionCore.from_jax_params(LatentCoreSpec.tiny(), tree,
+                                                      device="cpu")
 
 
 def _pipe_kwargs(dec_scales):

@@ -1,6 +1,6 @@
 """The step probe's host-side pieces: kernel kinds, the alternating order of
-its runs, and the swap of the flash entry points for their plain versions
-(undone on leaving, also on an error)."""
+its runs, and the swap of the four kernels' entry points for their plain
+versions (undone on leaving, also on an error)."""
 
 import pytest
 
@@ -11,6 +11,10 @@ from cyclediffusion_tpu_torch.tools import step_probe
 @pytest.mark.parametrize("name,kind", [
     ("void (anonymous namespace)::flash_fwd_bf16_kernel<40>(__nv_bfloat16 const*)",
      "flash kernels (K1, K2)"),
+    ("void (anonymous namespace)::qout_bf16_kernel<40>(__nv_bfloat16 const*)",
+     "folded kernels (K3, K4)"),
+    ("(anonymous namespace)::kv_proj_bf16_kernel(__nv_bfloat16 const*)",
+     "folded kernels (K3, K4)"),
     ("void cudnn::engines_precompiled::nchwToNhwcKernel<__nv_bfloat16>", "cuDNN layout conversions"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "convolutions"),
     ("nvjet_tst_168x128_64x5_1x2_h_bz_coopA_bias_TNN", "GEMMs"),
@@ -28,15 +32,21 @@ def test_kernel_kind(name, kind):
 def test_alternating_order():
     assert list(step_probe.alternating(3)) == [
         "kernels", "plain", "plain", "kernels", "kernels", "plain"]
+    assert list(step_probe.alternating(2, step_probe.FOLDED_MODES)) == [
+        "default", "qo", "1", "1", "qo", "default"]
 
 
 def test_attention_swap_is_undone():
-    kernels = fa.flash_attention_packed, fa.flash_attention_bhtd
+    """All four kernels' entry points go to their plain versions inside the
+    block and come back on leaving, also on an error."""
+    names = list(step_probe.PLAIN_VERSIONS)
+    kernels = [getattr(fa, n) for n in names]
     with step_probe.attention("kernels"):
-        assert (fa.flash_attention_packed, fa.flash_attention_bhtd) == kernels
+        assert [getattr(fa, n) for n in names] == kernels
     with pytest.raises(RuntimeError):
         with step_probe.attention("plain"):
-            assert fa.flash_attention_packed is fa.attention_packed_reference
-            assert fa.flash_attention_bhtd is fa.attention_reference
+            for name, plain in step_probe.PLAIN_VERSIONS.items():
+                assert getattr(fa, name) is getattr(fa, plain)
             raise RuntimeError("inside")
-    assert (fa.flash_attention_packed, fa.flash_attention_bhtd) == kernels
+    assert [getattr(fa, n) for n in names] == kernels
+    assert len(names) == 4
