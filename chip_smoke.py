@@ -9,15 +9,22 @@ Phases (each prints its results; any failure exits non-zero):
 1. Device: refuses to run without CUDA; prints the card's name and power
    limit (nvidia-smi).
 2. Build: compiles the two kernel libraries from ``csrc/`` with nvcc, one
-   process each, started together.
+   process each, started together; prints ptxas's registers and spills
+   and, from ``cuobjdump -sass``, the count of Hopper's tensor-core
+   (``HGMMA``) and TMA-load (``UTMALDG``) instructions in the bf16 K1/K2
+   kernels, which must have both and spill nothing.
 3. Kernel against plain: each of the four kernels (K1, K2 flash attention;
    K3, K4 folded self-attention) and its plain PyTorch version on the same
-   inputs, at the main-path shapes in bf16, at a ragged shape, and in fp32
-   with TF32 off; max abs error relative to max|plain| against a stated
-   bound; median times of the kernel, the plain version and a library
-   comparison (``scaled_dot_product_attention`` for K1/K2, the split path
-   Linear -> SDPA -> Linear for K3/K4), timed only and never on the path;
-   each kernel's bound from its work at the main-path shape.
+   inputs, at the main-path shapes in bf16 (and K2 at the encode chain's
+   batch 2), at ragged shapes (K1/K2 at every supported head dim, in bf16
+   and fp32, the sequence lengths off the kernel's 128-row tiles, one key
+   axis shorter than a tile), and in fp32 with TF32 off; max abs error
+   relative to max|plain| against a stated bound; median times of the
+   kernel, the plain version and a library comparison
+   (``scaled_dot_product_attention`` for K1/K2, the split path Linear ->
+   SDPA -> Linear for K3/K4), timed only and never on the path; each
+   kernel's bound from its work at the main-path shape, and beside K1/K2's
+   the floor that their exponentials alone set.
 4. The translate slice: SD-v1 at 512 px (full widths, seeded random
    weights, bf16), 2 translate requests through ``StochasticTextPipeline``
    — 50 DDIM steps, eta 0.1, encoder scale 1, decoder scale 5 — with the
@@ -57,7 +64,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # rounds its output once after normalising, the plain version rounds the
 # softmax weights before P.V, so the two differ by about one bf16 ulp, at
 # most 2^-7 (7.8e-3) of the largest output.  A kernel that dropped one
-# 64-key tile of 4096 would miss by ~2% of it.
+# 128-key tile of 4096 would miss by ~3% of it.
 BF16_REL_BOUND = 1e-2
 FP32_REL_BOUND = 1e-4  # fp32, TF32 off: only the summation order differs
 UNET_REL_BOUND = 5e-2  # whole bf16 UNet, kernels vs plain attention, / max|eps|
@@ -71,6 +78,9 @@ ETA = 0.1
 # cores, HBM bandwidth
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
+# exponentials per second of the H100 SXM's special-function units (FA3
+# paper, Shah et al. 2024, sec. 3): one per logit sets a floor under K1/K2
+EXP_RATE = 3.9e12
 
 KERNELS = {  # name -> (id, source under the repo, the TPU kernel it replaces)
     "flash_attention_bhtd": ("K1", "cyclediffusion_tpu_torch/csrc/flash_attention.cu",
@@ -138,6 +148,56 @@ def bound_of(name: str, shp, dtype_name: str):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def exp_floor_ms(name: str, shp) -> float:
+    """K1/K2: the ms the exponentials alone take, one per logit (B*H*Tq*Tk)
+    at ``EXP_RATE``.  Shapes as in ``cases``."""
+    if name == "flash_attention_packed":
+        b, tq, tk, h, _ = shp
+    else:
+        b, h, tq, tk, _ = shp
+    return 1e3 * b * h * tq * tk / EXP_RATE
+
+
+def build_report(infos) -> None:
+    """Phase 2: ptxas's registers and spills from the build logs, and the
+    Hopper instructions in the bf16 K1/K2 kernels' SASS; fails if those
+    kernels spill or lack wgmma (HGMMA) or TMA loads (UTMALDG)."""
+    from cyclediffusion_tpu_torch.ops import cuda_build
+
+    bf16_kernel = "flash_fwd_bf16_kernel"
+    for info in infos:
+        entry = ""
+        for line in info.log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            if "registers" in line or "spill" in line:
+                say(f"build: {line.strip()}")
+            if (bf16_kernel in entry and "spill" in line
+                    and "0 bytes spill stores, 0 bytes spill loads" not in line):
+                fail(f"{entry} spills registers: {line.strip()}")
+    flash = next(i.path for i in infos if i.path.name.startswith("libflash_attention"))
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
+    cmd = [cuobjdump, "-sass", str(flash)]
+    sass = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"{' '.join(cmd)} failed: {sass.stderr.strip()[:500]}")
+    counts, fn = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn is not None:
+            for op in ("HGMMA", "UTMALDG"):
+                if f" {op}." in line or f" {op} " in line:
+                    counts.setdefault(fn, {"HGMMA": 0, "UTMALDG": 0})[op] += 1
+    kernels = [f for f in counts if bf16_kernel in f]
+    for f in kernels:
+        say(f"build: {cmd[0]} -sass {flash.name}: {f}: {counts[f]['HGMMA']} HGMMA, "
+            f"{counts[f]['UTMALDG']} UTMALDG")
+    if len(kernels) != 3 or not all(counts[f]["HGMMA"] and counts[f]["UTMALDG"]
+                                    for f in kernels):
+        fail(f"the bf16 K1/K2 kernels (3 head dims) must hold HGMMA and UTMALDG: {counts}")
+
+
 def phase_kernels(torch, fa):
     """Phase 3: every kernel against its plain version on the card."""
     F = torch.nn.functional
@@ -161,14 +221,24 @@ def phase_kernels(torch, fa):
     # (B, H, Tq, Tk, d), qout: (B, Tq, Tk, C, H), fused: (B, T, C, H), with
     # H*d = C.  "main path": what the slices below give the kernels (2
     # requests, or one image's 2 candidates, x the CFG pair); its numbers go
-    # to the JSON record
+    # to the JSON record.  K1/K2's ragged shapes: every supported head dim,
+    # Tq and Tk off the 128-row q and key tiles, one key axis (77) shorter
+    # than a tile, and K2's own layout at d = 40, H = 8
+    ragged_flash = [
+        ("flash_attention_bhtd", (1, 2, 1024, 77, 40)),
+        ("flash_attention_bhtd", (2, 3, 300, 333, 40)),
+        ("flash_attention_bhtd", (1, 2, 200, 77, 64)),
+        ("flash_attention_bhtd", (2, 2, 333, 515, 80)),
+        ("flash_attention_packed", (2, 300, 200, 4, 64)),
+        ("flash_attention_packed", (2, 1000, 1100, 8, 40)),
+    ]
     cases = [
         ("flash_attention_packed", "main path", bf16, (4, 4096, 4096, 8, 40)),
         ("flash_attention_bhtd", "main path", bf16, (4, 8, 1024, 1024, 80)),
         ("qout_self_attention_block", "main path", bf16, (4, 4096, 4096, 320, 8)),
         ("fused_self_attention_block", "main path", bf16, (4, 4096, 320, 8)),
-        ("flash_attention_packed", "ragged", bf16, (2, 300, 200, 4, 64)),
-        ("flash_attention_bhtd", "ragged", bf16, (1, 2, 1024, 77, 40)),
+        ("flash_attention_packed", "encode chain", bf16, (2, 4096, 4096, 8, 40)),
+        *[(name, "ragged", dtype, shp) for dtype in (bf16, f32) for name, shp in ragged_flash],
         ("qout_self_attention_block", "ragged", bf16, (2, 300, 200, 256, 4)),
         ("fused_self_attention_block", "ragged", bf16, (2, 300, 256, 4)),
         ("flash_attention_packed", "sd 64x64", f32, (2, 4096, 4096, 8, 40)),
@@ -227,10 +297,13 @@ def phase_kernels(torch, fa):
         dname = "bf16" if dtype == bf16 else "fp32"
         ms, plain_ms, library_ms = (cuda_time_ms(fn) for fn in (kernel, plain, library))
         bound_ms, bound_by = bound_of(name, shp, dname)
+        floor = (f"; exp floor {exp_floor_ms(name, shp):.4f} ms"
+                 if name in ("flash_attention_packed", "flash_attention_bhtd") else "")
         say(f"kernel {KERNELS[name][0]} {name} [{label}] {dname} shape={shp}: "
             f"max_abs_err={err:.3e}, max|plain|={peak:.3e}, ratio {rel:.3e} "
             f"(bound {bound:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {library_ms:.4f} ms; least time {bound_ms:.4f} ms ({bound_by})")
+            f"library {library_ms:.4f} ms; least time {bound_ms:.4f} ms ({bound_by})"
+            f"{floor}")
         if not rel <= bound:
             fail(f"{name} {label} {dtype}: max_abs_err / max|plain| = {rel} > {bound}")
         if label == "main path":
@@ -572,10 +645,8 @@ def main() -> None:
     for info in infos:
         say(f"build: {info.path.name} {'built' if info.built else 'found'} in "
             f"{info.seconds:.2f} s")
-        for line in info.log.splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"build: {line.strip()}")
     say(f"build: both libraries loaded in {time.perf_counter() - t0:.2f} s")
+    build_report(infos)
 
     record = phase_kernels(torch, fa)
     slice_counts, k4_counts = phase_slice(torch, fa, attention, HashTokenizer,

@@ -1,7 +1,10 @@
 // Shared device code of the attention kernels (flash_attention.cu: K1, K2;
 // folded_attention.cu: K3, K4): the bf16 tensor-core tile (mma.sync
 // m16n8k16) and the two online-softmax updates, the counterparts of
-// _mha_online_update in cyclediffusion_tpu/ops/flash_attention.py.
+// _mha_online_update in cyclediffusion_tpu/ops/flash_attention.py.  Only
+// K3/K4 still use the mma.sync helpers and online_update_tc; the bf16 path
+// of K1/K2 runs on wgmma (hopper_attention.cuh), and their fp32 path uses
+// online_update_f32.
 //
 // Every definition sits in an anonymous namespace, so each translation unit
 // that includes this header gets its own internal copy.

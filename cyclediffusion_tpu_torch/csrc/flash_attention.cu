@@ -13,29 +13,60 @@
 // same kernels through element strides of (batch, head, row): nothing is
 // transposed or padded through device memory.
 //
-// What bounds it on the H100.  The logits never leave the chip, so the
-// traffic is q, k, v and o plus one re-read of k and v per 64-row q tile
-// (from L2), a few tens of MB per call at the SD shapes, against
-// 4*Tq*Tk*D flops per (batch, head): 86 GFLOP at the 64x64 level of a CFG
-// pair of two images.  The kernel is compute-bound, by the tensor cores'
-// rate (989 TFLOP/s dense bf16) and, as here without pipelining, by the
-// exp and the staging of K/V tiles between the matmuls.
+// What bounds it on the H100, at the main path's shapes in bf16 (batch 4 =
+// 2 requests x the CFG pair, H = 8):
+//   * the matrix products, 4*Tq*Tk*D flops per (batch, head): 85.9 GFLOP for
+//     K2 (T = 4096, d = 40) and 10.7 for K1 (T = 1024, d = 80), 0.087 and
+//     0.011 ms at 989 TFLOP/s;
+//   * the exponentials, one per logit: 537 M for K2 and 34 M for K1, 0.138
+//     and 0.009 ms at the ~3.9 T/s of the special-function units (FA3
+//     paper, Shah et al. 2024, sec. 3) -- above the matmul bound at d = 40;
+//   * the re-reads of K and V from L2, once per q tile: 1,024 blocks x 655 KB
+//     = 0.67 GB per K2 call with 128-row tiles (1.34 GB with 64-row ones);
+//   * compulsory HBM traffic, q, k, v and o once: 42 / 21 MB, 13 / 6 us.
 //
-// Design.  One thread block per (batch*head, 64-row q tile).
-//   * bf16, the path: four warps, 16 q rows each, with both matmuls on the
-//     tensor cores (mma.sync m16n8k16, fp32 accumulate).  The block stages K
-//     (row-major) and V (transposed, so that P.V reads key pairs) in 64-key
-//     tiles in shared memory, zero-padding the head dim to a multiple of 16
-//     (D=40 -> 48; D=80 needs none).  S = Q K^T stays in registers; the
-//     online-softmax update (online_update_tc) rescales the accumulator and
-//     turns S into P's A-operand fragments without leaving registers.
-//   * fp32: one thread per q row on the FP32 cores (tensor cores would round
-//     to TF32), K and V tiles staged in shared memory and read as broadcasts,
-//     online_update_f32 over chunks of 16 keys.
+// Design of the bf16 path.  Its main loop is in hopper_attention.cuh, where
+// the folded kernels K3/K4 can build on it.  What it does about each limit
+// of the mma.sync kernel it replaced:
+//   * staging: one producer thread issues TMA (cp.async.bulk.tensor) loads
+//     of the q tile and of 128-key K/V tiles into a 4-stage ring guarded by
+//     mbarriers; no thread spends registers or instructions on a copy, and
+//     the loads overlap the tensor cores and the softmax;
+//   * V's transpose: none.  P V reads the V tile MN-major as it lies in
+//     memory (wgmma's transpose bit on B);
+//   * tensor cores: both products on wgmma (m64nNk16, fp32 accumulate),
+//     Hopper's full-rate path.  S = Q K^T takes Q and K from shared memory;
+//     O += P V takes P from registers, converted in place from S's
+//     accumulator fragments;
+//   * q tiles: 128 rows per block, two consumer warpgroups of 64 rows
+//     sharing every K/V tile, which halves the L2 re-reads of 64-row tiles;
+//   * the exponentials: p = 2^(s*c - m*c) with c = scale*log2(e), one FFMA
+//     and one MUFU ex2 per logit, the row max a quad shuffle;
+//   * the head-dim pad: only S pads d = 40 to 48 (TMA zero-fills the columns
+//     past D); P V runs at N = D;
+//   * warps: a producer warpgroup and two consumer warpgroups.  Within a
+//     consumer the softmax of tile j overlaps P_{j-1} V_{j-1} on the tensor
+//     cores; between them the issue of the products alternates (FA3's
+//     ping-pong), so that one's softmax overlaps the other's products.  The
+//     producer gives its registers to the consumers (setmaxnreg 40 / 232):
+//     the 64x128 fp32 S tile, the O tile and P stay in registers.
+// Operands lie in shared memory as 16-column chunks with TMA's 32-byte
+// swizzle: 80- and 160-byte head rows (d = 40, 80) fit no swizzle width, a
+// 16-column chunk fits exactly one.  The tensor maps are encoded on the host
+// per call (cuTensorMapEncodeTiled, from libcuda through the runtime) and
+// passed as __grid_constant__ parameters, so a CUDA graph captures them.
+// K2 at batch 4 runs 1,024 blocks, 7.8 waves on 132 SMs with one block per
+// SM; K1 runs 256, 1.94 waves, so its last wave is 94% full and needs no
+// persistent schedule.
+//
+// fp32 (off the path): one thread per q row on the FP32 cores (tensor cores
+// would round to TF32), 64-row q tiles, K and V tiles staged in shared memory
+// and read as broadcasts, online_update_f32 over chunks of 16 keys.
 // Keys >= Tk are masked to -inf in the last tile and rows >= Tq are not
 // stored.  There are no atomics: the output is bitwise deterministic.
 
 #include "attention_common.cuh"
+#include "hopper_attention.cuh"
 
 namespace {
 
@@ -45,122 +76,34 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: wgmma + TMA, warp-specialised
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(128)
-    flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(hopper::kThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
                           __nv_bfloat16* __restrict__ o, int H, int Tq, int Tk,
-                          float scale, Strides sq, Strides sk, Strides sv,
-                          Strides so) {
-  using S = TcShape<D>;
-  constexpr int Dp = S::Dp;
-  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * S::KS];
-  __shared__ __align__(16) __nv_bfloat16 vt[Dp * S::VS];
-
+                          float scale_log2, Strides so) {
+  extern __shared__ uint8_t smem_raw[];
+  hopper::Smem<D>& sm = hopper::smem_tiles<D>(smem_raw);
   const int b = blockIdx.y / H;
   const int h = blockIdx.y - b * H;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;        // fragment row group
-  const int c = (lane & 3) * 2;   // fragment column pair
-  const int r_lo = blockIdx.x * kBlockQ + warp * 16 + g;
-  const int r_hi = r_lo + 8;
-
-  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
-  const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
-  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
-
-  // Q as A fragments, loaded once: rows >= Tq and columns >= D read as zero
-  uint32_t qa[Dp / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < Dp / 16; ++kk) {
-#pragma unroll
-    for (int f = 0; f < 4; ++f) {
-      const int row = (f & 1) ? r_hi : r_lo;
-      const int d = kk * 16 + c + (f >> 1) * 8;
-      qa[kk][f] = (row < Tq && d < D) ? ld32(qb + row * sq.t + d) : 0u;
+  const int q0 = blockIdx.x * hopper::kRowsQ;
+  const int n_tiles = (Tk + hopper::kBlockN - 1) / hopper::kBlockN;
+  if (threadIdx.x == 0) hopper::init_barriers(sm);
+  __syncthreads();
+  // one if/else for the whole lifetime of each role, as setmaxnreg needs
+  if (threadIdx.x >= hopper::kConsumers) {
+    hopper::setmaxnreg_dec<hopper::kProducerRegs>();
+    if (threadIdx.x == hopper::kConsumers) {
+      hopper::produce<D>(sm, &tm_q, &tm_k, &tm_v, q0, h, b, n_tiles);
     }
-  }
-
-  float acc[Dp / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < Dp / 8; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-  }
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < Tk; k0 += kBlockK) {
-    const int n_valid = min(kBlockK, Tk - k0);
-    __syncthreads();  // every warp is done with the previous tile
-    // stage 16-byte chunks: K row-major, V transposed; pads read as zero
-    for (int i = threadIdx.x; i < kBlockK * (Dp / 8); i += blockDim.x) {
-      const int j = i / (Dp / 8);
-      const int d0 = (i - j * (Dp / 8)) * 8;
-      uint4 kc = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vc = make_uint4(0u, 0u, 0u, 0u);
-      if (j < n_valid && d0 < D) {
-        kc = *reinterpret_cast<const uint4*>(kb + (k0 + j) * sk.t + d0);
-        vc = *reinterpret_cast<const uint4*>(vb + (k0 + j) * sv.t + d0);
-      }
-      *reinterpret_cast<uint4*>(ks + j * S::KS + d0) = kc;
-      const __nv_bfloat16* vv = reinterpret_cast<const __nv_bfloat16*>(&vc);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vt[(d0 + e) * S::VS + j] = vv[e];
-    }
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < Dp / 16; ++kk) {
-        const __nv_bfloat16* kp = ks + (nt * 8 + g) * S::KS + kk * 16 + c;
-        mma_16816(s[nt], qa[kk], ld32(kp), ld32(kp + 8));
-      }
-    }
-
-    uint32_t pa[4][4];
-    online_update_tc<D>(s, c, n_valid, scale, m, l, acc, pa);
-
-#pragma unroll
-    for (int dt = 0; dt < Dp / 8; ++dt) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const __nv_bfloat16* vp = vt + (dt * 8 + g) * S::VS + kk * 16 + c;
-        mma_16816(acc[dt], pa[kk], ld32(vp), ld32(vp + 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  __nv_bfloat16* ob = o + b * so.b + h * so.h;
-#pragma unroll
-  for (int dt = 0; dt < Dp / 8; ++dt) {
-    const int d = dt * 8 + c;
-    if (d >= D) continue;
-    if (r_lo < Tq) {
-      *reinterpret_cast<uint32_t*>(ob + r_lo * so.t + d) =
-          pack_bf16(__float2bfloat16(acc[dt][0] / l[0]),
-                    __float2bfloat16(acc[dt][1] / l[0]));
-    }
-    if (r_hi < Tq) {
-      *reinterpret_cast<uint32_t*>(ob + r_hi * so.t + d) =
-          pack_bf16(__float2bfloat16(acc[dt][2] / l[1]),
-                    __float2bfloat16(acc[dt][3] / l[1]));
-    }
+  } else {
+    hopper::setmaxnreg_inc<hopper::kConsumerRegs>();
+    hopper::consume<D>(sm, threadIdx.x / 128, q0, Tq, Tk, n_tiles, scale_log2,
+                       o + b * so.b + h * so.h, so.t);
   }
 }
 
@@ -236,26 +179,46 @@ struct Args {
 };
 
 template <int D>
-int launch_d(const Args& a, bool bf16) {
-  const dim3 grid((a.Tq + kBlockQ - 1) / kBlockQ, a.B * a.H);
-  if (bf16) {
-    flash_fwd_bf16_kernel<D><<<grid, 128, 0, a.stream>>>(
-        static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-        static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o),
-        a.H, a.Tq, a.Tk, a.scale, a.sq, a.sk, a.sv, a.so);
-  } else {
-    flash_fwd_f32_kernel<D><<<grid, kBlockQ, 0, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<float*>(a.o), a.H, a.Tq,
-        a.Tk, a.scale, a.sq, a.sk, a.sv, a.so);
+int launch_bf16(const Args& a) {
+  CUtensorMap tq, tk, tv;
+  int rc = hopper::encode_operand(&tq, a.q, a.B, a.H, a.Tq, D, a.sq.b, a.sq.h, a.sq.t,
+                                  hopper::kRowsQ);
+  if (rc == 0) {
+    rc = hopper::encode_operand(&tk, a.k, a.B, a.H, a.Tk, D, a.sk.b, a.sk.h, a.sk.t,
+                                hopper::kBlockN);
   }
+  if (rc == 0) {
+    rc = hopper::encode_operand(&tv, a.v, a.B, a.H, a.Tk, D, a.sv.b, a.sv.h, a.sv.t,
+                                hopper::kBlockN);
+  }
+  if (rc != 0) return rc;
+  constexpr int smem = hopper::smem_bytes<D>();
+  auto kernel = flash_fwd_bf16_kernel<D>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.Tq + hopper::kRowsQ - 1) / hopper::kRowsQ, a.B * a.H);
+  kernel<<<grid, hopper::kThreads, smem, a.stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(a.o), a.H, a.Tq, a.Tk,
+      static_cast<float>(a.scale * 1.4426950408889634), a.so);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_d(const Args& a, bool bf16) {
+  if (bf16) return launch_bf16<D>(a);
+  const dim3 grid((a.Tq + kBlockQ - 1) / kBlockQ, a.B * a.H);
+  flash_fwd_f32_kernel<D><<<grid, kBlockQ, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.H, a.Tq, a.Tk,
+      a.scale, a.sq, a.sk, a.sv, a.so);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool strides_of_8(const Strides& s) { return (s.b % 8 | s.h % 8 | s.t % 8) == 0; }
 
 int dispatch(const Args& a, int D, int is_bf16) {
-  // the bf16 kernel moves 16-byte chunks of head rows
+  // TMA takes 16-byte aligned bases and strides in multiples of 16 bytes
   if (is_bf16 && !(aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
                    aligned16(a.o) && strides_of_8(a.sq) && strides_of_8(a.sk) &&
                    strides_of_8(a.sv) && strides_of_8(a.so))) {

@@ -29,7 +29,8 @@
 //     cores with this file's own mma.sync code (m16n8k16, fp32 accumulate):
 //       1. q tile = x tile W_q^T, W_q and x streamed through shared memory in
 //          64x64 slices, rounded into a 64 x (H*D) shared tile;
-//       2. per head, K2's loop over 64-key tiles of k/v (online_update_tc);
+//       2. per head, an online softmax over 64-key tiles of k/v on
+//          mma.sync (online_update_tc, attention_common.cuh);
 //          the normalised head output is rounded into the same shared tile,
 //          over the q columns that head no longer needs;
 //       3. out tile = attention tile W_o^T + b_o, W_o streamed in slices,
@@ -175,7 +176,7 @@ __global__ void __launch_bounds__(128)
   }
   __syncthreads();  // q written by other lanes; region reused below
 
-  // 2. attention per head, K2's loop; the result overwrites the head's q
+  // 2. attention per head (online_update_tc); the result overwrites the head's q
   bf16* kt = region;
   bf16* vt = region + kBlockK * S::KS;
   for (int h = 0; h < H; ++h) {

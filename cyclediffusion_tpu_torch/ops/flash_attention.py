@@ -57,7 +57,8 @@ _VP, _CI, _CF, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_lon
 # the CUDA libraries: name -> (sources under csrc/, headers hashed and .cu
 # built; the C entry points' argument types, each returning a CUDA error code)
 _LIBRARIES = {
-    "flash_attention": (("flash_attention.cu", "attention_common.cuh"), {
+    "flash_attention": (("flash_attention.cu", "attention_common.cuh",
+                         "hopper_attention.cuh"), {
         "cd_flash_attention_packed": [_VP] * 4 + [_CI] * 5 + [_CF, _CI, _VP],
         "cd_flash_attention_bhtd": [_VP] * 4 + [_CI] * 5 + [_CL] * 9 + [_CF, _CI, _VP],
     }),
@@ -137,12 +138,14 @@ def _check_kernel_inputs(name: str, q, k, v, head_dim: int,
 
 def _kernel_ready(x, contiguous: bool):
     """``x`` as the kernels read it: the head dim contiguous and, for the
-    bf16 kernel's 16-byte chunks, a 16-byte aligned base and row strides in
-    multiples of 8 elements; otherwise (or when ``contiguous``) a fresh
-    contiguous copy, which always qualifies (head dims are multiples of 8)."""
+    bf16 kernels' 16-byte chunks and TMA's tensor maps, a 16-byte aligned
+    base and strides in multiples of 8 elements, nonzero unless the dim
+    has size 1; otherwise (or when ``contiguous``) a fresh contiguous copy,
+    which always qualifies (head dims are multiples of 8)."""
     ok = x.stride(-1) == 1 and (x.is_contiguous() or not contiguous)
     if x.dtype == torch.bfloat16:
-        ok = ok and x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:-1])
+        ok = ok and x.data_ptr() % 16 == 0 and all(
+            st % 8 == 0 and (st > 0 or n == 1) for n, st in zip(x.shape[:-1], x.stride()[:-1]))
     return x if ok else x.clone(memory_format=torch.contiguous_format)
 
 

@@ -63,6 +63,23 @@ def test_kernel_work_and_bounds_at_the_main_path_shapes(smoke, name, shape, gflo
     assert by == "operations" and ms == pytest.approx(1e3 * flops / 989e12)
 
 
+@pytest.mark.parametrize("name,shape,exps_m,floor_ms", [
+    ("flash_attention_packed", (4, 4096, 4096, 8, 40), 536.9, 0.1377),
+    ("flash_attention_bhtd", (4, 8, 1024, 1024, 80), 33.55, 0.0086),
+])
+def test_exp_floor_at_the_main_path_shapes(smoke, name, shape, exps_m, floor_ms):
+    """K1/K2's exponentials, one per logit (B*H*Tq*Tk), at 3.9e12 per
+    second: for K2 (d = 40) a floor above its matrix-product bound, for K1
+    (d = 80) below it."""
+    b, h, tq, tk = ((shape[0], shape[3], shape[1], shape[2]) if name == "flash_attention_packed"
+                    else shape[:4])
+    assert abs(b * h * tq * tk / 1e6 - exps_m) < 0.05
+    floor = smoke.exp_floor_ms(name, shape)
+    assert floor == pytest.approx(floor_ms, abs=5e-5)
+    bound_ms, _ = smoke.bound_of(name, shape, "bf16")
+    assert (floor > bound_ms) == (name == "flash_attention_packed")
+
+
 @pytest.mark.parametrize("chunk", [None, 1, 3])
 def test_expected_unet_calls_counts_the_chains(smoke, chunk):
     """The smoke's expected UNet call count equals what encode + generate

@@ -25,8 +25,11 @@ def _qkv(shape_q, shape_kv, seed=0):
     return q, k, v
 
 
+# the last three: chip_smoke.py's ragged K1 shapes, Tq and Tk off the CUDA
+# kernel's 128-row q and key tiles, one key axis shorter than a tile
 @pytest.mark.parametrize("tq,tk,d", [(300, 512, 40), (1024, 512, 80),
-                                     (1024, 77, 40), (512, 200, 64)])
+                                     (1024, 77, 40), (512, 200, 64),
+                                     (300, 333, 40), (200, 77, 64), (333, 515, 80)])
 def test_bhtd_plain_matches_pallas_fp32(tq, tk, d):
     b, h = 1, 2
     q, k, v = _qkv((b, h, tq, d), (b, h, tk, d))
@@ -38,8 +41,9 @@ def test_bhtd_plain_matches_pallas_fp32(tq, tk, d):
     assert fa.launch_counts["flash_attention_bhtd"] == 0   # plain, not a launch
 
 
+# (1000, 1100, 40, 8): chip_smoke.py's ragged K2 shape, off the 128-row tiles
 @pytest.mark.parametrize("tq,tk,d,heads", [(2048, 2048, 40, 8), (1024, 77, 40, 8),
-                                           (300, 200, 64, 4)])
+                                           (300, 200, 64, 4), (1000, 1100, 40, 8)])
 def test_packed_plain_matches_pallas_fp32(tq, tk, d, heads):
     b = 2
     q, k, v = _qkv((b, tq, heads * d), (b, tk, heads * d))
@@ -103,6 +107,29 @@ def test_wrappers_reject_bad_shapes(bad):
         args = (q, k[:, :0], v[:, :0], 2, 1.0)
     with pytest.raises(ValueError):
         fa.flash_attention_packed(*args)
+
+
+@pytest.mark.parametrize("case,copied", [
+    ("contiguous", False), ("head_view", False), ("broadcast", True),
+    ("size_one_zero_stride", False), ("misaligned_rows", True)])
+def test_kernel_ready_copies_what_the_tensor_maps_refuse(case, copied):
+    """A bf16 operand reaches the kernel as it is when TMA can map it:
+    16-byte aligned, strides in multiples of 8 elements and nonzero (a dim
+    of size 1 takes any); otherwise as a contiguous copy."""
+    x = torch.zeros(2, 64, 4 * 40, dtype=torch.bfloat16)
+    view = {
+        "contiguous": x.view(2, 64, 4, 40).transpose(1, 2).contiguous(),
+        "head_view": x.view(2, 64, 4, 40).transpose(1, 2),
+        "broadcast": x[:1, :, :40].view(1, 1, 64, 40).expand(2, 4, 64, 40),
+        "size_one_zero_stride": x[:1, :, :40].view(1, 1, 64, 40).expand(1, 1, 64, 40)
+                                 .as_strided((1, 1, 64, 40), (0, 0, 160, 1)),
+        "misaligned_rows": torch.zeros(1, 1, 64, 44, dtype=torch.bfloat16)[..., :40],
+    }[case]
+    ready = fa._kernel_ready(view, contiguous=False)
+    assert (ready is not view) == copied
+    assert torch.equal(ready, view)
+    if copied:
+        assert ready.is_contiguous()
 
 
 def test_kernel_input_checks_refuse_non_cuda_tensors():

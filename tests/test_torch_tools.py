@@ -1,11 +1,13 @@
-"""The step probe's host-side pieces: kernel kinds, the alternating order of
-its runs, and the swap of the four kernels' entry points for their plain
-versions (undone on leaving, also on an error)."""
+"""The probes' host-side pieces: the step probe's kernel kinds, the
+alternating order of its runs, and the swap of the four kernels' entry
+points for their plain versions (undone on leaving, also on an error); the
+flash-variants tool's edits of the kernel header and its library swap."""
 
 import pytest
 
+from cyclediffusion_tpu_torch.ops import cuda_build
 from cyclediffusion_tpu_torch.ops import flash_attention as fa
-from cyclediffusion_tpu_torch.tools import step_probe
+from cyclediffusion_tpu_torch.tools import flash_variants, step_probe
 
 
 @pytest.mark.parametrize("name,kind", [
@@ -50,3 +52,22 @@ def test_attention_swap_is_undone():
             raise RuntimeError("inside")
     assert [getattr(fa, n) for n in names] == kernels
     assert len(names) == 4
+
+
+@pytest.mark.parametrize("name", list(flash_variants.VARIANTS))
+def test_flash_variants_edit_the_shipped_header_once(name):
+    """Each variant of the flash-variants tool is the shipped header with
+    each of its substitutions found exactly once (a changed header that a
+    variant no longer matches fails here, not on the card)."""
+    text = (cuda_build.CSRC_DIR / flash_variants.HEADER).read_text()
+    for old, new in flash_variants.VARIANTS[name]:
+        assert old != new and text.count(old) == 1
+
+
+def test_flash_variants_library_swap_is_undone():
+    saved = fa._library
+    with pytest.raises(RuntimeError):
+        with flash_variants.kernels_of("handle"):
+            assert fa._library("flash_attention")[1] == "handle"
+            raise RuntimeError("inside")
+    assert fa._library is saved
