@@ -11,20 +11,27 @@ Phases (each prints its results; any failure exits non-zero):
 2. Build: compiles the two kernel libraries from ``csrc/`` with nvcc, one
    process each, started together; prints ptxas's registers and spills
    and, from ``cuobjdump -sass``, the count of Hopper's tensor-core
-   (``HGMMA``) and TMA-load (``UTMALDG``) instructions in the bf16 K1/K2
-   kernels, which must have both and spill nothing.
+   (``HGMMA``) and TMA-load (``UTMALDG``) instructions in the bf16 wgmma
+   kernels: the attention kernel in both libraries (K1/K2, and K3/K4's
+   attention step; 3 head dims each) and the folded library's projection
+   kernel (7 widths K), which must have both and spill nothing; ptxas may
+   not fence their products (warning C7519).
 3. Kernel against plain: each of the four kernels (K1, K2 flash attention;
    K3, K4 folded self-attention) and its plain PyTorch version on the same
    inputs, at the main-path shapes in bf16 (and K2 at the encode chain's
    batch 2), at ragged shapes (K1/K2 at every supported head dim, in bf16
    and fp32, the sequence lengths off the kernel's 128-row tiles, one key
-   axis shorter than a tile), and in fp32 with TF32 off; max abs error
-   relative to max|plain| against a stated bound; median times of the
-   kernel, the plain version and a library comparison
+   axis shorter than a tile; K3/K4 off the tiles in bf16), and in fp32 with
+   TF32 off; then K3/K4's projection kernel alone at its two main-path
+   shapes, q (16384 x 320 x 320, with the bias as for the output) and
+   [q | k | v] (16384 x 960 x 320), and one ragged shape (600 x 256 x 256);
+   max abs error relative to max|plain| against a stated bound; median
+   times of the kernel, the plain version and a library comparison
    (``scaled_dot_product_attention`` for K1/K2, the split path Linear ->
-   SDPA -> Linear for K3/K4), timed only and never on the path; each
-   kernel's bound from its work at the main-path shape, and beside K1/K2's
-   the floor that their exponentials alone set.
+   SDPA -> Linear for K3/K4, ``F.linear`` for the projection), timed only
+   and never on the path; each kernel's bound from its work at the
+   main-path shape, and beside K1/K2's the floor that their exponentials
+   alone set.
 4. The translate slice: SD-v1 at 512 px (full widths, seeded random
    weights, bf16), 2 translate requests through ``StochasticTextPipeline``
    — 50 DDIM steps, eta 0.1, encoder scale 1, decoder scale 5 — with the
@@ -82,6 +89,14 @@ PEAK_BYTES = 3.35e12
 # paper, Shah et al. 2024, sec. 3): one per logit sets a floor under K1/K2
 EXP_RATE = 3.9e12
 
+# the bf16 wgmma/TMA kernels whose SASS phase 2 checks: library -> (kernel
+# name, instantiations); the folded library carries its own copy of the
+# attention kernel
+SASS_KERNELS = {
+    "libflash_attention": (("flash_fwd_bf16_kernel", 3),),
+    "libfolded_attention": (("flash_fwd_bf16_kernel", 3), ("linear_bf16_kernel", 7)),
+}
+
 KERNELS = {  # name -> (id, source under the repo, the TPU kernel it replaces)
     "flash_attention_bhtd": ("K1", "cyclediffusion_tpu_torch/csrc/flash_attention.cu",
                              "cyclediffusion_tpu/ops/flash_attention.py:187"),
@@ -126,6 +141,9 @@ def work(name: str, shp, dtype_name: str):
     """(flops, bytes) of one call: the matrix products' operations and each
     input read once, each output written once.  Shapes as in ``cases``."""
     elt = 2 if dtype_name == "bf16" else 4
+    if name == "linear":
+        m, n, k, bias = shp
+        return 2 * m * n * k, elt * (m * k + n * k + m * n + (n if bias else 0))
     if name == "flash_attention_packed":
         b, tq, tk, h, d = shp
         return 4 * b * h * tq * tk * d, elt * b * h * d * (2 * tq + 2 * tk)
@@ -160,11 +178,12 @@ def exp_floor_ms(name: str, shp) -> float:
 
 def build_report(infos) -> None:
     """Phase 2: ptxas's registers and spills from the build logs, and the
-    Hopper instructions in the bf16 K1/K2 kernels' SASS; fails if those
-    kernels spill or lack wgmma (HGMMA) or TMA loads (UTMALDG)."""
+    Hopper instructions in the bf16 wgmma kernels' SASS (``SASS_KERNELS``);
+    fails if those kernels spill or lack wgmma (HGMMA) or TMA loads
+    (UTMALDG)."""
     from cyclediffusion_tpu_torch.ops import cuda_build
 
-    bf16_kernel = "flash_fwd_bf16_kernel"
+    names = {name for kernels in SASS_KERNELS.values() for name, _ in kernels}
     for info in infos:
         entry = ""
         for line in info.log.splitlines():
@@ -172,30 +191,36 @@ def build_report(infos) -> None:
                 entry = line.split("'")[1] if "'" in line else line
             if "registers" in line or "spill" in line:
                 say(f"build: {line.strip()}")
-            if (bf16_kernel in entry and "spill" in line
+            if (any(n in entry for n in names) and "spill" in line
                     and "0 bytes spill stores, 0 bytes spill loads" not in line):
                 fail(f"{entry} spills registers: {line.strip()}")
-    flash = next(i.path for i in infos if i.path.name.startswith("libflash_attention"))
+            if "C7519" in line and any(n in line for n in names):
+                fail(f"ptxas serialises the products of a wgmma kernel: {line.strip()}")
     cuobjdump = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
-    cmd = [cuobjdump, "-sass", str(flash)]
-    sass = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    if sass.returncode != 0:
-        fail(f"{' '.join(cmd)} failed: {sass.stderr.strip()[:500]}")
-    counts, fn = {}, None
-    for line in sass.stdout.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-        elif fn is not None:
-            for op in ("HGMMA", "UTMALDG"):
-                if f" {op}." in line or f" {op} " in line:
-                    counts.setdefault(fn, {"HGMMA": 0, "UTMALDG": 0})[op] += 1
-    kernels = [f for f in counts if bf16_kernel in f]
-    for f in kernels:
-        say(f"build: {cmd[0]} -sass {flash.name}: {f}: {counts[f]['HGMMA']} HGMMA, "
-            f"{counts[f]['UTMALDG']} UTMALDG")
-    if len(kernels) != 3 or not all(counts[f]["HGMMA"] and counts[f]["UTMALDG"]
-                                    for f in kernels):
-        fail(f"the bf16 K1/K2 kernels (3 head dims) must hold HGMMA and UTMALDG: {counts}")
+    for info in infos:
+        lib = info.path.name.split("-")[0]
+        cmd = [cuobjdump, "-sass", str(info.path)]
+        sass = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        if sass.returncode != 0:
+            fail(f"{' '.join(cmd)} failed: {sass.stderr.strip()[:500]}")
+        counts, fn = {}, None
+        for line in sass.stdout.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+            elif fn is not None:
+                for op in ("HGMMA", "UTMALDG"):
+                    if f" {op}." in line or f" {op} " in line:
+                        counts[fn][op] += 1
+        for name, n in SASS_KERNELS[lib]:
+            kernels = [f for f in counts if name in f]
+            for f in kernels:
+                say(f"build: cuobjdump -sass {info.path.name}: {f}: {counts[f]['HGMMA']} "
+                    f"HGMMA, {counts[f]['UTMALDG']} UTMALDG")
+            if len(kernels) != n or not all(counts[f]["HGMMA"] and counts[f]["UTMALDG"]
+                                            for f in kernels):
+                fail(f"{lib}: {n} instantiation(s) of {name} must hold HGMMA and UTMALDG: "
+                     f"{ {f: counts[f] for f in kernels} }")
 
 
 def phase_kernels(torch, fa):
@@ -245,6 +270,11 @@ def phase_kernels(torch, fa):
         ("flash_attention_bhtd", "sd 32x32", f32, (2, 8, 1024, 1024, 80)),
         ("qout_self_attention_block", "sd 64x64", f32, (2, 4096, 4096, 320, 8)),
         ("fused_self_attention_block", "sd 64x64", f32, (2, 4096, 320, 8)),
+        # K3/K4's projection kernel alone, (M, N, K, bias): q with the bias
+        # the output projection adds, [q | k | v], and a ragged M
+        ("linear", "projection", bf16, (16384, 320, 320, True)),
+        ("linear", "projection", bf16, (16384, 960, 320, False)),
+        ("linear", "ragged", bf16, (600, 256, 256, True)),
     ]
     record = {}
     for name, label, dtype, shp in cases:
@@ -261,6 +291,13 @@ def phase_kernels(torch, fa):
             kernel = functools.partial(fa.flash_attention_bhtd, q, k, v, d ** -0.5)
             plain = functools.partial(fa.attention_reference, q, k, v, d ** -0.5)
             library = functools.partial(F.scaled_dot_product_attention, q, k, v)
+        elif name == "linear":
+            m, n, kk, has_bias = shp
+            x, w = rand((m, kk), dtype), rand((n, kk), dtype, kk ** -0.5)
+            bias = rand((n,), dtype, 0.1) if has_bias else None
+            kernel = functools.partial(fa.linear, x, w, bias)
+            plain = functools.partial(fa.linear_reference, x, w, bias)
+            library = functools.partial(F.linear, x, w, bias)
         else:
             if name == "qout_self_attention_block":
                 b, tq, tk, c, h = shp
@@ -299,7 +336,8 @@ def phase_kernels(torch, fa):
         bound_ms, bound_by = bound_of(name, shp, dname)
         floor = (f"; exp floor {exp_floor_ms(name, shp):.4f} ms"
                  if name in ("flash_attention_packed", "flash_attention_bhtd") else "")
-        say(f"kernel {KERNELS[name][0]} {name} [{label}] {dname} shape={shp}: "
+        kid = KERNELS[name][0] if name in KERNELS else "K3/K4 part"
+        say(f"kernel {kid} {name} [{label}] {dname} shape={shp}: "
             f"max_abs_err={err:.3e}, max|plain|={peak:.3e}, ratio {rel:.3e} "
             f"(bound {bound:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {library_ms:.4f} ms; least time {bound_ms:.4f} ms ({bound_by})"

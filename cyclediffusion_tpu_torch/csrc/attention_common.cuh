@@ -1,10 +1,9 @@
-// Shared device code of the attention kernels (flash_attention.cu: K1, K2;
-// folded_attention.cu: K3, K4): the bf16 tensor-core tile (mma.sync
-// m16n8k16) and the two online-softmax updates, the counterparts of
-// _mha_online_update in cyclediffusion_tpu/ops/flash_attention.py.  Only
-// K3/K4 still use the mma.sync helpers and online_update_tc; the bf16 path
-// of K1/K2 runs on wgmma (hopper_attention.cuh), and their fp32 path uses
-// online_update_f32.
+// Shared device code of the fp32 attention kernels (flash_attention.cu: K1,
+// K2; folded_attention.cu: K3, K4), which run on the FP32 cores: the tile
+// sizes and the online-softmax update online_update_f32, the counterpart of
+// _mha_online_update in cyclediffusion_tpu/ops/flash_attention.py, and the
+// alignment test of the C entry points.  The bf16 paths of all four run on
+// wgmma and TMA: hopper_attention.cuh and hopper_linear.cuh.
 //
 // Every definition sits in an anonymous namespace, so each translation unit
 // that includes this header gets its own internal copy.
@@ -20,90 +19,7 @@ namespace {
 
 constexpr int kBlockQ = 64;  // q rows per block
 constexpr int kBlockK = 64;  // keys per shared-memory tile
-constexpr int kChunk = 16;   // keys per online-softmax update (fp32 path)
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores
-// ---------------------------------------------------------------------------
-
-// c += a (16x16, row-major A fragment) * b (16x8, "col" B fragment), fp32 sum
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <int D>
-struct TcShape {
-  static constexpr int Dp = (D + 15) / 16 * 16;  // head dim padded for k16 steps
-  static constexpr int KS = Dp + 8;              // K tile row stride (bank spread)
-  static constexpr int VS = kBlockK + 8;         // V^T tile row stride
-};
-
-// The counterpart of _mha_online_update for one warp's 16 q rows over one
-// staged tile: s holds S = Q K^T for 64 keys in mma C-fragment layout (this
-// thread: rows g and g+8, columns 8*nt + c, +1).  Masks keys >= n_valid,
-// updates the running max m[2] and this thread's partial row sums l[2],
-// rescales the accumulator o, and returns P (rounded to bf16, the same values
-// that enter l) as the A fragments of P.V.
-template <int D>
-__device__ __forceinline__ void online_update_tc(float (&s)[8][4], int c,
-                                                 int n_valid, float scale,
-                                                 float (&m)[2], float (&l)[2],
-                                                 float (&o)[TcShape<D>::Dp / 8][4],
-                                                 uint32_t (&pa)[4][4]) {
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = nt * 8 + c + (e & 1);
-      s[nt][e] = key < n_valid ? s[nt][e] * scale : -INFINITY;
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-    }
-  }
-  float alpha[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    // a row's 64 columns are spread over the 4 lanes of a quad
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float m_new = fmaxf(m[r], mx[r]);  // finite: the tile has a real key
-    alpha[r] = expf(m[r] - m_new);           // 0 on the first tile
-    m[r] = m_new;
-    l[r] *= alpha[r];
-  }
-#pragma unroll
-  for (int dt = 0; dt < TcShape<D>::Dp / 8; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dt][e] *= alpha[e >> 1];
-  }
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    __nv_bfloat16 p[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      p[e] = __float2bfloat16(expf(s[nt][e] - m[e >> 1]));
-      l[e >> 1] += __bfloat162float(p[e]);
-    }
-    // keys 16*kk + [0, 8) fill a0 (row g) / a1 (row g+8); keys 16*kk + [8, 16)
-    // fill a2 / a3
-    pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
-    pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-  }
-}
+constexpr int kChunk = 16;   // keys per online-softmax update
 
 // ---------------------------------------------------------------------------
 // fp32: FP32 cores, one thread per q row

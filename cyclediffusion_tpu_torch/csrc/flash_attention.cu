@@ -25,9 +25,9 @@
 //     = 0.67 GB per K2 call with 128-row tiles (1.34 GB with 64-row ones);
 //   * compulsory HBM traffic, q, k, v and o once: 42 / 21 MB, 13 / 6 us.
 //
-// Design of the bf16 path.  Its main loop is in hopper_attention.cuh, where
-// the folded kernels K3/K4 can build on it.  What it does about each limit
-// of the mma.sync kernel it replaced:
+// Design of the bf16 path.  The kernel and its main loop are in
+// hopper_attention.cuh, where the folded kernels K3/K4 launch it too.  What
+// it does about each limit of the mma.sync kernel it replaced:
 //   * staging: one producer thread issues TMA (cp.async.bulk.tensor) loads
 //     of the q tile and of 128-key K/V tiles into a 4-stage ring guarded by
 //     mbarriers; no thread spends registers or instructions on a copy, and
@@ -70,42 +70,8 @@
 
 namespace {
 
-// Element strides of a (batch, head, row) triple; the head dim is contiguous.
-struct Strides {
-  long long b, h, t;
-};
-
-// ---------------------------------------------------------------------------
-// bf16: wgmma + TMA, warp-specialised
-// ---------------------------------------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(hopper::kThreads, 1)
-    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
-                          const __grid_constant__ CUtensorMap tm_k,
-                          const __grid_constant__ CUtensorMap tm_v,
-                          __nv_bfloat16* __restrict__ o, int H, int Tq, int Tk,
-                          float scale_log2, Strides so) {
-  extern __shared__ uint8_t smem_raw[];
-  hopper::Smem<D>& sm = hopper::smem_tiles<D>(smem_raw);
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y - b * H;
-  const int q0 = blockIdx.x * hopper::kRowsQ;
-  const int n_tiles = (Tk + hopper::kBlockN - 1) / hopper::kBlockN;
-  if (threadIdx.x == 0) hopper::init_barriers(sm);
-  __syncthreads();
-  // one if/else for the whole lifetime of each role, as setmaxnreg needs
-  if (threadIdx.x >= hopper::kConsumers) {
-    hopper::setmaxnreg_dec<hopper::kProducerRegs>();
-    if (threadIdx.x == hopper::kConsumers) {
-      hopper::produce<D>(sm, &tm_q, &tm_k, &tm_v, q0, h, b, n_tiles);
-    }
-  } else {
-    hopper::setmaxnreg_inc<hopper::kConsumerRegs>();
-    hopper::consume<D>(sm, threadIdx.x / 128, q0, Tq, Tk, n_tiles, scale_log2,
-                       o + b * so.b + h * so.h, so.t);
-  }
-}
+using hopper::Args;
+using hopper::Strides;
 
 // ---------------------------------------------------------------------------
 // fp32: FP32 cores, one thread per q row
@@ -167,46 +133,9 @@ __global__ void __launch_bounds__(kBlockQ)
 // launch
 // ---------------------------------------------------------------------------
 
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int B, H, Tq, Tk;
-  float scale;
-  Strides sq, sk, sv, so;
-  cudaStream_t stream;
-};
-
-template <int D>
-int launch_bf16(const Args& a) {
-  CUtensorMap tq, tk, tv;
-  int rc = hopper::encode_operand(&tq, a.q, a.B, a.H, a.Tq, D, a.sq.b, a.sq.h, a.sq.t,
-                                  hopper::kRowsQ);
-  if (rc == 0) {
-    rc = hopper::encode_operand(&tk, a.k, a.B, a.H, a.Tk, D, a.sk.b, a.sk.h, a.sk.t,
-                                hopper::kBlockN);
-  }
-  if (rc == 0) {
-    rc = hopper::encode_operand(&tv, a.v, a.B, a.H, a.Tk, D, a.sv.b, a.sv.h, a.sv.t,
-                                hopper::kBlockN);
-  }
-  if (rc != 0) return rc;
-  constexpr int smem = hopper::smem_bytes<D>();
-  auto kernel = flash_fwd_bf16_kernel<D>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.Tq + hopper::kRowsQ - 1) / hopper::kRowsQ, a.B * a.H);
-  kernel<<<grid, hopper::kThreads, smem, a.stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(a.o), a.H, a.Tq, a.Tk,
-      static_cast<float>(a.scale * 1.4426950408889634), a.so);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int D>
 int launch_d(const Args& a, bool bf16) {
-  if (bf16) return launch_bf16<D>(a);
+  if (bf16) return hopper::launch_bf16<D>(a);
   const dim3 grid((a.Tq + kBlockQ - 1) / kBlockQ, a.B * a.H);
   flash_fwd_f32_kernel<D><<<grid, kBlockQ, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),

@@ -1,6 +1,8 @@
 // The Hopper main loop of flash attention (sm_90a), shared by the kernels
-// that compute softmax(q k^T * scale) v per (batch, head) in bf16: today the
-// bf16 path of K1 and K2 (flash_attention.cu).
+// that compute softmax(q k^T * scale) v per (batch, head) in bf16: the bf16
+// path of K1 and K2 (flash_attention.cu) and the attention step of K3 and K4
+// (folded_attention.cu), which launch the same kernel, flash_fwd_bf16_kernel
+// at the end of this file, through launch_bf16.
 //
 // One thread block per (batch*head, 128-row q tile), three warpgroups:
 //   * warpgroup 2, the producer: one thread loads the block's q tile once
@@ -584,6 +586,87 @@ inline int encode_operand(CUtensorMap* map, const void* base, int B, int H, int 
                         CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// the kernel and its launcher
+// ---------------------------------------------------------------------------
+
+// Element strides of a (batch, head, row) triple; the head dim is contiguous.
+struct Strides {
+  long long b, h, t;
+};
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int B, H, Tq, Tk;
+  float scale;
+  Strides sq, sk, sv, so;
+  cudaStream_t stream;
+};
+
+// One block per (128-row q tile, batch*head); o may be q itself (the block
+// has read its q tile before it writes the same rows and columns of o).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          __nv_bfloat16* __restrict__ o, int H, int Tq, int Tk,
+                          float scale_log2, Strides so) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem<D>& sm = smem_tiles<D>(smem_raw);
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y - b * H;
+  const int q0 = blockIdx.x * kRowsQ;
+  const int n_tiles = (Tk + kBlockN - 1) / kBlockN;
+  if (threadIdx.x == 0) init_barriers(sm);
+  __syncthreads();
+  // one if/else for the whole lifetime of each role, as setmaxnreg needs
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers) produce<D>(sm, &tm_q, &tm_k, &tm_v, q0, h, b, n_tiles);
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    consume<D>(sm, threadIdx.x / 128, q0, Tq, Tk, n_tiles, scale_log2, o + b * so.b + h * so.h,
+               so.t);
+  }
+}
+
+// bf16 q, k, v, o as (B, H, T, D) with the given element strides, 16-byte
+// aligned bases and strides in multiples of 8 (the caller checks); returns
+// cudaGetLastError() after the launch or the encoder's error.
+template <int D>
+int launch_bf16(const Args& a) {
+  CUtensorMap tq, tk, tv;
+  int rc = encode_operand(&tq, a.q, a.B, a.H, a.Tq, D, a.sq.b, a.sq.h, a.sq.t, kRowsQ);
+  if (rc == 0) rc = encode_operand(&tk, a.k, a.B, a.H, a.Tk, D, a.sk.b, a.sk.h, a.sk.t, kBlockN);
+  if (rc == 0) rc = encode_operand(&tv, a.v, a.B, a.H, a.Tk, D, a.sv.b, a.sv.h, a.sv.t, kBlockN);
+  if (rc != 0) return rc;
+  constexpr int smem = smem_bytes<D>();
+  auto kernel = flash_fwd_bf16_kernel<D>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.Tq + kRowsQ - 1) / kRowsQ, a.B * a.H);
+  kernel<<<grid, kThreads, smem, a.stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(a.o), a.H,
+                                             a.Tq, a.Tk,
+                                             static_cast<float>(a.scale * 1.4426950408889634),
+                                             a.so);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// launch_bf16 for a head dim known at run time
+inline int launch_bf16_d(const Args& a, int D) {
+  switch (D) {
+    case 40: return launch_bf16<40>(a);
+    case 64: return launch_bf16<64>(a);
+    case 80: return launch_bf16<80>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace hopper

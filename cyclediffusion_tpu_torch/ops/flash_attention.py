@@ -16,11 +16,16 @@ them and how they are built), replace the four Pallas kernels:
   projections too; replaces ``fused_self_attention_block`` /
   ``_folded_kernel``.
 
+In bf16, K3 and K4 are composed of two hand-written kernels, three launches
+behind one call: the projection kernel (:func:`linear` runs it alone), K2's
+attention kernel, and the projection kernel again for the output.
+
 Each wrapper takes its plain PyTorch version (:func:`attention_reference`,
 :func:`attention_packed_reference`, :func:`qout_self_attention_reference`,
-:func:`fused_self_attention_reference`) for tensors on the CPU, and only
-there: for a CUDA tensor it launches its kernel or raises.  Each call that
-launches adds one to the wrapper's entry in :data:`launch_counts`.
+:func:`fused_self_attention_reference`, :func:`linear_reference`) for tensors
+on the CPU, and only there: for a CUDA tensor it launches its kernel or
+raises.  Each call of K1-K4 that launches adds one to the wrapper's entry in
+:data:`launch_counts` (:func:`linear`, a part of K3/K4, counts none).
 
 :func:`multi_head_attention_fused` dispatches by shape with the JAX
 package's thresholds: Tq >= 2048 with Tk >= 512 to K2, 1024 <= Tq < 2048
@@ -44,6 +49,9 @@ from cyclediffusion_tpu_torch.ops import cuda_build
 # the SD-v1 levels' head dims (40, 80) and the ragged test shape's (64)
 SUPPORTED_HEAD_DIMS = (40, 64, 80)
 _DTYPES = (torch.float32, torch.bfloat16)
+# the widest C or H*D the folded kernels' bf16 path takes (the projection
+# kernel's X tile and W ring in shared memory: kLinMaxK in hopper_linear.cuh)
+LINEAR_MAX_K = 448
 # the shortest query axis that goes to a kernel (K1; K2 from twice this),
 # as in the JAX dispatcher
 MIN_FLASH_TOKENS = 1024
@@ -62,9 +70,11 @@ _LIBRARIES = {
         "cd_flash_attention_packed": [_VP] * 4 + [_CI] * 5 + [_CF, _CI, _VP],
         "cd_flash_attention_bhtd": [_VP] * 4 + [_CI] * 5 + [_CL] * 9 + [_CF, _CI, _VP],
     }),
-    "folded_attention": (("folded_attention.cu", "attention_common.cuh"), {
-        "cd_qout_self_attention": [_VP] * 7 + [_CI] * 6 + [_CL] * 4 + [_CF, _CI, _VP],
+    "folded_attention": (("folded_attention.cu", "attention_common.cuh",
+                          "hopper_attention.cuh", "hopper_linear.cuh"), {
+        "cd_qout_self_attention": [_VP] * 8 + [_CI] * 6 + [_CL] * 4 + [_CF, _CI, _VP],
         "cd_fused_self_attention": [_VP] * 8 + [_CI] * 5 + [_CF, _CI, _VP],
+        "cd_linear": [_VP] * 4 + [_CI] * 3 + [_VP],
     }),
 }
 
@@ -219,8 +229,10 @@ def _folded_attention(q, k, v, num_heads: int, sm_scale: float):
     return _tokens(o.to(v.dtype))
 
 
-def _project(x, w, b=None):
-    """x W^T (+ b), accumulated in fp32 and rounded once to x's dtype."""
+def linear_reference(x, w, b=None):
+    """x W^T (+ b), accumulated in fp32, b added in fp32, rounded once to x's
+    dtype: the plain version of the projection kernel and the folded
+    kernels' projections."""
     out = torch.nn.functional.linear(x.float(), w.float())
     return (out if b is None else out + b.float()).to(x.dtype)
 
@@ -229,15 +241,15 @@ def qout_self_attention_reference(x, wq, k, v, wo, bo, num_heads: int):
     """The plain version of K3 (same arguments as
     :func:`qout_self_attention_block`)."""
     d = wq.shape[0] // num_heads
-    q = _project(x, wq)
-    return _project(_folded_attention(q, k, v, num_heads, d ** -0.5), wo, bo)
+    q = linear_reference(x, wq)
+    return linear_reference(_folded_attention(q, k, v, num_heads, d ** -0.5), wo, bo)
 
 
 def fused_self_attention_reference(x, wq, wk, wv, wo, bo, num_heads: int):
     """The plain version of K4: k and v projected from x, rounded once, then
     :func:`qout_self_attention_reference`."""
-    return qout_self_attention_reference(x, wq, _project(x, wk), _project(x, wv),
-                                         wo, bo, num_heads)
+    return qout_self_attention_reference(x, wq, linear_reference(x, wk),
+                                         linear_reference(x, wv), wo, bo, num_heads)
 
 
 def _check_folded(name: str, x, weights, kv, num_heads: int) -> int:
@@ -258,7 +270,29 @@ def _check_folded(name: str, x, weights, kv, num_heads: int) -> int:
     return hd // num_heads
 
 
-def _check_folded_kernel_inputs(name: str, tensors, d: int, c: int, hd: int) -> None:
+def _check_folded_limits(name: str, dtype, b: int, t: int, c: int, hd: int, d: int,
+                         num_heads: int) -> None:
+    """The shapes the folded kernels take, by dtype: bf16 runs the
+    projection kernel (C and H*D <= LINEAR_MAX_K) and the attention kernel
+    (B*H blocks on the grid's y axis); fp32 its [k | v] kernel (B*T / 64
+    blocks on the y axis)."""
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
+    if c % 64 or hd % 64:
+        raise ValueError(f"{name}: widths C={c}, H*D={hd}; the kernel takes "
+                         "multiples of 64")
+    if dtype == torch.bfloat16:
+        if max(c, hd) > LINEAR_MAX_K:
+            raise ValueError(f"{name}: widths C={c}, H*D={hd}; the bf16 kernels take "
+                             f"at most {LINEAR_MAX_K}")
+        if b * num_heads > 65535:
+            raise ValueError(f"{name}: batch*heads exceeds the grid's 65535 limit")
+    elif b * t > 65535 * 64:
+        raise ValueError(f"{name}: batch*tokens exceeds the grid's limit")
+
+
+def _check_folded_kernel_inputs(name: str, tensors, d: int, c: int, hd: int,
+                                num_heads: int) -> None:
     x = tensors[0]
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensors on {x.device}; the kernel needs CUDA")
@@ -267,13 +301,7 @@ def _check_folded_kernel_inputs(name: str, tensors, d: int, c: int, hd: int) -> 
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in tensors):
         raise ValueError(f"{name}: dtypes {[t.dtype for t in tensors]}; the kernel "
                          "takes float32 or bfloat16, all the same (weights cast first)")
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
-    if c % 64 or hd % 64:
-        raise ValueError(f"{name}: widths C={c}, H*D={hd}; the kernel takes "
-                         "multiples of 64")
-    if x.shape[0] * x.shape[1] > 65535 * 64:
-        raise ValueError(f"{name}: batch*tokens exceeds the grid's limit")
+    _check_folded_limits(name, x.dtype, x.shape[0], x.shape[1], c, hd, d, num_heads)
 
 
 def qout_self_attention_block(x, wq, k, v, wo, bo, num_heads: int):
@@ -289,14 +317,18 @@ def qout_self_attention_block(x, wq, k, v, wo, bo, num_heads: int):
     b, tq, c = x.shape
     tk, hd = k.shape[1], wq.shape[0]
     _check_folded_kernel_inputs("qout_self_attention_block", (x, wq, k, v, wo, bo),
-                                d, c, hd)
+                                d, c, hd, num_heads)
     x, wq, wo, bo = (_kernel_ready(t, contiguous=True) for t in (x, wq, wo, bo))
     k, v = (_kernel_ready(t, contiguous=False) for t in (k, v))
     out = torch.empty((b, tq, c), dtype=x.dtype, device=x.device)
+    # bf16: q, then the attention over it; fp32 needs none
+    ws = (torch.empty((b, tq, hd), dtype=x.dtype, device=x.device)
+          if x.dtype == torch.bfloat16 else None)
     with torch.cuda.device(x.device):
         rc = _library("folded_attention")[1].cd_qout_self_attention(
             x.data_ptr(), wq.data_ptr(), k.data_ptr(), v.data_ptr(), wo.data_ptr(),
-            bo.data_ptr(), out.data_ptr(), b, tq, tk, c, num_heads, d,
+            bo.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+            b, tq, tk, c, num_heads, d,
             k.stride(0), k.stride(1), v.stride(0), v.stride(1), d ** -0.5,
             int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream)
@@ -307,9 +339,10 @@ def qout_self_attention_block(x, wq, k, v, wo, bo, num_heads: int):
 
 def fused_self_attention_block(x, wq, wk, wv, wo, bo, num_heads: int):
     """K4: :func:`qout_self_attention_block` with k = x Wk^T and v = x Wv^T
-    computed by the kernel (wk, wv (H*D, C)).  Two launches behind one call
-    (the [k | v] projection into a workspace, then K3's kernel on it); the
-    call counts as one launch of K4."""
+    computed by the kernel (wk, wv (H*D, C)).  Several launches behind one
+    call (bf16: the [q | k | v] projection into a workspace, the attention,
+    the output projection; fp32: the [k | v] projection, then K3's kernel);
+    the call counts as one launch of K4."""
     d = _check_folded("fused_self_attention_block", x, (wq, wk, wv, wo, bo), (),
                       num_heads)
     if x.device.type == "cpu":
@@ -317,20 +350,59 @@ def fused_self_attention_block(x, wq, wk, wv, wo, bo, num_heads: int):
     b, t, c = x.shape
     hd = wq.shape[0]
     _check_folded_kernel_inputs("fused_self_attention_block", (x, wq, wk, wv, wo, bo),
-                                d, c, hd)
+                                d, c, hd, num_heads)
     x, wq, wk, wv, wo, bo = (_kernel_ready(w, contiguous=True)
                              for w in (x, wq, wk, wv, wo, bo))
-    kv = torch.empty((b, t, 2 * hd), dtype=x.dtype, device=x.device)
+    # bf16: [q | k | v], the attention over q; fp32: [k | v]
+    width = (3 if x.dtype == torch.bfloat16 else 2) * hd
+    ws = torch.empty((b, t, width), dtype=x.dtype, device=x.device)
     out = torch.empty((b, t, c), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = _library("folded_attention")[1].cd_fused_self_attention(
             x.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), wo.data_ptr(),
-            bo.data_ptr(), kv.data_ptr(), out.data_ptr(), b, t, c, num_heads, d,
+            bo.data_ptr(), ws.data_ptr(), out.data_ptr(), b, t, c, num_heads, d,
             d ** -0.5, int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_error("fused_self_attention_block", rc)
     launch_counts["fused_self_attention_block"] += 1
     return out
+
+
+def linear(x, w, b=None):
+    """The folded kernels' projection kernel alone: ``x W^T (+ b)`` with x
+    (..., K), an ``nn.Linear`` weight w (N, K) and b (N,) -> (..., N),
+    accumulated in fp32 and rounded once (:func:`linear_reference` on the
+    CPU).  On the card bf16 only, K a multiple of 64 up to LINEAR_MAX_K, N a
+    multiple of 64.  Not on any path by itself (K3/K4 launch the kernel from
+    C), so it counts no launches; ``chip_smoke.py`` times it."""
+    n, k = w.shape
+    if x.shape[-1] != k or (b is not None and tuple(b.shape) != (n,)):
+        raise ValueError(f"linear: shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                         f"b {None if b is None else tuple(b.shape)}")
+    if x.device.type == "cpu":
+        return linear_reference(x, w, b)
+    tensors = (x, w) if b is None else (x, w, b)
+    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
+        raise ValueError(f"linear: tensors on {[str(t.device) for t in tensors]}; "
+                         "the kernel needs them all on one CUDA device")
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise ValueError(f"linear: dtypes {[t.dtype for t in tensors]}; the kernel "
+                         "takes bfloat16")
+    if k % 64 or k > LINEAR_MAX_K or n % 64 or x.numel() == 0:
+        raise ValueError(f"linear: K={k}, N={n}, {x.numel() // k} rows; the kernel takes "
+                         f"K and N multiples of 64, K up to {LINEAR_MAX_K}, at least one "
+                         "row")
+    x2 = _kernel_ready(x.reshape(-1, k), contiguous=True)
+    w = _kernel_ready(w, contiguous=True)
+    b = None if b is None else b.contiguous()
+    out = torch.empty((x2.shape[0], n), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _library("folded_attention")[1].cd_linear(
+            x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+            out.data_ptr(), x2.shape[0], n, k,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on_error("linear", rc)
+    return out.reshape(*x.shape[:-1], n)
 
 
 def attention_route(tq: int, tk: int) -> str:

@@ -60,6 +60,7 @@ CALLS = 10     # UNet calls per eager, graph and profile measurement
 # before GEMMs: cuDNN's implicit-GEMM conv kernels carry "gemm" too)
 KINDS = (
     ("flash_fwd", "flash kernels (K1, K2)"),
+    ("linear_bf16", "folded kernels (K3, K4)"),
     ("qout_", "folded kernels (K3, K4)"),
     ("kv_proj", "folded kernels (K3, K4)"),
     ("nchwToNhwc", "cuDNN layout conversions"),

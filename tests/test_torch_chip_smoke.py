@@ -63,6 +63,21 @@ def test_kernel_work_and_bounds_at_the_main_path_shapes(smoke, name, shape, gflo
     assert by == "operations" and ms == pytest.approx(1e3 * flops / 989e12)
 
 
+@pytest.mark.parametrize("shape,gflop,mb,bound_ms", [
+    ((16384, 320, 320, True), 3.355, 21.18, 0.0063),    # q, with the bias of the output
+    ((16384, 960, 320, False), 10.07, 42.56, 0.0127),   # K4's [q | k | v]
+])
+def test_projection_work_and_bound_at_the_main_path_shapes(smoke, shape, gflop, mb, bound_ms):
+    """K3/K4's projection kernel, (M, N, K, bias) at the main path: 2*M*N*K
+    operations against X, W (and b) read and Y written once; bound by the
+    bytes on the H100."""
+    flops, nbytes = smoke.work("linear", shape, "bf16")
+    assert abs(flops / 1e9 - gflop) < 0.005 and abs(nbytes / 1e6 - mb) < 0.005
+    ms, by = smoke.bound_of("linear", shape, "bf16")
+    assert by == "bytes" and ms == pytest.approx(bound_ms, abs=5e-5)
+    assert ms == pytest.approx(1e3 * nbytes / 3.35e12)
+
+
 @pytest.mark.parametrize("name,shape,exps_m,floor_ms", [
     ("flash_attention_packed", (4, 4096, 4096, 8, 40), 536.9, 0.1377),
     ("flash_attention_bhtd", (4, 8, 1024, 1024, 80), 33.55, 0.0086),

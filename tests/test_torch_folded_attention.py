@@ -89,6 +89,86 @@ def test_plain_versions_round_where_the_kernels_do():
     assert float((out.float() - ref).abs().max()) < 3e-2
 
 
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2 ** -7)])
+def test_linear_reference_rounds_as_the_pallas_kernels_project(dtype, tol, bias):
+    """The projection kernel's plain version against the Pallas kernels'
+    in-body projections (``_qout_kernel``'s q, ``_project_flush``'s output):
+    a dot accumulated in fp32, + the bias in fp32, cast once.  fp32: the
+    summation order differs; bf16: at most one bf16 ulp (2^-7 relative)."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 64, 96)).astype(np.float32)
+    w = (rng.standard_normal((96, 128)) / np.sqrt(96)).astype(np.float32)   # Flax (in, out)
+    b = rng.standard_normal((128,)).astype(np.float32)
+    xj, wj, bj = (jnp.asarray(a).astype(dtype) for a in (x, w, b))
+    want = jax.lax.dot_general(xj, wj, (((2,), (0,)), ((), ())),
+                               preferred_element_type=jnp.float32)
+    if bias:
+        want = want + bj.astype(jnp.float32)
+    want = np.asarray(want.astype(dtype).astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    got = fa.linear_reference(to_torch(x).to(tdt), _linear(w).to(tdt),
+                              to_torch(b).to(tdt) if bias else None)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=1e-6)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_linear_wrapper_on_cpu_is_its_plain_version(bias):
+    """On CPU tensors the projection kernel's wrapper is linear_reference,
+    for any leading shape; it counts no launches."""
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 3, 64, generator=gen).to(torch.bfloat16)
+    w = torch.randn(128, 64, generator=gen).to(torch.bfloat16)
+    b = torch.randn(128, generator=gen).to(torch.bfloat16) if bias else None
+    before = dict(fa.launch_counts)
+    got = fa.linear(x, w, b)
+    assert got.shape == (2, 3, 128) and got.dtype == torch.bfloat16
+    assert torch.equal(got, fa.linear_reference(x, w, b))
+    assert fa.launch_counts == before
+
+
+@pytest.mark.parametrize("bad", ["x", "bias"])
+def test_linear_wrapper_rejects_bad_shapes(bad):
+    x, w, b = torch.zeros(4, 64), torch.zeros(128, 64), torch.zeros(128)
+    if bad == "x":
+        x = torch.zeros(4, 32)
+    else:
+        b = torch.zeros(64)
+    with pytest.raises(ValueError, match="shapes"):
+        fa.linear(x, w, b)
+
+
+def test_linear_wrapper_refuses_non_cuda_tensors():
+    x, w = torch.zeros(4, 64, device="meta"), torch.zeros(128, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.linear(x, w)
+
+
+@pytest.mark.parametrize("dtype,b,t,c,hd,d,heads,ok", [
+    (torch.bfloat16, 4, 4096, 320, 320, 40, 8, True),       # the SD 64x64 level
+    (torch.bfloat16, 2, 300, 256, 256, 64, 4, True),        # chip_smoke's ragged shape
+    (torch.bfloat16, 1, 64, 448, 448, 64, 7, True),         # the widest the bf16 path takes
+    (torch.bfloat16, 1, 64, 512, 320, 40, 8, False),        # C past the projection's X tile
+    (torch.bfloat16, 1, 64, 320, 512, 64, 8, False),        # H*D past it
+    (torch.bfloat16, 8192, 64, 320, 320, 40, 8, False),     # B*H past the grid's y axis
+    (torch.float32, 1, 64, 512, 512, 64, 8, True),          # fp32 has no width limit
+    (torch.float32, 1, 65535 * 64 + 1, 64, 64, 64, 1, False),  # fp32 [k | v] grid
+    (torch.bfloat16, 1, 64, 320, 320, 32, 10, False),       # head dim 32
+    (torch.float32, 1, 64, 96, 96, 48, 2, False),           # widths not multiples of 64
+])
+def test_folded_kernel_limits(dtype, b, t, c, hd, d, heads, ok):
+    """The folded kernels' shape limits by dtype: bf16 runs the projection
+    kernel (C, H*D <= LINEAR_MAX_K) and the attention kernel (B*H <= 65535);
+    fp32 its own kernels (B*T <= 65535 * 64)."""
+    args = ("fused_self_attention_block", dtype, b, t, c, hd, d, heads)
+    if ok:
+        fa._check_folded_limits(*args)
+    else:
+        with pytest.raises(ValueError):
+            fa._check_folded_limits(*args)
+
+
 @pytest.mark.parametrize("mode", ["qo", "1"])
 def test_cross_attention_folded_matches_jax_module(mode):
     """Self-attention over 2048 tokens (the folded threshold) in each folded

@@ -17,6 +17,8 @@ from cyclediffusion_tpu_torch.tools import flash_variants, step_probe
      "folded kernels (K3, K4)"),
     ("(anonymous namespace)::kv_proj_bf16_kernel(__nv_bfloat16 const*)",
      "folded kernels (K3, K4)"),
+    ("(anonymous namespace)::hopper::linear_bf16_kernel(CUtensorMap, CUtensorMap)",
+     "folded kernels (K3, K4)"),
     ("void cudnn::engines_precompiled::nchwToNhwcKernel<__nv_bfloat16>", "cuDNN layout conversions"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "convolutions"),
     ("nvjet_tst_168x128_64x5_1x2_h_bz_coopA_bias_TNN", "GEMMs"),
