@@ -45,7 +45,8 @@ Phases (each prints its results; any failure exits non-zero):
    encoded latent (the bf16 round trip is printed, not bounded).
 6. The ensemble: the task model (``TextUnsupervisedTranslation`` through the
    factory, ``CYCLEDIFFUSION_FOLDED_ATTN=qo``) encodes and ranks one 512 px
-   image: SD-v1 bf16, a full-width ViT-B/32 scorer with random weights, 2
+   image: SD-v1 bf16 loaded from phase 7's synthetic checkpoint, its
+   full-width ViT-B/32 scorer with random weights, 2
    trials x skips [10, 25] x decoder scales [1, 5] = 8 candidates in chunks
    of 4.  Checks the UNet call count, 5 K3 launches per UNet call, the
    returned image against the winning candidate (bit-equal), the winner
@@ -60,9 +61,11 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -502,6 +505,46 @@ def phase_folded_modes(torch, fa, spec, LatentDiffusionCore, x, t, ctx, eps_defa
     return counts["1"]
 
 
+# phase 7: the shipped SD experiment, cut to a smoke run ((section, key) -> value)
+CLI_CFG = "experiments/translate_text2img256_stable_diffusion_stochastic_1.cfg"
+CLI_CUTS = {
+    ("gan", "custom_steps"): "50", ("gan", "white_box_steps"): "51", ("gan", "eta"): "0.1",
+    ("gan", "encoder_unconditional_guidance_scales"): "[1]",
+    ("gan", "decoder_unconditional_guidance_scales"): "[1, 5]", ("gan", "n_trials"): "1",
+    ("gan", "skip_steps"): "[25]", ("gan", "candidate_chunk"): "4",
+    ("raw_data", "range"): "[4, 6]",
+}
+CLI_SAMPLES = 2
+METRIC_KEYS = ["eval_translate/psnr", "eval_translate/ssim", "eval_translate/l2",
+               "eval_translate/clip", "eval_translate/d-clip", "eval_avr"]
+
+
+def cut_config(text: str, cuts: dict) -> str:
+    """An experiment cfg's text with each ``(section, key)`` of ``cuts`` set
+    to its value and every other line kept; raises if a key is absent."""
+    out, section, seen = [], None, set()
+    for line in text.splitlines():
+        stripped = line.strip()
+        if stripped.startswith("[") and stripped.endswith("]"):
+            section = stripped[1:-1]
+        elif "=" in stripped and not stripped.startswith("#"):
+            key = stripped.split("=", 1)[0].strip()
+            if (section, key) in cuts:
+                line = f"{key} = {cuts[(section, key)]}"
+                seen.add((section, key))
+        out.append(line)
+    if set(cuts) - seen:
+        raise ValueError(f"keys not in the config: {sorted(set(cuts) - seen)}")
+    return "\n".join(out) + "\n"
+
+
+def expected_cli_files(n_samples: int) -> list:
+    """The files an eval run of the CLI writes under its output directory."""
+    return (["all_results.json", "eval_results.csv", "eval_results.json"]
+            + [f"temp_gen/{i}.png" for i in range(n_samples)]
+            + ["visualization/eval_000000.png", "visualization/eval_256_000000.png"])
+
+
 def expected_unet_calls(pipe, num_recovered_eps) -> int:
     """UNet calls of one encode + generate: per skip, its chunks times the
     chain length (the recovered eps on encode, the refine steps on decode)."""
@@ -519,15 +562,19 @@ def expected_unet_calls(pipe, num_recovered_eps) -> int:
 def phase_ensemble(torch, fa, Args, TextUnsupervisedTranslation, num_recovered_eps):
     """Phase 6: one image through the task model's encode + ranked forward."""
     gan = Args(gan_type="SDStochasticText", source_model_type="sd-v1-4.ckpt",
-               source_init_seed=0, custom_steps=STEPS, white_box_steps=STEPS + 1,
+               custom_steps=STEPS, white_box_steps=STEPS + 1,
                eta=ETA, encoder_unconditional_guidance_scales=[1],
                decoder_unconditional_guidance_scales=[1, 5], n_trials=2,
                skip_steps=[10, 25], candidate_chunk=4)
     os.environ["CYCLEDIFFUSION_FOLDED_ATTN"] = "qo"
+    t0 = time.perf_counter()
     try:
         model = TextUnsupervisedTranslation(Args(gan=gan), base_seed=0, device="cuda")
     finally:
         del os.environ["CYCLEDIFFUSION_FOLDED_ATTN"]
+    torch.cuda.synchronize()
+    say(f"ensemble: task model built from the synthetic checkpoint in "
+        f"{time.perf_counter() - t0:.2f} s")
     pipe = model.gan_wrapper
     core, dclip = pipe.core, pipe.directional_clip
     say(f"ensemble: SD-v1 {core.dtype} folded_attn={core.folded_attn!r}, scorer ViT-B/32 "
@@ -631,6 +678,170 @@ def phase_ensemble(torch, fa, Args, TextUnsupervisedTranslation, num_recovered_e
     return counts
 
 
+def write_assets(torch, root):
+    """Phase 7, first step: SD v1's synthetic checkpoint and BPE file under
+    ``root``, the seeded scorer in ``runtime.context``, and the variables
+    that point the factory at them -> the in-memory core that was written."""
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
+    from cyclediffusion_tpu_torch.runtime import context
+    from cyclediffusion_tpu_torch.text import CLIPBPETokenizer
+    from cyclediffusion_tpu_torch.tools import sd_assets
+
+    core = LatentDiffusionCore.random_init(LatentCoreSpec.sd_v1(), seed=0, device="cuda",
+                                           dtype=torch.bfloat16)
+    path = os.path.join(root, "ckpts", "stable_diffusion", "sd-v1-4.ckpt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nbytes = sd_assets.write_sd_checkpoint(core, path)
+    say(f"assets: {path}: {nbytes:,} bytes (bf16, CompVis layout) written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    bpe = sd_assets.write_bpe_merges(os.path.join(root, "bpe_merges.txt"))
+    context.reset()
+    dclip = sd_assets.seeded_scorer(1, CLIPBPETokenizer(bpe), "cuda")
+    context.set_directional_clip(dclip)
+    os.environ["CYCLEDIFFUSION_CKPT_ROOT"] = root
+    os.environ["CYCLEDIFFUSION_CLIP_BPE"] = bpe
+    say(f"assets: BPE merges {bpe}; scorer ViT-B/32 "
+        f"({sum(p.numel() for p in dclip.scorer.model.parameters()):,} params) installed")
+    return core
+
+
+def phase_cli(torch, fa, ref_core, root, num_recovered_eps):
+    """Phase 7: the port's CLI on the cut SD experiment, in process."""
+    import numpy as np
+
+    from cyclediffusion_tpu_torch import main as cli
+    from cyclediffusion_tpu_torch.data.png import read_png
+    from cyclediffusion_tpu_torch.evaluation.utils import to_uint8
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentDiffusionCore
+    from cyclediffusion_tpu_torch.runtime.config import config_root
+    from cyclediffusion_tpu_torch.tasks.text_unsupervised_translation import (
+        TextUnsupervisedTranslation,
+    )
+
+    with open(os.path.join(config_root(), CLI_CFG)) as f:
+        cfg_text = cut_config(f.read(), CLI_CUTS)
+    cfg = os.path.join(root, "sd_cli.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    out_dir = os.path.join(root, "cli")
+    os.environ["CYCLEDIFFUSION_DATA_ROOT"] = ROOT
+    say(f"cli: {CLI_CFG} cut to {CLI_CUTS}")
+
+    # spies: the core the factory loads (its load time, its UNet calls) and
+    # the images the task model returns
+    seen = {"cores": [], "images": []}
+    unet_calls = [0]
+    from_ckpt = LatentDiffusionCore.from_torch_ckpt
+    forward = TextUnsupervisedTranslation.forward
+
+    def spy_from_ckpt(*a, **k):
+        t0 = time.perf_counter()
+        core = from_ckpt(*a, **k)
+        torch.cuda.synchronize()
+        seen["load_s"] = time.perf_counter() - t0
+        apply_model = core.apply_model
+
+        def counted(*args):
+            unet_calls[0] += 1
+            return apply_model(*args)
+
+        core.apply_model = counted
+        seen["cores"].append((core, apply_model))
+        return core
+
+    def spy_forward(self, *a, **k):
+        out = forward(self, *a, **k)
+        seen["pipe"] = self.gan_wrapper
+        seen["images"].append(out[0][1].float().cpu().numpy())
+        return out
+
+    argv = ["--cfg", cfg, "--output_dir", out_dir, "--seed", "42", "--do_eval",
+            "--per_device_eval_batch_size", "2"]
+    LatentDiffusionCore.from_torch_ckpt = spy_from_ckpt
+    TextUnsupervisedTranslation.forward = spy_forward
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        metrics = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        LatentDiffusionCore.from_torch_ckpt = from_ckpt
+        TextUnsupervisedTranslation.forward = forward
+    secs = time.perf_counter() - t0
+    counts = dict(fa.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+
+    if len(seen["cores"]) != 1:
+        fail(f"the CLI loaded {len(seen['cores'])} cores from checkpoints, expected 1")
+    core, apply_model = seen["cores"][0]
+    want_sd, got_sd = ref_core.state_dict(), core.state_dict()
+    differ = [k for k in want_sd if not torch.equal(want_sd[k], got_sd[k])]
+    n_params = sum(v.numel() for v in got_sd.values())
+    if core.dtype != ref_core.dtype or want_sd.keys() != got_sd.keys() or differ:
+        fail(f"the loaded core ({core.dtype}) differs from the written one "
+             f"({ref_core.dtype}): {differ[:4]}")
+    spec = core.spec
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((2, spec.image_size, spec.image_size, spec.channels), generator=gen,
+                    device="cuda")
+    t = torch.full((2,), 500, dtype=torch.int64, device="cuda")
+    ctx = torch.randn((2, spec.cond_cfg.max_positions, spec.unet.context_dim), generator=gen,
+                      device="cuda")
+    eps_ref, eps = ref_core.apply_model(x, t, ctx), apply_model(x, t, ctx)
+    if not torch.equal(eps_ref, eps):
+        fail(f"the loaded UNet's eps differs from the written core's by "
+             f"{float((eps_ref - eps).abs().max())}")
+    say(f"cli: the checkpoint loaded in {seen['load_s']:.2f} s ({n_params:,} weights, "
+        f"{core.dtype}) equals the written core bit for bit, and so does its UNet eps")
+
+    want_calls = CLI_SAMPLES * expected_unet_calls(seen["pipe"], num_recovered_eps)
+    say(f"cli: {unet_calls[0]} UNet calls (expected {want_calls}), launches {counts}")
+    if unet_calls[0] != want_calls:
+        fail(f"the CLI ran {unet_calls[0]} UNet calls, expected {want_calls}")
+    for name in ("flash_attention_packed", "flash_attention_bhtd"):
+        if counts[name] != 5 * unet_calls[0]:
+            fail(f"{name}: {counts[name]} launches in the CLI run, expected 5 per UNet call")
+    if counts["qout_self_attention_block"] or counts["fused_self_attention_block"]:
+        fail(f"the CLI's default mode launched a folded kernel: {counts}")
+
+    files = sorted(os.path.relpath(os.path.join(d, f), out_dir)
+                   for d, _, fs in os.walk(out_dir) for f in fs)
+    missing = sorted(set(expected_cli_files(CLI_SAMPLES)) - set(files))
+    if missing:
+        fail(f"the CLI did not write {missing}; it wrote {files}")
+    with open(os.path.join(out_dir, "eval_results.json")) as f:
+        results = json.load(f)
+    bad = [k for k in METRIC_KEYS
+           if not isinstance(results.get(k), float) or not math.isfinite(results[k])]
+    if bad or results.get("eval_samples") != CLI_SAMPLES:
+        fail(f"eval_results.json: non-finite or missing {bad}, eval_samples "
+             f"{results.get('eval_samples')}: {results}")
+    with open(os.path.join(out_dir, "eval_results.csv")) as f:
+        rows = f.read().strip().splitlines()[1:]
+    if len(rows) != CLI_SAMPLES:
+        fail(f"eval_results.csv has {len(rows)} rows, expected {CLI_SAMPLES}")
+    returned = np.concatenate(seen["images"])
+    for i in range(CLI_SAMPLES):
+        png = read_png(os.path.join(out_dir, "temp_gen", f"{i}.png"))
+        want = to_uint8(np.clip(returned[i], 0, 1))
+        if png.shape != (spec.resolution, spec.resolution, 3) or not np.array_equal(png, want):
+            fail(f"temp_gen/{i}.png ({png.shape}) is not the returned image {i} in uint8")
+    for name in ("eval_000000.png", "eval_256_000000.png"):
+        grid = read_png(os.path.join(out_dir, "visualization", name))
+        say(f"cli: visualization/{name} {grid.shape}")
+    runtime = results["eval_runtime"]
+    say(f"cli: metrics {{{', '.join(f'{k}: {results[k]:.6g}' for k in METRIC_KEYS)}}}")
+    say(f"cli: eval_runtime {runtime} s, eval_samples_per_second "
+        f"{results['eval_samples_per_second']}, {runtime / CLI_SAMPLES:.4f} s/sample; "
+        f"the whole CLI call {secs:.2f} s; peak device memory {peak / 2**30:.2f} GiB")
+    if metrics.get("eval_samples") != CLI_SAMPLES:
+        fail(f"main() returned {metrics}")
+    return counts
+
+
 def round_trip(torch, core, pipe, images, src) -> float:
     """Phase 5: encode, then replay under the same text and scale 1 with
     deterministic cuDNN -> max|replay - x0| on the latent."""
@@ -690,8 +901,12 @@ def main() -> None:
     slice_counts, k4_counts = phase_slice(torch, fa, attention, HashTokenizer,
                                           LatentCoreSpec, LatentDiffusionCore,
                                           StochasticTextPipeline)
-    ens_counts = phase_ensemble(torch, fa, Args, TextUnsupervisedTranslation,
-                                num_recovered_eps)
+    with tempfile.TemporaryDirectory(prefix="cd_smoke_") as root:
+        ref_core = write_assets(torch, root)
+        ens_counts = phase_ensemble(torch, fa, Args, TextUnsupervisedTranslation,
+                                    num_recovered_eps)
+        torch.cuda.empty_cache()
+        phase_cli(torch, fa, ref_core, root, num_recovered_eps)
 
     # launches on the path that runs each kernel: the translate slice (K1,
     # K2), the ensemble (K3), the UNet call in folded mode "1" (K4)

@@ -1,0 +1,138 @@
+"""CompVis Stable Diffusion v1 checkpoints -> the port's modules (counterpart
+of ``load_torch_state_dict``, ``select_ema_weights``,
+``split_latent_diffusion_state``, ``convert_gd_unet``, ``convert_vae`` and
+``convert_clip_text`` in ``cyclediffusion_tpu.convert.torch_import``).
+
+A Lightning ``LatentDiffusion`` state dict holds three subtrees:
+``model.diffusion_model.*`` (the UNet), ``first_stage_model.*`` (the KL
+VAE) and ``cond_stage_model.transformer.text_model.*`` (HF's
+``CLIPTextModel``); its other entries (the schedule buffers, the LitEma
+state) are not weights of the core.  The port's UNet and VAE carry
+CompVis's own module names and leaf shapes (1x1 convolutions stay
+convolutions), so their keys map by stripping the prefix.  The CLIP text
+tower's HF names map onto the port's ``CLIPTextEncoder``
+(``encoder.layers.i.self_attn.q_proj`` -> ``layers.i.q_proj``,
+``embeddings.position_embedding.weight`` -> ``position_embedding``); HF's
+``position_ids`` buffer is not a weight.
+A key that maps to no parameter, a parameter that no key sets, or a shape
+that disagrees raises, naming the key.  Values are cast to the module's
+dtype as they are copied into it.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict
+
+import torch
+from torch import nn
+
+UNET_PREFIX = "model.diffusion_model."
+FIRST_STAGE_PREFIX = "first_stage_model."
+COND_PREFIX = "cond_stage_model."
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def load_torch_state_dict(path: str) -> StateDict:
+    """A torch checkpoint's tensors (on the CPU, memory-mapped), unwrapping
+    ``{"state_dict": ...}``.  Loaded with ``weights_only=True``: tensors and
+    plain containers only, nothing else is unpickled."""
+    obj = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
+
+
+def select_ema_weights(sd: StateDict, prefix: str = UNET_PREFIX) -> StateDict:
+    """Replace ``prefix`` weights with their LitEma shadows.  LitEma names a
+    shadow by the parameter's name below the root module with the dots
+    deleted (``model.diffusion_model.out.2.weight`` ->
+    ``model_ema.diffusion_modelout2weight``).  Raises if there is none."""
+    root = prefix.split(".", 1)[0] + "."
+    out = dict(sd)
+    hits = 0
+    for k in sd:
+        if not k.startswith(prefix):
+            continue
+        ema_key = "model_ema." + k[len(root):].replace(".", "")
+        if ema_key in sd:
+            out[k] = sd[ema_key]
+            hits += 1
+    if hits == 0:
+        ema_prefix = "model_ema." + prefix.split(".", 1)[1].split(".")[0]
+        raise ValueError(f"no EMA shadows found under {ema_prefix}*")
+    return out
+
+
+def split_latent_diffusion_state(sd: StateDict, use_ema: bool = False):
+    """-> (unet, first stage, cond stage) state dicts, prefixes stripped."""
+    if use_ema:
+        sd = select_ema_weights(sd)
+
+    def sub(prefix):
+        return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+    return sub(UNET_PREFIX), sub(FIRST_STAGE_PREFIX), sub(COND_PREFIX)
+
+
+def _to_module(sd: StateDict, module: nn.Module, rename, label: str,
+               prefix: str) -> StateDict:
+    """Map ``sd``'s keys (``prefix`` stripped) onto ``module``'s names."""
+    targets = module.state_dict()
+    out = {}
+    for key, value in sd.items():
+        name = rename(key)
+        if name is None:
+            continue
+        if name not in targets:
+            raise KeyError(f"unmapped {label} key: {prefix}{key}")
+        if tuple(value.shape) != tuple(targets[name].shape):
+            raise ValueError(f"{label} key {prefix}{key}: shape {tuple(value.shape)}, "
+                             f"the port's {name} is {tuple(targets[name].shape)}")
+        out[name] = value
+    missing = [n for n in targets if n not in out]
+    if missing:
+        raise KeyError(f"{label} checkpoint lacks {len(missing)} weight(s), first "
+                       f"{missing[:4]}")
+    return out
+
+
+def convert_gd_unet(unet_sd: StateDict, module: nn.Module) -> StateDict:
+    """``openaimodel.UNetModel`` weights (prefix stripped) -> the port's GDUNet."""
+    return _to_module(unet_sd, module, lambda k: k, "gd-unet", UNET_PREFIX)
+
+
+def convert_vae(first_stage_sd: StateDict, module: nn.Module) -> StateDict:
+    """``AutoencoderKL`` weights (prefix stripped) -> the port's AutoencoderKL."""
+    return _to_module(first_stage_sd, module, lambda k: k, "vae", FIRST_STAGE_PREFIX)
+
+
+_CLIP_TEXT_RENAMES = (
+    (r"^embeddings\.token_embedding\.", "token_embedding."),
+    (r"^embeddings\.position_embedding\.weight$", "position_embedding"),
+    (r"^encoder\.layers\.(\d+)\.(?:self_attn|mlp)\.", r"layers.\1."),
+    (r"^encoder\.layers\.(\d+)\.", r"layers.\1."),
+)
+
+
+def clip_text_name(hf_key: str):
+    """An HF ``CLIPTextModel`` key, with or without ``transformer.`` /
+    ``text_model.``, -> the port's ``CLIPTextEncoder`` name (None for the
+    ``position_ids`` buffer)."""
+    k = hf_key
+    for p in ("transformer.", "text_model."):
+        if k.startswith(p):
+            k = k[len(p):]
+    if k == "embeddings.position_ids":
+        return None
+    for pat, rep in _CLIP_TEXT_RENAMES:
+        k, n = re.subn(pat, rep, k)
+        if n:
+            break
+    return k
+
+
+def convert_clip_text(cond_sd: StateDict, module: nn.Module) -> StateDict:
+    """The cond stage's HF CLIP text weights -> the port's CLIPTextEncoder."""
+    return _to_module(cond_sd, module, clip_text_name, "clip-text", COND_PREFIX)

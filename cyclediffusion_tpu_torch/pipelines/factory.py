@@ -3,21 +3,29 @@ of ``cyclediffusion_tpu.pipelines.factory``).
 
 ``source_*`` keys feed the source wrapper and ``target_*`` keys are renamed
 to ``source_*`` when ``target=True``; ``gan_type`` picks what is built.  This
-slice builds ``SDStochasticText``: ``source_model_type = tiny`` is the
-CPU-runnable miniature, any other value SD v1 at its published widths.  The
-real checkpoints are not loaded yet: the weights come from the JAX
-package's parameter trees (``jax_params``) or from ``source_init_seed``.
-Without the CLIP assets the tokenizer is the hashed one and the
-DirectionalCLIP scorer a seeded stand-in of the right widths.
+port builds ``SDStochasticText``:
 
-``CYCLEDIFFUSION_FOLDED_ATTN`` (``qo`` or ``1``; anything else is off) is
-read here, once per build, as the JAX program reads it, and passed down as
-the core's ``folded_attn``: the modules never read the environment.
+* ``source_model_type = tiny*``: the CPU-runnable miniature with seeded
+  random weights (``source_init_seed``), the hashed tokenizer, and a seeded
+  miniature DirectionalCLIP scorer that is installed in ``runtime.context``
+  for the evaluators, unless one is installed already.
+* any other value: SD v1 at its published widths from the CompVis
+  checkpoint ``ckpts/stable_diffusion/<source_model_type>`` under
+  ``CYCLEDIFFUSION_CKPT_ROOT`` (default ``.``), tokenised with the CLIP BPE
+  merges file that ``CYCLEDIFFUSION_CLIP_BPE`` names; a missing file
+  raises.  The scorer is the shared one from ``runtime.context``
+  (``CYCLEDIFFUSION_CLIP_CKPT``, or one a caller installed); without it the
+  pipeline is built and its ranking raises.
+
+``jax_params`` (tests only) replaces either model's weights with the JAX
+pipeline's.  ``CYCLEDIFFUSION_FOLDED_ATTN`` (``qo`` or ``1``; anything else
+is off) is read here, once per build, as the JAX program reads it, and
+passed down as the core's ``folded_attn``: the modules never read the
+environment.
 """
 
 from __future__ import annotations
 
-import logging
 import os
 from typing import Optional
 
@@ -32,8 +40,6 @@ from cyclediffusion_tpu_torch.pipelines.latent_text import (
 )
 from cyclediffusion_tpu_torch.runtime import context
 from cyclediffusion_tpu_torch.text import CLIPBPETokenizer, HashTokenizer
-
-logger = logging.getLogger(__name__)
 
 FOLDED_ATTN_ENV = "CYCLEDIFFUSION_FOLDED_ATTN"
 
@@ -69,16 +75,33 @@ def _collect_kwargs(gan_args, target: bool) -> dict:
     return kwargs
 
 
-def _scorer(tiny: bool, seed: int, params, device) -> CLIPScorer:
-    config = TINY_CLIP if tiny else CLIPConfig.vit_b_32()
+def ckpt_root() -> str:
+    return os.environ.get("CYCLEDIFFUSION_CKPT_ROOT", ".")
+
+
+def _resolve_ckpt(path: str) -> str:
+    return path if os.path.isabs(path) else os.path.join(ckpt_root(), path)
+
+
+def _clip_tokenizer() -> CLIPBPETokenizer:
+    bpe = os.environ.get("CYCLEDIFFUSION_CLIP_BPE")
+    if not bpe:
+        raise FileNotFoundError("text pipelines need the CLIP BPE merges file: set "
+                                "CYCLEDIFFUSION_CLIP_BPE to bpe_simple_vocab_16e6.txt.gz")
+    return CLIPBPETokenizer(bpe)
+
+
+def _tiny_scorer(seed: int, params, device) -> DirectionalCLIP:
     if params is not None:
-        return CLIPScorer.from_jax_params(params, config, device)
-    return CLIPScorer.random_init(seed, config, device)
+        scorer = CLIPScorer.from_jax_params(params, TINY_CLIP, device)
+    else:
+        scorer = CLIPScorer.random_init(seed, TINY_CLIP, device)
+    return DirectionalCLIP(scorer, HashTokenizer(96, 16))
 
 
 def _build_sd_text(kwargs: dict, device, dtype, jax_params) -> StochasticTextPipeline:
     model_type = kwargs.pop("source_model_type")
-    seed = int(kwargs.pop("source_init_seed", 0))
+    seed = int(kwargs.pop("source_init_seed", 0))     # tiny models only
     if kwargs.pop("fast_key_every", None) not in (None, 0, 1):
         raise NotImplementedError("fast mode (fast_key_every) is not ported yet: "
                                   "ROADMAP §A queue item 2")
@@ -103,31 +126,25 @@ def _build_sd_text(kwargs: dict, device, dtype, jax_params) -> StochasticTextPip
             else torch.float32
     folded = folded_attn_from_env()
     jax_params = jax_params or {}
-    if "core" in jax_params:
-        core = LatentDiffusionCore.from_jax_params(spec, jax_params["core"], device,
-                                                   dtype, folded)
-    else:
-        core = LatentDiffusionCore.random_init(spec, seed, device, dtype, folded)
-
     if tiny:
-        tokenizer = HashTokenizer(96, 16)
+        if "core" in jax_params:
+            core = LatentDiffusionCore.from_jax_params(spec, jax_params["core"], device,
+                                                       dtype, folded)
+        else:
+            core = LatentDiffusionCore.random_init(spec, seed, device, dtype, folded)
         dclip = context.get_directional_clip(required=False, device=device)
         if dclip is None:
-            dclip = DirectionalCLIP(_scorer(True, seed + 1, jax_params.get("clip"), device),
-                                    HashTokenizer(96, 16))
-        return StochasticTextPipeline(core, tokenizer, dclip, **pipe_kw)
+            dclip = _tiny_scorer(seed + 1, jax_params.get("clip"), device)
+            context.set_directional_clip(dclip)
+        return StochasticTextPipeline(core, HashTokenizer(96, 16), dclip, **pipe_kw)
 
-    bpe = os.environ.get("CYCLEDIFFUSION_CLIP_BPE")
-    if bpe:
-        tokenizer = CLIPBPETokenizer(bpe)
-    else:
-        logger.warning("CYCLEDIFFUSION_CLIP_BPE unset: prompts go through the "
-                       "hashed tokenizer, which no checkpoint understands")
-        tokenizer = HashTokenizer(49408, 77)
+    path = _resolve_ckpt(os.path.join("ckpts", "stable_diffusion", model_type))
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"SD checkpoint not found: {path} (set "
+                                "CYCLEDIFFUSION_CKPT_ROOT to the directory holding ckpts/)")
+    tokenizer = _clip_tokenizer()
+    core = LatentDiffusionCore.from_torch_ckpt(spec, path, device, dtype, folded)
     dclip = context.get_directional_clip(required=False, device=device)
-    if dclip is None:
-        dclip = DirectionalCLIP(_scorer(False, seed + 1, jax_params.get("clip"), device),
-                                tokenizer)
     return sd_stochastic_text_pipeline(core, tokenizer, dclip, **pipe_kw)
 
 
@@ -135,9 +152,10 @@ def get_gan_wrapper(gan_args, target: bool = False, *, device="cuda", dtype=None
                     jax_params: Optional[dict] = None) -> StochasticTextPipeline:
     """Build the pipeline a ``[gan]`` section describes.
 
-    ``jax_params`` (optional): ``{"core": {"unet", "first_stage", "cond"},
-    "clip": <CLIPModel tree>}`` with numpy leaves, the JAX pipeline's
-    weights.  ``dtype`` defaults to bf16 for SD v1 on CUDA, fp32 otherwise.
+    ``jax_params`` (tests, tiny models only): ``{"core": {"unet",
+    "first_stage", "cond"}, "clip": <CLIPModel tree>}`` with numpy leaves,
+    the JAX pipeline's weights.  ``dtype`` defaults to bf16 for SD v1 on
+    CUDA, fp32 otherwise.
     """
     gan_type = dict(list(gan_args))["gan_type"]
     kwargs = _collect_kwargs(gan_args, target)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from cyclediffusion_tpu_torch.convert import from_torch
 from cyclediffusion_tpu_torch.convert.from_jax import load_flax_params
 from cyclediffusion_tpu_torch.models.autoencoder import (
     AutoencoderKL,
@@ -101,7 +102,7 @@ class LatentDiffusionCore:
             m.to(dtype=dtype).eval().requires_grad_(False)
 
     def modules(self):
-        return (self.unet, self.first_stage, self.cond_model)
+        return tuple(m for _, m in self._named_modules())
 
     # ---- constructors -------------------------------------------------- #
 
@@ -128,6 +129,41 @@ class LatentDiffusionCore:
         load_flax_params(core.first_stage, params["first_stage"])
         load_flax_params(core.cond_model, params["cond"])
         return core
+
+    @classmethod
+    @torch.no_grad()
+    def from_torch_ckpt(cls, spec: LatentCoreSpec, path: str, device="cuda",
+                        dtype=torch.float32, folded_attn: Optional[str] = None,
+                        use_ema: bool = False) -> "LatentDiffusionCore":
+        """Weights from a CompVis ``LatentDiffusion`` checkpoint (SD v1's
+        ``sd-v1-4.ckpt`` layout, see ``convert.from_torch``); ``use_ema``
+        takes the UNet's LitEma shadows.  Raises on a missing file, an
+        unmapped or missing key, or a shape mismatch."""
+        core = cls(spec, device, dtype, folded_attn)
+        sd = from_torch.load_torch_state_dict(path)
+        unet_sd, fs_sd, cond_sd = from_torch.split_latent_diffusion_state(sd, use_ema)
+        for module, convert, part in ((core.unet, from_torch.convert_gd_unet, unet_sd),
+                                      (core.first_stage, from_torch.convert_vae, fs_sd),
+                                      (core.cond_model, from_torch.convert_clip_text, cond_sd)):
+            module.load_state_dict(convert(part, module), strict=True)
+        return core
+
+    # ---- the driver's checkpoints ---------------------------------------- #
+
+    def state_dict(self) -> dict:
+        """The three modules' weights, keyed ``unet.*``, ``first_stage.*``
+        and ``cond_model.*``."""
+        return {f"{prefix}.{k}": v for prefix, m in self._named_modules()
+                for k, v in m.state_dict().items()}
+
+    def load_state_dict(self, state: dict) -> None:
+        for prefix, m in self._named_modules():
+            m.load_state_dict({k[len(prefix) + 1:]: v for k, v in state.items()
+                               if k.startswith(prefix + ".")}, strict=True)
+
+    def _named_modules(self):
+        return (("unet", self.unet), ("first_stage", self.first_stage),
+                ("cond_model", self.cond_model))
 
     # ---- model surface -------------------------------------------------- #
 

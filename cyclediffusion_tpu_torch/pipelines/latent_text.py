@@ -195,11 +195,14 @@ class StochasticTextPipeline:
                       spec.channels)
         return z[:, 0], z[:, 1:].transpose(0, 1)
 
-    def generate(self, z_ensemble, decode_text,
-                 generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
+    def generate(self, z_ensemble, decode_text, generator: Optional[torch.Generator] = None,
+                 *, fresh_noises=None) -> List[torch.Tensor]:
         """Each z x each decoder scale -> [0,1] NHWC image (order preserved).
-        Steps past a z's stored eps draw fresh noise from ``generator``, per
-        candidate in candidate order."""
+
+        Steps past a z's stored eps (``white_box_steps < custom_steps + 1``)
+        take fresh noise: ``fresh_noises[i * D + d]`` ``(steps - skip - n, B,
+        h, w, c)`` for z ``i`` under decoder scale ``d`` when given, else
+        draws from ``generator``, per candidate in candidate order."""
         bsz = z_ensemble[0].shape[0]
         c_ctx = self.get_condition(decode_text)
         uc_ctx = self.uncond(bsz)
@@ -211,11 +214,16 @@ class StochasticTextPipeline:
                 if self.skip_steps[i % len(self.skip_steps)] != skip:
                     continue
                 xT, eps = self._unflatten(z_ensemble[i], skip)
+                fresh = self.sched.num_steps - skip - eps.shape[0]
                 for d, ds in enumerate(self.dec_scales):
-                    fresh = self.sched.num_steps - skip - eps.shape[0]
-                    full = eps if fresh <= 0 else torch.cat([eps, torch.randn(
-                        (fresh,) + tuple(xT.shape), generator=generator,
-                        dtype=xT.dtype, device=xT.device)])
+                    full = eps
+                    if fresh > 0:
+                        tail = (torch.randn((fresh,) + tuple(xT.shape), generator=generator,
+                                            dtype=xT.dtype, device=xT.device)
+                                if fresh_noises is None else
+                                torch.as_tensor(fresh_noises[i * D + d], dtype=xT.dtype,
+                                                device=xT.device))
+                        full = torch.cat([eps, tail])
                     work.append((xT, full, ds, i * D + d))
             for sub in _chunks(work, self.candidate_chunk):
                 samples = self._decode_chains(

@@ -1,2 +1,2 @@
-"""Run-time helpers: the experiment-config reader and the shared scorer
-context."""
+"""Run-time layer: the experiment-config reader, the program registry, the
+evaluation driver, profiling, and the shared scorer context."""

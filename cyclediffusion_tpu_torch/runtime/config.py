@@ -4,7 +4,9 @@ port's own copy of ``cyclediffusion_tpu.runtime.config``).
 An experiment cfg's sections become an :class:`Args` attribute tree; string
 values parse as int -> float -> bool -> None -> JSON list -> str.  Relative
 paths resolve against ``CYCLEDIFFUSION_CONFIG_ROOT`` when it is set, else
-against the working directory.
+against the port's packaged ``config/`` directory (the text-path
+experiments and their tasks), so ``--cfg experiments/X.cfg`` works from
+any directory.
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ import configparser
 import json
 import os
 from typing import Any, Iterator, Tuple
+
+_PACKAGED_ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                              "config")
 
 
 class Args:
@@ -51,11 +56,15 @@ def parse_string(value: str) -> Any:
         return value
 
 
+def config_root() -> str:
+    return os.environ.get("CYCLEDIFFUSION_CONFIG_ROOT", _PACKAGED_ROOT)
+
+
 def get_config(cfg_name: str) -> Args:
     """Read a cfg file into a two-level :class:`Args` tree."""
     path = cfg_name
     if not os.path.isabs(path):
-        path = os.path.join(os.environ.get("CYCLEDIFFUSION_CONFIG_ROOT", "."), cfg_name)
+        path = os.path.join(config_root(), cfg_name)
     if not os.path.exists(path):
         raise FileNotFoundError(f"config not found: {path}")
     parser = configparser.ConfigParser()

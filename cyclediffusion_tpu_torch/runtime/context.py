@@ -7,8 +7,10 @@ Assets:
 * ``CYCLEDIFFUSION_CLIP_BPE``  — ``bpe_simple_vocab_16e6.txt.gz``
 
 Without them, ``get_directional_clip(required=False)`` logs a warning and
-returns None (callers then use a seeded stand-in); ``required=True`` raises
-``FileNotFoundError``.
+returns None, unless a scorer was installed with :func:`set_directional_clip`
+(the tiny factory installs its seeded miniature); ``required=True`` raises
+``FileNotFoundError``.  With no scorer, ranking raises and the evaluators'
+CLIP scores are NaN.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ def get_directional_clip(required: bool = True, device="cuda"):
     bpe = os.environ.get("CYCLEDIFFUSION_CLIP_BPE")
     if not ckpt or not bpe or not os.path.exists(ckpt) or not os.path.exists(bpe):
         msg = ("DirectionalCLIP assets missing (set CYCLEDIFFUSION_CLIP_CKPT and "
-               "CYCLEDIFFUSION_CLIP_BPE); CLIP selection uses a seeded stand-in.")
+               "CYCLEDIFFUSION_CLIP_BPE): no DirectionalCLIP scorer.")
         if required:
             raise FileNotFoundError(msg)
         logger.warning(msg)

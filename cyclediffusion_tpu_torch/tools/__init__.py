@@ -1,1 +1,2 @@
-"""Measurement scripts for the port on the card (run with ``python -m``)."""
+"""Measurement scripts for the port on the card (run with ``python -m``), and
+the synthetic SD assets of ``sd_assets.py`` for tests and smoke runs."""

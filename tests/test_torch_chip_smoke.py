@@ -122,3 +122,40 @@ def test_expected_unet_calls_counts_the_chains(smoke, chunk):
     z = pipe.encode(torch.rand(1, 32, 32, 3), ["a cat"], gen)
     pipe.generate(z, ["a dog"], gen)
     assert calls[0] == smoke.expected_unet_calls(pipe, num_recovered_eps)
+
+
+def test_cut_config_sets_the_cuts_and_keeps_the_rest(smoke, tmp_path):
+    """Phase 7's config: the shipped SD experiment with ``CLI_CUTS`` applied,
+    read back through the port's config reader."""
+    from cyclediffusion_tpu_torch.runtime.config import config_root, get_config
+
+    with open(os.path.join(config_root(), smoke.CLI_CFG)) as f:
+        text = f.read()
+    path = tmp_path / "cut.cfg"
+    path.write_text(smoke.cut_config(text, smoke.CLI_CUTS))
+    cut, full = get_config(str(path)), get_config(smoke.CLI_CFG)
+    assert (cut.gan.custom_steps, cut.gan.white_box_steps, cut.gan.eta) == (50, 51, 0.1)
+    assert cut.gan.skip_steps == [25] and cut.gan.n_trials == 1 and cut.gan.candidate_chunk == 4
+    assert cut.gan.decoder_unconditional_guidance_scales == [1, 5]
+    assert cut.raw_data.range == [4, 6]
+    kept = {k: v for k, v in full.to_dict().items() if k not in ("gan", "raw_data")}
+    assert {k: v for k, v in cut.to_dict().items() if k not in ("gan", "raw_data")} == kept
+    assert cut.gan.source_model_type == "sd-v1-4.ckpt"
+    with pytest.raises(ValueError, match="not in the config"):
+        smoke.cut_config(text, {("gan", "no_such_key"): "1"})
+
+
+def test_expected_cli_files_are_what_the_cli_writes(smoke, tmp_path):
+    """The file list phase 7 checks equals what a tiny CLI run on the CPU
+    writes (2 samples)."""
+    from cyclediffusion_tpu_torch import main as cli
+    from cyclediffusion_tpu_torch.runtime import context
+
+    context.reset()
+    out = str(tmp_path / "out")
+    cli.main(["--cfg", "experiments/tiny_text_translation.cfg", "--output_dir", out,
+              "--do_eval", "--per_device_eval_batch_size", "2"], device="cpu")
+    context.reset()
+    files = sorted(os.path.relpath(os.path.join(d, f), out)
+                   for d, _, fs in os.walk(out) for f in fs)
+    assert files == sorted(smoke.expected_cli_files(2))

@@ -166,3 +166,49 @@ def test_round_trip_recovers_x0(cores):
         xT, eps = pipe._unflatten(z, skip)
         replay = pipe._decode_chains(xT[None], eps[None], c, uc, [1.0], None, skip)[0]
         assert max_abs(replay, x0) < 2e-5
+
+
+def _jax_fresh_draws(jpipe, jz, key):
+    """The fresh noise JAX's ``generate`` draws past each z's stored eps
+    (``_decode_chains``): ``normal(keys[i * D + d], (refine - n, B, h, w, c))``
+    with ``keys = split(key, len(z) * D)``."""
+    D = len(jpipe.dec_scales)
+    keys = jax.random.split(key, len(jz) * D)
+    draws = []
+    for i, z in enumerate(jz):
+        skip = jpipe.skip_steps[i % len(jpipe.skip_steps)]
+        xT, eps = jpipe._unflatten(z, skip)
+        fresh = jpipe.sched.num_steps - skip - eps.shape[0]
+        assert fresh > 0
+        for d in range(D):
+            draws.append(to_torch(jax.random.normal(keys[i * D + d],
+                                                    (fresh,) + tuple(xT.shape))))
+    return draws
+
+
+def test_generate_fresh_noise_tail_matches_jax(cores):
+    """``white_box_steps < custom_steps + 1``: each z stores fewer eps than
+    its chain has steps (2 of 4 at skip 0, 1 of 3 at skip 1), and the rest
+    is fresh noise.  Fed JAX's own draws through the ``fresh_noises`` seam,
+    the port's images equal JAX's to the image tolerance (2e-4)."""
+    jcore, core = cores
+    kw = dict(_pipe_kwargs([1.0, 3.0]), white_box_steps=3)
+    jpipe = JPipe(jcore, JHashTokenizer(96, 16), None, **kw)
+    pipe = StochasticTextPipeline(core, HashTokenizer(96, 16), **kw)
+    img = np.random.default_rng(6).uniform(size=(2, 32, 32, 3)).astype(np.float32)
+    src, dst = ["a photo of a cat", "a red car"], ["a photo of a dog", "a blue car"]
+    jz = jpipe.encode(jnp.asarray(img), src, jax.random.PRNGKey(7))
+    assert [num_recovered_eps(S, 3, s) for s in (0, 1)] == [2, 1]
+    key = jax.random.PRNGKey(8)
+    jimgs = jpipe.generate(jz, dst, key)
+    imgs = pipe.generate([to_torch(z) for z in jz], dst,
+                         fresh_noises=_jax_fresh_draws(jpipe, jz, key))
+    assert len(imgs) == len(jimgs) == 4
+    for a, b in zip(imgs, jimgs):
+        assert max_abs(a, b) < 2e-4
+    # without the seam the tail comes from the generator: same seed, same bits
+    outs = [pipe.generate([to_torch(z) for z in jz], dst, torch.Generator().manual_seed(s))
+            for s in (3, 3, 4)]
+    for a, b, c in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert float((a - c).abs().max()) > 0
