@@ -19,11 +19,11 @@ Phases (each prints its results; any failure exits non-zero):
 3. Kernel against plain: each of the four kernels (K1, K2 flash attention;
    K3, K4 folded self-attention) and its plain PyTorch version on the same
    inputs, at the main-path shapes in bf16 (and K2 at the encode chain's
-   batch 2), at ragged shapes (K1/K2 at every supported head dim, in bf16
-   and fp32, the sequence lengths off the kernel's 128-row tiles, one key
-   axis shorter than a tile; K3/K4 off the tiles in bf16), and in fp32 with
-   TF32 off; then K3/K4's projection kernel alone at its two main-path
-   shapes, q (16384 x 320 x 320, with the bias as for the output) and
+   batch 2, K1 at LDM text2img-large's 32x32 level, d = 40), at ragged
+   shapes (K1/K2 at every supported head dim, in bf16 and fp32, the
+   sequence lengths off the kernel's 128-row tiles, one key axis shorter
+   than a tile; K3/K4 off the tiles in bf16), and in fp32 with TF32 off;
+   then K3/K4's projection kernel alone at its two main-path shapes, q (16384 x 320 x 320, with the bias as for the output) and
    [q | k | v] (16384 x 960 x 320), and one ragged shape (600 x 256 x 256);
    max abs error relative to max|plain| against a stated bound; median
    times of the kernel, the plain version and a library comparison
@@ -42,7 +42,8 @@ Phases (each prints its results; any failure exits non-zero):
    K2; eps against the default mode's; the step's ms in each mode.
 5. Round trip: encode, then decode under the same text and scale 1, with
    deterministic cuDNN; with the UNet in fp32 the replay must give back the
-   encoded latent (the bf16 round trip is printed, not bounded).
+   encoded latent (the bf16 round trip is printed, not bounded), exactly
+   and in fast mode (``fast_key_every=2`` on both chains).
 6. The ensemble: the task model (``TextUnsupervisedTranslation`` through the
    factory, ``CYCLEDIFFUSION_FOLDED_ATTN=qo``) encodes and ranks one 512 px
    image: SD-v1 bf16 loaded from phase 7's synthetic checkpoint, its
@@ -52,14 +53,30 @@ Phases (each prints its results; any failure exits non-zero):
    returned image against the winning candidate (bit-equal), the winner
    against the argmax of the scores recomputed candidate by candidate with
    ``DirectionalCLIP.__call__``, and the winning combo.
+7. The CLI: SD v1 written as a CompVis checkpoint and loaded bit for bit
+   through the factory, ``main`` on a cut SD experiment (2 real images).
+8. Fast mode (encoder caching) on SD v1 at full width, phase 7's weights:
+   ``ddim_decode_cached`` at ``key_every=1`` against ``ddim_decode``; the
+   2-request translate exact and with ``fast_key_every=2`` alternating
+   (UNet calls and K1/K2 launches by kind: 5/5 per key call, 3/3 per reuse
+   call); a full and a reuse UNet call eager, graph-replayed and profiled;
+   the CLI on a cut ``..._stochastic_fast.cfg``.
+9. LDM text2img-large at its published widths (LDM-BERT 32 x 1280, the UNet
+   with a 1280-d context, 256 px): a seeded CompVis checkpoint and a
+   synthetic WordPiece vocab, loaded bit for bit through the factory;
+   ``main`` on a cut ``..._latentdiff_stochastic_1.cfg`` (5 K1 launches at
+   d = 40 per UNet call, no K2-K4); the batch-4 UNet step eager and
+   graph-replayed, beside SD v1's in turns.
 
-The last three lines of output are the card's name and power limit, the
-kernels' JSON record and the result ``{"ok": true, "device": {...}}``.
+Each phase prints its peak device memory.  The last three lines of output
+are the card's name and power limit, the kernels' JSON record and the
+result ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import math
 import os
@@ -84,6 +101,10 @@ ROUND_TRIP_BOUND = 1e-3  # max|replay - x0| on the latent, fp32 UNet (|x0| ~ 2.5
 SCORE_BOUND = 1e-4
 STEPS = 50
 ETA = 0.1
+FAST_KEY_EVERY = 2  # the shipped fast config's
+# fast mode at key_every=1 against the exact replay: the key call runs the
+# exact call's operations, so bit for bit is expected; this bounds it
+KEY1_REL_BOUND = 1e-6
 # the card's published peaks (H100 SXM, dense): bf16 tensor cores, fp32 CUDA
 # cores, HBM bandwidth
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -119,6 +140,11 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def say_peak(torch, phase: str) -> None:
+    """The phase's peak device memory (since its last reset)."""
+    say(f"{phase}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
 def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -266,6 +292,7 @@ def phase_kernels(torch, fa):
         ("qout_self_attention_block", "main path", bf16, (4, 4096, 4096, 320, 8)),
         ("fused_self_attention_block", "main path", bf16, (4, 4096, 320, 8)),
         ("flash_attention_packed", "encode chain", bf16, (2, 4096, 4096, 8, 40)),
+        ("flash_attention_bhtd", "ldm 32x32", bf16, (4, 8, 1024, 1024, 40)),
         *[(name, "ragged", dtype, shp) for dtype in (bf16, f32) for name, shp in ragged_flash],
         ("qout_self_attention_block", "ragged", bf16, (2, 300, 200, 256, 4)),
         ("fused_self_attention_block", "ragged", bf16, (2, 300, 256, 4)),
@@ -279,6 +306,7 @@ def phase_kernels(torch, fa):
         ("linear", "projection", bf16, (16384, 960, 320, False)),
         ("linear", "ragged", bf16, (600, 256, 256, True)),
     ]
+    torch.cuda.reset_peak_memory_stats()
     record = {}
     for name, label, dtype, shp in cases:
         if name == "flash_attention_packed":
@@ -351,6 +379,7 @@ def phase_kernels(torch, fa):
             record[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": bound_ms, "bound_by": bound_by,
                             "library_ms": library_ms}
+    say_peak(torch, "kernels")
     return record
 
 
@@ -467,7 +496,16 @@ def phase_slice(torch, fa, attention, HashTokenizer, LatentCoreSpec,
         f"(bound {ROUND_TRIP_BOUND:.0e})")
     if not err <= ROUND_TRIP_BOUND:
         fail(f"round trip error {err} > {ROUND_TRIP_BOUND}")
-    del core, pipe
+    # fast mode: the same key schedule on both chains visits the same x_t,
+    # so the key steps make the same caches and the replay inverts again
+    fast = StochasticTextPipeline(core, tok, decoder_unconditional_guidance_scales=[1.0],
+                                  fast_key_every=FAST_KEY_EVERY, **kw)
+    err = round_trip(torch, core, fast, images, src)
+    say(f"round trip, fp32 UNet, fast mode (fast_key_every={FAST_KEY_EVERY} on both "
+        f"chains): max|replay - x0| = {err:.3e} (bound {ROUND_TRIP_BOUND:.0e})")
+    if not err <= ROUND_TRIP_BOUND:
+        fail(f"fast-mode round trip error {err} > {ROUND_TRIP_BOUND}")
+    del core, pipe, fast
     torch.cuda.empty_cache()
     return counts, folded_counts
 
@@ -515,6 +553,10 @@ CLI_CUTS = {
     ("raw_data", "range"): "[4, 6]",
 }
 CLI_SAMPLES = 2
+# phases 8 and 9: the fast-mode SD experiment and the LDM text2img-large one,
+# with the same cuts
+FAST_CLI_CFG = "experiments/translate_text2img256_stable_diffusion_stochastic_fast.cfg"
+LDM_CLI_CFG = "experiments/translate_text2img256_latentdiff_stochastic_1.cfg"
 METRIC_KEYS = ["eval_translate/psnr", "eval_translate/ssim", "eval_translate/l2",
                "eval_translate/clip", "eval_translate/d-clip", "eval_avr"]
 
@@ -545,18 +587,62 @@ def expected_cli_files(n_samples: int) -> list:
             + ["visualization/eval_000000.png", "visualization/eval_256_000000.png"])
 
 
-def expected_unet_calls(pipe, num_recovered_eps) -> int:
-    """UNet calls of one encode + generate: per skip, its chunks times the
-    chain length (the recovered eps on encode, the refine steps on decode)."""
+def chain_lengths(pipe, num_recovered_eps) -> list:
+    """UNet calls of each chain that one encode + generate runs: per skip,
+    its encode chunks (the recovered eps) and its decode chunks (the
+    refine steps)."""
     S, D = pipe.sched.num_steps, len(pipe.dec_scales)
     combos = pipe._combos()
     chunk = pipe.candidate_chunk
-    calls = 0
+    lengths = []
     for skip in sorted(set(pipe.skip_steps)):
         k = sum(1 for _, _, sk in combos if sk == skip)
         n = num_recovered_eps(S, pipe.white_box_steps, skip)
-        calls += n * -(-k // (chunk or k)) + (S - skip) * -(-k * D // (chunk or k * D))
-    return calls
+        lengths += [n] * -(-k // (chunk or k)) + [S - skip] * -(-k * D // (chunk or k * D))
+    return lengths
+
+
+def expected_unet_calls(pipe, num_recovered_eps) -> int:
+    """UNet calls of one encode + generate."""
+    return sum(chain_lengths(pipe, num_recovered_eps))
+
+
+def expected_calls_by_kind(pipe, num_recovered_eps) -> dict:
+    """UNet calls of one encode + generate by kind: ``full`` (the exact
+    path), or in fast mode ``key`` (every ``fast_key_every``-th step of a
+    chain, its first included) and ``reuse``."""
+    lengths = chain_lengths(pipe, num_recovered_eps)
+    every = pipe.fast_key_every or 1
+    if every <= 1:
+        return {"full": sum(lengths), "key": 0, "reuse": 0}
+    key = sum(-(-n // every) for n in lengths)
+    return {"full": 0, "key": key, "reuse": sum(lengths) - key}
+
+
+# the kernels the dispatcher picks for a self-attention route
+ROUTE_KERNELS = {"bhtd": "flash_attention_bhtd", "packed": "flash_attention_packed"}
+
+
+def launches_per_call(spec, attention_route, reuse: bool = False) -> dict:
+    """K1 and K2 launches of one UNet call on ``spec``'s latent (default
+    self-attention mode): one per spatial transformer whose self-attention
+    ``attention_route`` sends to a kernel — ``num_res_blocks`` in each
+    attention level of the input blocks, one more than that in the output
+    blocks, one in the middle block at the deepest level.  A reuse call of
+    the fast mode runs the output blocks only."""
+    cfg = spec.unet
+    counts = dict.fromkeys(ROUTE_KERNELS.values(), 0)
+    levels = len(cfg.channel_mult)
+    blocks = [(2 ** lvl, (0 if reuse else cfg.num_res_blocks) + cfg.num_res_blocks + 1)
+              for lvl in range(levels) if 2 ** lvl in cfg.attention_resolutions]
+    if not reuse:
+        blocks.append((2 ** (levels - 1), 1))
+    for ds, n in blocks:
+        tokens = (spec.image_size // ds) ** 2
+        route = attention_route(tokens, tokens)
+        if route in ROUTE_KERNELS:
+            counts[ROUTE_KERNELS[route]] += n * cfg.transformer_depth
+    return counts
 
 
 def phase_ensemble(torch, fa, Args, TextUnsupervisedTranslation, num_recovered_eps):
@@ -692,7 +778,7 @@ def write_assets(torch, root):
     path = os.path.join(root, "ckpts", "stable_diffusion", "sd-v1-4.ckpt")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    nbytes = sd_assets.write_sd_checkpoint(core, path)
+    nbytes = sd_assets.write_compvis_checkpoint(core, path)
     say(f"assets: {path}: {nbytes:,} bytes (bf16, CompVis layout) written in "
         f"{time.perf_counter() - t0:.2f} s")
     bpe = sd_assets.write_bpe_merges(os.path.join(root, "bpe_merges.txt"))
@@ -706,8 +792,11 @@ def write_assets(torch, root):
     return core
 
 
-def phase_cli(torch, fa, ref_core, root, num_recovered_eps):
-    """Phase 7: the port's CLI on the cut SD experiment, in process."""
+def phase_cli(torch, fa, ref_core, root, num_recovered_eps, cfg_name, head_dims, label):
+    """Phases 7, 8 and 9: the port's CLI on ``cfg_name`` cut by
+    ``CLI_CUTS``, in process, with the checkpoint of ``ref_core`` under
+    ``root``; K1 must see only ``head_dims`` -> (launch counts, the core
+    the factory loaded)."""
     import numpy as np
 
     from cyclediffusion_tpu_torch import main as cli
@@ -719,35 +808,40 @@ def phase_cli(torch, fa, ref_core, root, num_recovered_eps):
         TextUnsupervisedTranslation,
     )
 
-    with open(os.path.join(config_root(), CLI_CFG)) as f:
+    with open(os.path.join(config_root(), cfg_name)) as f:
         cfg_text = cut_config(f.read(), CLI_CUTS)
-    cfg = os.path.join(root, "sd_cli.cfg")
+    cfg = os.path.join(root, f"{label}.cfg")
     with open(cfg, "w") as f:
         f.write(cfg_text)
-    out_dir = os.path.join(root, "cli")
+    out_dir = os.path.join(root, label)
     os.environ["CYCLEDIFFUSION_DATA_ROOT"] = ROOT
-    say(f"cli: {CLI_CFG} cut to {CLI_CUTS}")
+    say(f"{label}: {cfg_name} cut to {CLI_CUTS}")
 
-    # spies: the core the factory loads (its load time, its UNet calls) and
-    # the images the task model returns
-    seen = {"cores": [], "images": []}
-    unet_calls = [0]
+    # spies: the core the factory loads (its load time, its UNet calls by
+    # kind), the images the task model returns, K1's head dims
+    seen = {"cores": [], "images": [], "dims": set()}
+    calls = {"full": 0, "key": 0, "reuse": 0}
     from_ckpt = LatentDiffusionCore.from_torch_ckpt
     forward = TextUnsupervisedTranslation.forward
+    bhtd = fa.flash_attention_bhtd
 
     def spy_from_ckpt(*a, **k):
         t0 = time.perf_counter()
         core = from_ckpt(*a, **k)
         torch.cuda.synchronize()
         seen["load_s"] = time.perf_counter() - t0
-        apply_model = core.apply_model
+        apply_model, apply_model_cached = core.apply_model, core.apply_model_cached
 
         def counted(*args):
-            unet_calls[0] += 1
+            calls["full"] += 1
             return apply_model(*args)
 
-        core.apply_model = counted
-        seen["cores"].append((core, apply_model))
+        def counted_cached(x, t, c, encoder_cache=None):
+            calls["key" if encoder_cache is None else "reuse"] += 1
+            return apply_model_cached(x, t, c, encoder_cache)
+
+        core.apply_model, core.apply_model_cached = counted, counted_cached
+        seen["cores"].append(core)
         return core
 
     def spy_forward(self, *a, **k):
@@ -756,10 +850,15 @@ def phase_cli(torch, fa, ref_core, root, num_recovered_eps):
         seen["images"].append(out[0][1].float().cpu().numpy())
         return out
 
+    def spy_bhtd(q, k, v, sm_scale):
+        seen["dims"].add(q.shape[-1])
+        return bhtd(q, k, v, sm_scale)
+
     argv = ["--cfg", cfg, "--output_dir", out_dir, "--seed", "42", "--do_eval",
             "--per_device_eval_batch_size", "2"]
     LatentDiffusionCore.from_torch_ckpt = spy_from_ckpt
     TextUnsupervisedTranslation.forward = spy_forward
+    fa.flash_attention_bhtd = spy_bhtd
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
@@ -770,75 +869,287 @@ def phase_cli(torch, fa, ref_core, root, num_recovered_eps):
     finally:
         LatentDiffusionCore.from_torch_ckpt = from_ckpt
         TextUnsupervisedTranslation.forward = forward
+        fa.flash_attention_bhtd = bhtd
     secs = time.perf_counter() - t0
     counts = dict(fa.launch_counts)
     peak = torch.cuda.max_memory_allocated()
 
     if len(seen["cores"]) != 1:
-        fail(f"the CLI loaded {len(seen['cores'])} cores from checkpoints, expected 1")
-    core, apply_model = seen["cores"][0]
+        fail(f"{label}: the CLI loaded {len(seen['cores'])} cores from checkpoints, "
+             f"expected 1")
+    core = seen["cores"][0]
+    del core.apply_model, core.apply_model_cached       # the spies
     want_sd, got_sd = ref_core.state_dict(), core.state_dict()
     differ = [k for k in want_sd if not torch.equal(want_sd[k], got_sd[k])]
     n_params = sum(v.numel() for v in got_sd.values())
     if core.dtype != ref_core.dtype or want_sd.keys() != got_sd.keys() or differ:
-        fail(f"the loaded core ({core.dtype}) differs from the written one "
+        fail(f"{label}: the loaded core ({core.dtype}) differs from the written one "
              f"({ref_core.dtype}): {differ[:4]}")
     spec = core.spec
     gen = torch.Generator(device="cuda").manual_seed(11)
     x = torch.randn((2, spec.image_size, spec.image_size, spec.channels), generator=gen,
                     device="cuda")
     t = torch.full((2,), 500, dtype=torch.int64, device="cuda")
-    ctx = torch.randn((2, spec.cond_cfg.max_positions, spec.unet.context_dim), generator=gen,
+    ctx = torch.randn((2, spec.context_length, spec.unet.context_dim), generator=gen,
                       device="cuda")
-    eps_ref, eps = ref_core.apply_model(x, t, ctx), apply_model(x, t, ctx)
+    eps_ref, eps = ref_core.apply_model(x, t, ctx), core.apply_model(x, t, ctx)
     if not torch.equal(eps_ref, eps):
-        fail(f"the loaded UNet's eps differs from the written core's by "
+        fail(f"{label}: the loaded UNet's eps differs from the written core's by "
              f"{float((eps_ref - eps).abs().max())}")
-    say(f"cli: the checkpoint loaded in {seen['load_s']:.2f} s ({n_params:,} weights, "
+    say(f"{label}: the checkpoint loaded in {seen['load_s']:.2f} s ({n_params:,} weights, "
         f"{core.dtype}) equals the written core bit for bit, and so does its UNet eps")
 
-    want_calls = CLI_SAMPLES * expected_unet_calls(seen["pipe"], num_recovered_eps)
-    say(f"cli: {unet_calls[0]} UNet calls (expected {want_calls}), launches {counts}")
-    if unet_calls[0] != want_calls:
-        fail(f"the CLI ran {unet_calls[0]} UNet calls, expected {want_calls}")
-    for name in ("flash_attention_packed", "flash_attention_bhtd"):
-        if counts[name] != 5 * unet_calls[0]:
-            fail(f"{name}: {counts[name]} launches in the CLI run, expected 5 per UNet call")
+    pipe = seen["pipe"]
+    want_calls = {kind: CLI_SAMPLES * n
+                  for kind, n in expected_calls_by_kind(pipe, num_recovered_eps).items()}
+    per_call = {kind: launches_per_call(spec, fa.attention_route, reuse=kind == "reuse")
+                for kind in calls}
+    want_launches = {name: sum(calls[kind] * per_call[kind][name] for kind in calls)
+                     for name in ROUTE_KERNELS.values()}
+    say(f"{label}: UNet calls {calls} (expected {want_calls}), launches {counts} "
+        f"(K1/K2 per call by kind {per_call}); K1 head dims {sorted(seen['dims'])}")
+    if calls != want_calls:
+        fail(f"{label}: the CLI ran {calls} UNet calls, expected {want_calls}")
+    for name, n in want_launches.items():
+        if counts[name] != n:
+            fail(f"{label}: {name}: {counts[name]} launches, expected {n}")
     if counts["qout_self_attention_block"] or counts["fused_self_attention_block"]:
-        fail(f"the CLI's default mode launched a folded kernel: {counts}")
+        fail(f"{label}: the CLI's default mode launched a folded kernel: {counts}")
+    if seen["dims"] != set(head_dims):
+        fail(f"{label}: K1 ran at head dims {sorted(seen['dims'])}, expected {head_dims}")
 
     files = sorted(os.path.relpath(os.path.join(d, f), out_dir)
                    for d, _, fs in os.walk(out_dir) for f in fs)
     missing = sorted(set(expected_cli_files(CLI_SAMPLES)) - set(files))
     if missing:
-        fail(f"the CLI did not write {missing}; it wrote {files}")
+        fail(f"{label}: the CLI did not write {missing}; it wrote {files}")
     with open(os.path.join(out_dir, "eval_results.json")) as f:
         results = json.load(f)
     bad = [k for k in METRIC_KEYS
            if not isinstance(results.get(k), float) or not math.isfinite(results[k])]
     if bad or results.get("eval_samples") != CLI_SAMPLES:
-        fail(f"eval_results.json: non-finite or missing {bad}, eval_samples "
+        fail(f"{label}: eval_results.json: non-finite or missing {bad}, eval_samples "
              f"{results.get('eval_samples')}: {results}")
     with open(os.path.join(out_dir, "eval_results.csv")) as f:
         rows = f.read().strip().splitlines()[1:]
     if len(rows) != CLI_SAMPLES:
-        fail(f"eval_results.csv has {len(rows)} rows, expected {CLI_SAMPLES}")
+        fail(f"{label}: eval_results.csv has {len(rows)} rows, expected {CLI_SAMPLES}")
     returned = np.concatenate(seen["images"])
     for i in range(CLI_SAMPLES):
         png = read_png(os.path.join(out_dir, "temp_gen", f"{i}.png"))
         want = to_uint8(np.clip(returned[i], 0, 1))
         if png.shape != (spec.resolution, spec.resolution, 3) or not np.array_equal(png, want):
-            fail(f"temp_gen/{i}.png ({png.shape}) is not the returned image {i} in uint8")
+            fail(f"{label}: temp_gen/{i}.png ({png.shape}) is not the returned image {i} "
+                 f"in uint8")
     for name in ("eval_000000.png", "eval_256_000000.png"):
         grid = read_png(os.path.join(out_dir, "visualization", name))
-        say(f"cli: visualization/{name} {grid.shape}")
+        say(f"{label}: visualization/{name} {grid.shape}")
     runtime = results["eval_runtime"]
-    say(f"cli: metrics {{{', '.join(f'{k}: {results[k]:.6g}' for k in METRIC_KEYS)}}}")
-    say(f"cli: eval_runtime {runtime} s, eval_samples_per_second "
+    say(f"{label}: metrics {{{', '.join(f'{k}: {results[k]:.6g}' for k in METRIC_KEYS)}}}")
+    say(f"{label}: eval_runtime {runtime} s, eval_samples_per_second "
         f"{results['eval_samples_per_second']}, {runtime / CLI_SAMPLES:.4f} s/sample; "
         f"the whole CLI call {secs:.2f} s; peak device memory {peak / 2**30:.2f} GiB")
     if metrics.get("eval_samples") != CLI_SAMPLES:
-        fail(f"main() returned {metrics}")
+        fail(f"{label}: main() returned {metrics}")
+    return counts, core
+
+
+def phase_fast(torch, fa, core, StochasticTextPipeline, HashTokenizer, num_recovered_eps):
+    """Phase 8 (a-c): fast mode on SD v1 in bf16 (phase 7's written core,
+    the weights of phase 4)."""
+    from cyclediffusion_tpu_torch.samplers import ddim_decode, ddim_decode_cached
+    from cyclediffusion_tpu_torch.tools.step_probe import (
+        eager_ms,
+        graph_ms,
+        graph_of,
+        profile_kinds,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    spec = core.spec
+    tok = HashTokenizer(49408, 77)
+    kw = dict(custom_steps=STEPS, eta=ETA, white_box_steps=STEPS + 1, skip_steps=[0],
+              encoder_unconditional_guidance_scales=[1.0],
+              decoder_unconditional_guidance_scales=[5.0], n_trials=1)
+    pipes = {"exact": StochasticTextPipeline(core, tok, **kw),
+             "fast": StochasticTextPipeline(core, tok, fast_key_every=FAST_KEY_EVERY, **kw)}
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    src = ["a photo of a cat", "a painting of a house"]
+    dst = ["a photo of a dog", "a painting of a castle"]
+    c, uc = pipes["exact"].get_condition(dst), pipes["exact"].uncond(2)
+
+    # (a) every step a key step: the exact replay's operations
+    sched = core.make_ddim_schedule(10, ETA)
+    x_T = torch.randn((2, 64, 64, 4), generator=gen, device="cuda")
+    eps = torch.randn((10, 2, 64, 64, 4), generator=gen, device="cuda")
+    want = ddim_decode(pipes["exact"]._guided(c, uc, [5.0], 2), sched, x_T, eps)
+    got = ddim_decode_cached(*pipes["fast"]._guided(c, uc, [5.0], 2), sched, x_T, eps,
+                             key_every=1)
+    diff = float((got - want).abs().max())
+    say(f"fast: ddim_decode_cached(key_every=1) vs ddim_decode (10 steps, 2 requests x CFG "
+        f"5): max abs diff {diff:.3e}, bit for bit {torch.equal(got, want)} (bound "
+        f"{KEY1_REL_BOUND:.0e} of max|x| {float(want.abs().max()):.3e})")
+    if not diff <= KEY1_REL_BOUND * float(want.abs().max()):
+        fail(f"ddim_decode_cached at key_every=1 differs from ddim_decode by {diff}")
+
+    # (c) the 2-request translate, exact and fast alternating, the same draws
+    small = torch.rand((2, 3, 8, 8), generator=gen, device="cuda")
+    images = torch.nn.functional.interpolate(small, size=(512, 512), mode="bilinear",
+                                             align_corners=False).permute(0, 2, 3, 1)
+    x4 = torch.randn((4, 64, 64, 4), generator=gen, device="cuda")
+    t4 = torch.full((4,), 981, dtype=torch.int64, device="cuda")
+    ctx4 = pipes["exact"].get_condition(src + dst)
+    _, cache = core.apply_model_cached(x4, t4, ctx4)       # warm-up: each kind of call
+    core.apply_model_cached(x4, t4, ctx4, cache)
+    core.apply_model(x4, t4, ctx4)
+    torch.cuda.synchronize()
+
+    def translate(mode):
+        pipe = pipes[mode]
+        calls = dict.fromkeys(("full", "key", "reuse"), 0)
+        launches = {kind: dict.fromkeys(ROUTE_KERNELS.values(), 0) for kind in calls}
+        apply_model, apply_model_cached = core.apply_model, core.apply_model_cached
+
+        def counted(kind, fn, *args):
+            before = dict(fa.launch_counts)
+            out = fn(*args)
+            calls[kind] += 1
+            for name in ROUTE_KERNELS.values():
+                launches[kind][name] += fa.launch_counts[name] - before[name]
+            return out
+
+        core.apply_model = lambda *a: counted("full", apply_model, *a)
+        core.apply_model_cached = lambda x, t, ctx, cache=None: counted(
+            "key" if cache is None else "reuse", apply_model_cached, x, t, ctx, cache)
+        g = torch.Generator(device="cuda").manual_seed(31)
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            z = pipe.encode(images, src, g)
+            out = pipe.generate(z, dst, g)
+            torch.cuda.synchronize()
+        finally:
+            del core.apply_model, core.apply_model_cached
+        return (time.perf_counter() - t0) / 2, out[0], calls, launches
+
+    runs = []
+    for mode in ("exact", "fast", "fast", "exact"):
+        secs, img, calls, launches = translate(mode)
+        want_calls = expected_calls_by_kind(pipes[mode], num_recovered_eps)
+        for kind, n in calls.items():
+            per_call = launches_per_call(spec, fa.attention_route, reuse=kind == "reuse")
+            if launches[kind] != {name: n * k for name, k in per_call.items()}:
+                fail(f"fast: {mode} translate: {kind} calls {n}, launches {launches[kind]}, "
+                     f"expected {per_call} per call")
+        if calls != want_calls or not torch.isfinite(img).all():
+            fail(f"fast: {mode} translate: UNet calls {calls} (expected {want_calls}), "
+                 f"finite {bool(torch.isfinite(img).all())}")
+        runs.append((mode, secs, img))
+        say(f"fast: translate [{mode}] {secs:.4f} s/request; UNet calls {calls}; K1/K2 "
+            f"launches by kind {launches}")
+    by_mode = {m: sorted(r[1] for r in runs if r[0] == m) for m in pipes}
+    exact_img = next(r[2] for r in runs if r[0] == "exact")
+    fast_img = next(r[2] for r in runs if r[0] == "fast")
+    rel = float((fast_img - exact_img).abs().max() / exact_img.abs().max())
+    say(f"fast: s/request exact {by_mode['exact']}, fast {by_mode['fast']}: fast/exact "
+        f"{sum(by_mode['fast']) / sum(by_mode['exact']):.4f}; images max|fast - exact| / "
+        f"max|exact| = {rel:.4f} (a reading: random weights)")
+
+    # a full and a reuse UNet call at batch 4: eager, graph replay, profile
+    steps = {"full": lambda: core.apply_model(x4, t4, ctx4),
+             "reuse": lambda: core.apply_model_cached(x4, t4, ctx4, cache)[0]}
+    for kind, step in steps.items():
+        host, dev = eager_ms(step, 10)
+        graph, out = graph_of(step)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, step()):
+            fail(f"fast: the {kind} call's graph replay differs from its eager call")
+        rep = graph_ms(graph, 10)
+        del graph, out
+        kinds = profile_kinds(step, 3)
+        say(f"fast: SD-v1 {kind} UNet call at batch 4: eager host {host:.3f} ms, device span "
+            f"{dev:.3f} ms; graph replay {rep:.3f} ms; profile {sum(ms for ms, _ in kinds.values()):.3f} "
+            f"device ms in {sum(n for _, n in kinds.values()):.0f} launches")
+    say_peak(torch, "fast")
+
+
+def write_ldm_assets(torch, root):
+    """Phase 9, first step: LDM text2img-large's synthetic checkpoint and a
+    WordPiece vocab covering the repo's prompts under ``root`` ->
+    the in-memory core that was written."""
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
+    from cyclediffusion_tpu_torch.tools import sd_assets
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    core = LatentDiffusionCore.random_init(LatentCoreSpec.ldm_text2img_large(), seed=0,
+                                           device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    counts = {name: sum(p.numel() for p in m.parameters()) for name, m in core._named_modules()}
+    say(f"ldm: LDM text2img-large core {', '.join(f'{k} {v:,}' for k, v in counts.items())} "
+        f"= {sum(counts.values()):,} params in bf16, random init "
+        f"{time.perf_counter() - t0:.2f} s")
+    path = os.path.join(root, "ckpts", "ldm_models", "text2img-large", "model.ckpt")
+    t0 = time.perf_counter()
+    nbytes = sd_assets.write_compvis_checkpoint(core, path)
+    say(f"ldm: {path}: {nbytes:,} bytes (bf16, CompVis layout, with the unused to_logits "
+        f"head) written in {time.perf_counter() - t0:.2f} s")
+    with open(os.path.join(ROOT, "data", "translate-text.json")) as f:
+        entries = json.load(f)
+    vocab = sd_assets.write_bert_vocab(os.path.join(root, "vocab.txt"),
+                                       [e[k] for e in entries
+                                        for k in ("encode_text", "decode_text")])
+    os.environ["CYCLEDIFFUSION_BERT_VOCAB"] = vocab
+    with open(vocab) as f:
+        say(f"ldm: WordPiece vocab {vocab}: {len(f.read().splitlines())} tokens")
+    return core
+
+
+def phase_ldm(torch, fa, root, num_recovered_eps):
+    """Phase 9: LDM text2img-large through the CLI, then its batch-4 UNet
+    step beside SD v1's (a fresh seed-0 core), alternating -> the CLI run's
+    launch counts."""
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
+    from cyclediffusion_tpu_torch.tools.step_probe import (
+        alternating,
+        eager_ms,
+        graph_ms,
+        graph_of,
+    )
+
+    ref_core = write_ldm_assets(torch, root)
+    counts, core = phase_cli(torch, fa, ref_core, root, num_recovered_eps, LDM_CLI_CFG,
+                             (40,), "ldm_cli")
+    del ref_core
+    torch.cuda.empty_cache()
+    cores = {"ldm": core, "sd": LatentDiffusionCore.random_init(
+        LatentCoreSpec.sd_v1(), seed=0, device="cuda", dtype=torch.bfloat16)}
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    steps = {}
+    for name, c in cores.items():
+        spec = c.spec
+        x = torch.randn((4, spec.image_size, spec.image_size, spec.channels), generator=gen,
+                        device="cuda")
+        t = torch.full((4,), 981, dtype=torch.int64, device="cuda")
+        ctx = torch.randn((4, spec.context_length, spec.unet.context_dim), generator=gen,
+                          device="cuda")
+        step = functools.partial(c.apply_model, x, t, ctx)
+        graph, out = graph_of(step)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, step()):
+            fail(f"ldm: the {name} UNet step's graph replay differs from its eager call")
+        steps[name] = (step, graph)
+    for name in alternating(2, tuple(steps)):
+        step, graph = steps[name]
+        host, dev = eager_ms(step, 10)
+        rep = graph_ms(graph, 10)
+        say(f"ldm: UNet step at batch 4 [{name}]: eager host {host:.3f} ms, device span "
+            f"{dev:.3f} ms; graph replay {rep:.3f} ms")
+    del steps, cores
+    say_peak(torch, "ldm")
     return counts
 
 
@@ -906,11 +1217,21 @@ def main() -> None:
         ens_counts = phase_ensemble(torch, fa, Args, TextUnsupervisedTranslation,
                                     num_recovered_eps)
         torch.cuda.empty_cache()
-        phase_cli(torch, fa, ref_core, root, num_recovered_eps)
+        phase_cli(torch, fa, ref_core, root, num_recovered_eps, CLI_CFG, (80,), "cli")
+        phase_fast(torch, fa, ref_core, StochasticTextPipeline, HashTokenizer,
+                   num_recovered_eps)
+        phase_cli(torch, fa, ref_core, root, num_recovered_eps, FAST_CLI_CFG, (80,),
+                  "fast_cli")
+        del ref_core            # the SD cores of phases 4-8 are all freed here
+        gc.collect()
+        torch.cuda.empty_cache()
+        ldm_counts = phase_ldm(torch, fa, root, num_recovered_eps)
 
     # launches on the path that runs each kernel: the translate slice (K1,
-    # K2), the ensemble (K3), the UNet call in folded mode "1" (K4)
-    launches = {"flash_attention_bhtd": slice_counts["flash_attention_bhtd"],
+    # K2) and LDM text2img-large's CLI run (K1), the ensemble (K3), the UNet
+    # call in folded mode "1" (K4)
+    launches = {"flash_attention_bhtd": slice_counts["flash_attention_bhtd"]
+                + ldm_counts["flash_attention_bhtd"],
                 "flash_attention_packed": slice_counts["flash_attention_packed"],
                 "qout_self_attention_block": ens_counts["qout_self_attention_block"],
                 "fused_self_attention_block": k4_counts["fused_self_attention_block"]}

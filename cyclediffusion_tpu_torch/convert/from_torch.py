@@ -1,19 +1,27 @@
-"""CompVis Stable Diffusion v1 checkpoints -> the port's modules (counterpart
-of ``load_torch_state_dict``, ``select_ema_weights``,
-``split_latent_diffusion_state``, ``convert_gd_unet``, ``convert_vae`` and
-``convert_clip_text`` in ``cyclediffusion_tpu.convert.torch_import``).
+"""CompVis text-conditioned latent diffusion checkpoints (Stable Diffusion
+v1, LDM text2img-large) -> the port's modules (counterpart of
+``load_torch_state_dict``, ``select_ema_weights``,
+``split_latent_diffusion_state``, ``convert_gd_unet``, ``convert_vae``,
+``convert_clip_text`` and ``convert_ldm_bert`` in
+``cyclediffusion_tpu.convert.torch_import``).
 
 A Lightning ``LatentDiffusion`` state dict holds three subtrees:
 ``model.diffusion_model.*`` (the UNet), ``first_stage_model.*`` (the KL
-VAE) and ``cond_stage_model.transformer.text_model.*`` (HF's
-``CLIPTextModel``); its other entries (the schedule buffers, the LitEma
-state) are not weights of the core.  The port's UNet and VAE carry
+VAE) and ``cond_stage_model.*``: SD's ``transformer.text_model.*`` (HF's
+``CLIPTextModel``) or text2img-large's ``transformer.*`` (x-transformer's
+``TransformerWrapper``); its other entries (the schedule buffers, the
+LitEma state) are not weights of the core.  The port's UNet and VAE carry
 CompVis's own module names and leaf shapes (1x1 convolutions stay
 convolutions), so their keys map by stripping the prefix.  The CLIP text
 tower's HF names map onto the port's ``CLIPTextEncoder``
 (``encoder.layers.i.self_attn.q_proj`` -> ``layers.i.q_proj``,
 ``embeddings.position_embedding.weight`` -> ``position_embedding``); HF's
-``position_ids`` buffer is not a weight.
+``position_ids`` buffer is not a weight.  The x-transformer's layers
+alternate attention and feed-forward: ``attn_layers.layers.{2j}.{0,1}`` ->
+``attn_norm.j`` / ``attn.j``, ``attn_layers.layers.{2j+1}.0`` ->
+``ff_norm.j``, its ``1.net.0.0`` -> ``ff_in.j`` and ``1.net.2`` ->
+``ff_out.j``; ``pos_emb.emb.weight`` -> ``pos_emb``; the unused
+``to_logits`` head is skipped.
 A key that maps to no parameter, a parameter that no key sets, or a shape
 that disagrees raises, naming the key.  Values are cast to the module's
 dtype as they are copied into it.
@@ -136,3 +144,34 @@ def clip_text_name(hf_key: str):
 def convert_clip_text(cond_sd: StateDict, module: nn.Module) -> StateDict:
     """The cond stage's HF CLIP text weights -> the port's CLIPTextEncoder."""
     return _to_module(cond_sd, module, clip_text_name, "clip-text", COND_PREFIX)
+
+
+_LDM_BERT_FF = {"net.0.0": "ff_in", "net.2": "ff_out"}
+
+
+def ldm_bert_name(key: str):
+    """An x-transformer ``TransformerWrapper`` key, with or without
+    ``transformer.``, -> the port's ``LDMBertEncoder`` name (None for the
+    ``to_logits`` head); an unknown key maps to itself, which no parameter
+    has."""
+    k = key[len("transformer."):] if key.startswith("transformer.") else key
+    if k.startswith("to_logits."):
+        return None
+    if k == "pos_emb.emb.weight":
+        return "pos_emb"
+    m = re.match(r"^attn_layers\.layers\.(\d+)\.([01])\.(.+)$", k)
+    if not m:
+        return k
+    layer, slot, rest = int(m.group(1)), m.group(2), m.group(3)
+    j, is_ff = layer // 2, layer % 2 == 1
+    if slot == "0":
+        return f"{'ff_norm' if is_ff else 'attn_norm'}.{j}.{rest}"
+    if not is_ff:
+        return f"attn.{j}.{rest}"
+    sub, leaf = rest.rsplit(".", 1)
+    return f"{_LDM_BERT_FF[sub]}.{j}.{leaf}" if sub in _LDM_BERT_FF else k
+
+
+def convert_ldm_bert(cond_sd: StateDict, module: nn.Module) -> StateDict:
+    """The cond stage's x-transformer weights -> the port's LDMBertEncoder."""
+    return _to_module(cond_sd, module, ldm_bert_name, "ldm-bert", COND_PREFIX)

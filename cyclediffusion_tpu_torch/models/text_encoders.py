@@ -1,8 +1,15 @@
-"""The CLIP ViT-L/14 text encoder used for SD conditioning (counterpart of
-``CLIPTextEncoder`` in ``cyclediffusion_tpu.models.text_encoders``).
+"""The conditioning text encoders (counterparts of ``CLIPTextEncoder`` and
+``LDMBertEncoder`` in ``cyclediffusion_tpu.models.text_encoders``).
 
-Pre-LN transformer over learned position embeddings, causal mask, QuickGELU,
-returning the last hidden state.  Its attention is plain: 77 tokens.
+* :class:`CLIPTextEncoder` — the CLIP ViT-L/14 text tower of SD v1: pre-LN
+  transformer over learned position embeddings, causal mask, QuickGELU,
+  returning the last hidden state.
+* :class:`LDMBertEncoder` — LDM text2img-large's BERT-style x-transformer
+  encoder: token + absolute position embeddings, depth x (pre-LN attention
+  with bias-free q/k/v of 8 heads x 64 -> residual, pre-LN feed-forward with
+  exact GELU, 4x -> residual), final LayerNorm, no mask.
+
+Their attention is plain: 77 tokens.
 """
 
 from __future__ import annotations
@@ -10,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -102,3 +110,61 @@ class CLIPTextEncoder(nn.Module):
         for layer in self.layers:
             x = layer(x, bias)
         return self.final_layer_norm(x)
+
+
+@dataclasses.dataclass(frozen=True)
+class LDMBertConfig:
+    vocab_size: int = 30522
+    dim: int = 1280
+    depth: int = 32
+    heads: int = 8
+    dim_head: int = 64          # x_transformer's DEFAULT_DIM_HEAD; inner 512
+    max_seq_len: int = 77
+    ff_mult: int = 4
+
+    @staticmethod
+    def text2img_large() -> "LDMBertConfig":
+        return LDMBertConfig()
+
+
+class XTransformerAttention(nn.Module):
+    def __init__(self, cfg: LDMBertConfig):
+        super().__init__()
+        inner = cfg.dim_head * cfg.heads
+        self.heads = cfg.heads
+        self.to_q = nn.Linear(cfg.dim, inner, bias=False)
+        self.to_k = nn.Linear(cfg.dim, inner, bias=False)
+        self.to_v = nn.Linear(cfg.dim, inner, bias=False)
+        self.to_out = nn.Linear(inner, cfg.dim)
+
+    def forward(self, x):
+        out = masked_multi_head_attention(self.to_q(x), self.to_k(x), self.to_v(x),
+                                          self.heads)
+        return self.to_out(out)
+
+
+class LDMBertEncoder(nn.Module):
+    """``forward(input_ids (B, T) int)`` -> embeddings (B, T, dim): the
+    x-transformer ``TransformerWrapper(Encoder)`` with
+    ``return_embeddings=True``."""
+
+    def __init__(self, cfg: LDMBertConfig):
+        super().__init__()
+        dim, depth = cfg.dim, cfg.depth
+        self.token_emb = nn.Embedding(cfg.vocab_size, dim)
+        self.pos_emb = nn.Parameter(torch.zeros(cfg.max_seq_len, dim))
+        self.attn_norm = nn.ModuleList(nn.LayerNorm(dim, eps=1e-5) for _ in range(depth))
+        self.attn = nn.ModuleList(XTransformerAttention(cfg) for _ in range(depth))
+        self.ff_norm = nn.ModuleList(nn.LayerNorm(dim, eps=1e-5) for _ in range(depth))
+        self.ff_in = nn.ModuleList(nn.Linear(dim, dim * cfg.ff_mult) for _ in range(depth))
+        self.ff_out = nn.ModuleList(nn.Linear(dim * cfg.ff_mult, dim) for _ in range(depth))
+        self.norm = nn.LayerNorm(dim, eps=1e-5)
+
+    def forward(self, input_ids):
+        t = input_ids.shape[1]
+        x = self.token_emb(input_ids) + self.pos_emb[None, :t]
+        for attn_norm, attn, ff_norm, ff_in, ff_out in zip(
+                self.attn_norm, self.attn, self.ff_norm, self.ff_in, self.ff_out):
+            x = x + attn(attn_norm(x))
+            x = x + ff_out(F.gelu(ff_in(ff_norm(x))))
+        return self.norm(x)

@@ -1,8 +1,9 @@
 """The guided-diffusion-family UNet with spatial transformers — the LDM/SD
 cross-attention UNet (counterpart of ``cyclediffusion_tpu.models.unet_gd``).
 
-This slice covers the SD-v1 topology: conv resampling, no scale-shift norm,
-no class labels, spatial-transformer attention.  The reference's stateful
+This slice covers the SD-v1 topology (and LDM text2img-large's, which is SD's
+with a 1280-d context): conv resampling, no scale-shift norm, no class
+labels, spatial-transformer attention.  The reference's stateful
 head-count selection (``num_heads`` reassigned inside the layer loop when
 ``num_head_channels`` is set) is kept in :func:`_attn_layout`, so converted
 checkpoints attend identically.  Module names mirror the reference
@@ -46,6 +47,11 @@ class GDUNetConfig:
             num_heads=8, use_spatial_transformer=True, transformer_depth=1,
             context_dim=768, legacy=False,
         )
+
+    @staticmethod
+    def ldm_text2img_large() -> "GDUNetConfig":
+        """LDM text2img-large (txt2img-1p4B-eval.yaml): SD topology, 1280-d ctx."""
+        return dataclasses.replace(GDUNetConfig.sd_v1(), context_dim=1280)
 
     @staticmethod
     def tiny(context_dim: int = 24) -> "GDUNetConfig":
@@ -132,7 +138,14 @@ class GDUNet(nn.Module):
     """``forward(x (B,H,W,C) NHWC, t (B,), context (B,T,ctx))`` -> eps NHWC.
 
     ``folded_attn`` (``None``, ``"qo"`` or ``"1"``) goes to every spatial
-    transformer's self-attention (see ``transformer.CrossAttention``)."""
+    transformer's self-attention (see ``transformer.CrossAttention``).
+
+    ``encoder_cache`` / ``return_cache`` are the encoder-propagation fast
+    mode (Faster Diffusion, arXiv 2312.09608): ``return_cache=True`` returns
+    ``(eps, cache)`` with ``cache = (h_middle, hs)``, the middle block's
+    output and the input blocks' skip activations (NCHW, in the UNet's
+    dtype); a call given that cache skips the input and middle blocks and
+    runs the decoder half on it, with the current timestep's embedding."""
 
     def __init__(self, cfg: GDUNetConfig, folded_attn: Optional[str] = None):
         super().__init__()
@@ -193,15 +206,25 @@ class GDUNet(nn.Module):
         self.out = nn.Sequential(
             GroupNorm(32, ch, 1e-5), nn.SiLU(), _conv3x3(ch, cfg.out_channels))
 
-    def forward(self, x, t, context):
-        emb = self.time_embed(
-            gd_timestep_embedding(t, self.config.model_channels).to(x.dtype))
+    def encode(self, x, emb, context):
+        """The input and middle blocks on NHWC ``x`` -> ``(h_middle, hs)``."""
         h = x.permute(0, 3, 1, 2)
         hs = []
         for layers in self.input_blocks:
             h = _apply_layers(layers, h, emb, context)
             hs.append(h)
-        h = _apply_layers(self.middle_block, h, emb, context)
+        return _apply_layers(self.middle_block, h, emb, context), tuple(hs)
+
+    def decode(self, h, hs, emb, context):
+        """The output blocks over an encoder's ``(h_middle, hs)`` -> eps NHWC."""
+        hs = list(hs)
         for layers in self.output_blocks:
             h = _apply_layers(layers, torch.cat([h, hs.pop()], dim=1), emb, context)
         return self.out(h).permute(0, 2, 3, 1)
+
+    def forward(self, x, t, context, encoder_cache=None, return_cache=False):
+        emb = self.time_embed(
+            gd_timestep_embedding(t, self.config.model_channels).to(x.dtype))
+        cache = self.encode(x, emb, context) if encoder_cache is None else encoder_cache
+        out = self.decode(*cache, emb, context)
+        return (out, cache) if return_cache else out

@@ -5,7 +5,8 @@ scale == 1 -> conditional only, scale == 0 -> unconditional only, otherwise
 one model call on the concatenated ``[uncond; cond]`` batch followed by the
 guidance combine.  A Python-number scale takes the 0/1 shortcuts; a tensor
 scale (per-candidate sweeps) always runs the dual batch, whose combine is
-exact for 0 and 1 too.
+exact for 0 and 1 too.  :func:`cfg_model_fn_pair` is the same for the
+encoder-caching fast mode.
 """
 
 from __future__ import annotations
@@ -54,3 +55,38 @@ def cfg_model_fn(model_fn: ModelFn, uncond, cond, scale) -> Callable:
             x_in, t_in = dual_batch_inputs(x, t)
             return combine(model_fn(x_in, t_in, c_in))
     return fn
+
+
+def cfg_model_fn_pair(model_fn, uncond, cond, scale):
+    """CFG wrappers for the encoder-caching fast mode.
+
+    ``model_fn(x, t, cond, encoder_cache) -> (eps, cache)`` (the UNet called
+    with ``return_cache=True``).  Returns ``(key_fn, reuse_fn)`` for the
+    cached samplers: ``key_fn(x, t) -> (eps, cache)`` runs the full net,
+    ``reuse_fn(x, t, cache) -> eps`` the decoder half on the cached
+    features.  With guidance the cache holds the dual ``[uncond; cond]``
+    batch, so each branch reuses its own features; the 0/1 shortcuts and
+    ``uncond is None`` run single-batch, as :func:`cfg_model_fn` does."""
+    if uncond is None or (_is_static(scale) and scale == 1.0):
+        single = cond
+    elif _is_static(scale) and scale == 0.0:
+        single = uncond
+    else:
+        c_in, combine = make_cfg_combine(uncond, cond, scale)
+
+        def key_fn(x, t):
+            x_in, t_in = dual_batch_inputs(x, t)
+            out, cache = model_fn(x_in, t_in, c_in, None)
+            return combine(out), cache
+
+        def reuse_fn(x, t, cache):
+            x_in, t_in = dual_batch_inputs(x, t)
+            return combine(model_fn(x_in, t_in, c_in, cache)[0])
+        return key_fn, reuse_fn
+
+    def key_fn(x, t):
+        return model_fn(x, t, single, None)
+
+    def reuse_fn(x, t, cache):
+        return model_fn(x, t, single, cache)[0]
+    return key_fn, reuse_fn

@@ -3,20 +3,25 @@ of ``cyclediffusion_tpu.pipelines.factory``).
 
 ``source_*`` keys feed the source wrapper and ``target_*`` keys are renamed
 to ``source_*`` when ``target=True``; ``gan_type`` picks what is built.  This
-port builds ``SDStochasticText``:
+port builds the two text gan_types, ``SDStochasticText`` (CLIP-conditioned)
+and ``LatentDiffStochasticText`` (LDM-BERT-conditioned):
 
-* ``source_model_type = tiny*``: the CPU-runnable miniature with seeded
-  random weights (``source_init_seed``), the hashed tokenizer, and a seeded
-  miniature DirectionalCLIP scorer that is installed in ``runtime.context``
-  for the evaluators, unless one is installed already.
-* any other value: SD v1 at its published widths from the CompVis
-  checkpoint ``ckpts/stable_diffusion/<source_model_type>`` under
-  ``CYCLEDIFFUSION_CKPT_ROOT`` (default ``.``), tokenised with the CLIP BPE
-  merges file that ``CYCLEDIFFUSION_CLIP_BPE`` names; a missing file
-  raises.  The scorer is the shared one from ``runtime.context``
-  (``CYCLEDIFFUSION_CLIP_CKPT``, or one a caller installed); without it the
-  pipeline is built and its ranking raises.
+* ``source_model_type = tiny*``: the CPU-runnable miniature of that
+  conditioning with seeded random weights (``source_init_seed``), the hashed
+  tokenizer, and a seeded miniature DirectionalCLIP scorer that is installed
+  in ``runtime.context`` for the evaluators, unless one is installed already.
+* any other value: the model at its published widths from a CompVis
+  checkpoint under ``CYCLEDIFFUSION_CKPT_ROOT`` (default ``.``) — SD v1 from
+  ``ckpts/stable_diffusion/<source_model_type>``, tokenised with the CLIP
+  BPE merges file that ``CYCLEDIFFUSION_CLIP_BPE`` names; LDM text2img-large
+  (``text2img-large``, the only LDM text model) from
+  ``ckpts/ldm_models/text2img-large/model.ckpt``, tokenised with the
+  WordPiece ``vocab.txt`` that ``CYCLEDIFFUSION_BERT_VOCAB`` names.  A
+  missing file raises.  The scorer is the shared one from
+  ``runtime.context`` (``CYCLEDIFFUSION_CLIP_CKPT``, or one a caller
+  installed); without it the pipeline is built and its ranking raises.
 
+``fast_key_every`` (> 1) turns on the encoder-caching fast mode.
 ``jax_params`` (tests only) replaces either model's weights with the JAX
 pipeline's.  ``CYCLEDIFFUSION_FOLDED_ATTN`` (``qo`` or ``1``; anything else
 is off) is read here, once per build, as the JAX program reads it, and
@@ -36,19 +41,26 @@ from cyclediffusion_tpu_torch.models.clip import CLIPConfig
 from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
 from cyclediffusion_tpu_torch.pipelines.latent_text import (
     StochasticTextPipeline,
+    latentdiff_stochastic_text_pipeline,
     sd_stochastic_text_pipeline,
 )
 from cyclediffusion_tpu_torch.runtime import context
-from cyclediffusion_tpu_torch.text import CLIPBPETokenizer, HashTokenizer
+from cyclediffusion_tpu_torch.text import BertWordPieceTokenizer, CLIPBPETokenizer, HashTokenizer
 
 FOLDED_ATTN_ENV = "CYCLEDIFFUSION_FOLDED_ATTN"
 
 # gan_types of the JAX package this port does not build yet -> ROADMAP item
 _NOT_PORTED = {
     "LatentDiffStochastic": "ROADMAP §A queue item 3 (the other model families)",
-    "LatentDiffStochasticText": "ROADMAP §A queue item 3 (the other model families)",
     "DDPM_DDIM": "ROADMAP §A queue item 3 (the other model families)",
 }
+
+# gan_type -> (conditioning, pipeline constructor of the published model)
+_TEXT_GAN_TYPES = {
+    "SDStochasticText": ("clip", sd_stochastic_text_pipeline),
+    "LatentDiffStochasticText": ("bert", latentdiff_stochastic_text_pipeline),
+}
+LDM_TEXT_MODEL = "text2img-large"
 
 # the tiny pipeline's scorer: the JAX factory's miniature ViT
 TINY_CLIP = CLIPConfig(embed_dim=16, image_resolution=32, vision_width=32,
@@ -83,12 +95,30 @@ def _resolve_ckpt(path: str) -> str:
     return path if os.path.isabs(path) else os.path.join(ckpt_root(), path)
 
 
-def _clip_tokenizer() -> CLIPBPETokenizer:
-    bpe = os.environ.get("CYCLEDIFFUSION_CLIP_BPE")
-    if not bpe:
-        raise FileNotFoundError("text pipelines need the CLIP BPE merges file: set "
-                                "CYCLEDIFFUSION_CLIP_BPE to bpe_simple_vocab_16e6.txt.gz")
-    return CLIPBPETokenizer(bpe)
+def _tokenizer(cond_kind: str):
+    """The published model's tokenizer, from the file its variable names."""
+    if cond_kind == "clip":
+        bpe = os.environ.get("CYCLEDIFFUSION_CLIP_BPE")
+        if not bpe:
+            raise FileNotFoundError("SD text pipelines need the CLIP BPE merges file: set "
+                                    "CYCLEDIFFUSION_CLIP_BPE to bpe_simple_vocab_16e6.txt.gz")
+        return CLIPBPETokenizer(bpe)
+    vocab = os.environ.get("CYCLEDIFFUSION_BERT_VOCAB")
+    if not vocab:
+        raise FileNotFoundError("LDM text pipelines need the WordPiece vocab: set "
+                                "CYCLEDIFFUSION_BERT_VOCAB to bert-base-uncased's vocab.txt")
+    return BertWordPieceTokenizer(vocab)
+
+
+def _published(cond_kind: str, model_type: str):
+    """-> (spec, checkpoint path under the checkpoint root)."""
+    if cond_kind == "clip":
+        return LatentCoreSpec.sd_v1(), os.path.join("ckpts", "stable_diffusion", model_type)
+    if model_type != LDM_TEXT_MODEL:
+        raise ValueError(f"unknown LDM text model {model_type!r}: the port has "
+                         f"{LDM_TEXT_MODEL!r}")
+    return (LatentCoreSpec.ldm_text2img_large(),
+            os.path.join("ckpts", "ldm_models", model_type, "model.ckpt"))
 
 
 def _tiny_scorer(seed: int, params, device) -> DirectionalCLIP:
@@ -99,12 +129,11 @@ def _tiny_scorer(seed: int, params, device) -> DirectionalCLIP:
     return DirectionalCLIP(scorer, HashTokenizer(96, 16))
 
 
-def _build_sd_text(kwargs: dict, device, dtype, jax_params) -> StochasticTextPipeline:
+def _build_text(gan_type: str, kwargs: dict, device, dtype,
+                jax_params) -> StochasticTextPipeline:
+    cond_kind, make_pipeline = _TEXT_GAN_TYPES[gan_type]
     model_type = kwargs.pop("source_model_type")
     seed = int(kwargs.pop("source_init_seed", 0))     # tiny models only
-    if kwargs.pop("fast_key_every", None) not in (None, 0, 1):
-        raise NotImplementedError("fast mode (fast_key_every) is not ported yet: "
-                                  "ROADMAP §A queue item 2")
     pipe_kw = dict(
         custom_steps=kwargs.pop("custom_steps"),
         eta=kwargs.pop("eta"),
@@ -116,17 +145,18 @@ def _build_sd_text(kwargs: dict, device, dtype, jax_params) -> StochasticTextPip
             "decoder_unconditional_guidance_scales"),
         n_trials=kwargs.pop("n_trials"),
         candidate_chunk=kwargs.pop("candidate_chunk", None),
+        fast_key_every=kwargs.pop("fast_key_every", None),
     )
     if kwargs:
         raise ValueError(f"unused gan kwargs: {kwargs}")
     tiny = model_type.startswith("tiny")
-    spec = LatentCoreSpec.tiny() if tiny else LatentCoreSpec.sd_v1()
     if dtype is None:
         dtype = torch.bfloat16 if not tiny and torch.device(device).type == "cuda" \
             else torch.float32
     folded = folded_attn_from_env()
     jax_params = jax_params or {}
     if tiny:
+        spec = LatentCoreSpec.tiny(cond_kind)
         if "core" in jax_params:
             core = LatentDiffusionCore.from_jax_params(spec, jax_params["core"], device,
                                                        dtype, folded)
@@ -138,14 +168,15 @@ def _build_sd_text(kwargs: dict, device, dtype, jax_params) -> StochasticTextPip
             context.set_directional_clip(dclip)
         return StochasticTextPipeline(core, HashTokenizer(96, 16), dclip, **pipe_kw)
 
-    path = _resolve_ckpt(os.path.join("ckpts", "stable_diffusion", model_type))
+    spec, path = _published(cond_kind, model_type)
+    path = _resolve_ckpt(path)
     if not os.path.exists(path):
-        raise FileNotFoundError(f"SD checkpoint not found: {path} (set "
+        raise FileNotFoundError(f"{gan_type} checkpoint not found: {path} (set "
                                 "CYCLEDIFFUSION_CKPT_ROOT to the directory holding ckpts/)")
-    tokenizer = _clip_tokenizer()
+    tokenizer = _tokenizer(cond_kind)
     core = LatentDiffusionCore.from_torch_ckpt(spec, path, device, dtype, folded)
     dclip = context.get_directional_clip(required=False, device=device)
-    return sd_stochastic_text_pipeline(core, tokenizer, dclip, **pipe_kw)
+    return make_pipeline(core, tokenizer, dclip, **pipe_kw)
 
 
 def get_gan_wrapper(gan_args, target: bool = False, *, device="cuda", dtype=None,
@@ -154,13 +185,13 @@ def get_gan_wrapper(gan_args, target: bool = False, *, device="cuda", dtype=None
 
     ``jax_params`` (tests, tiny models only): ``{"core": {"unet",
     "first_stage", "cond"}, "clip": <CLIPModel tree>}`` with numpy leaves,
-    the JAX pipeline's weights.  ``dtype`` defaults to bf16 for SD v1 on
-    CUDA, fp32 otherwise.
+    the JAX pipeline's weights.  ``dtype`` defaults to bf16 for a published
+    model on CUDA, fp32 otherwise.
     """
     gan_type = dict(list(gan_args))["gan_type"]
     kwargs = _collect_kwargs(gan_args, target)
-    if gan_type == "SDStochasticText":
-        return _build_sd_text(kwargs, device, dtype, jax_params)
+    if gan_type in _TEXT_GAN_TYPES:
+        return _build_text(gan_type, kwargs, device, dtype, jax_params)
     if gan_type in _NOT_PORTED:
         raise NotImplementedError(f"gan_type {gan_type} is not ported yet: "
                                   f"{_NOT_PORTED[gan_type]}")

@@ -1,6 +1,6 @@
-"""LatentDiffusion core: UNet + KL first stage + CLIP text conditioning
-(counterpart of ``LatentCoreSpec`` / ``LatentDiffusionCore`` in
-``cyclediffusion_tpu.pipelines.latent``).
+"""LatentDiffusion core: UNet + KL first stage + text conditioning, CLIP
+(SD v1) or LDM-BERT (LDM text2img-large) (counterpart of ``LatentCoreSpec``
+/ ``LatentDiffusionCore`` in ``cyclediffusion_tpu.pipelines.latent``).
 
 The modules run in the core's dtype (bf16 on the card); the sampler around
 them stays fp32: :meth:`LatentDiffusionCore.apply_model` casts the latent
@@ -25,14 +25,20 @@ from cyclediffusion_tpu_torch.models.autoencoder import (
     DiagonalGaussian,
 )
 from cyclediffusion_tpu_torch.models.nn import fill_random_, resolve_device
-from cyclediffusion_tpu_torch.models.text_encoders import CLIPTextConfig, CLIPTextEncoder
+from cyclediffusion_tpu_torch.models.text_encoders import (
+    CLIPTextConfig,
+    CLIPTextEncoder,
+    LDMBertConfig,
+    LDMBertEncoder,
+)
 from cyclediffusion_tpu_torch.models.unet_gd import GDUNet, GDUNetConfig
 from cyclediffusion_tpu_torch.ops import schedule
 
 
 @dataclasses.dataclass(frozen=True)
 class LatentCoreSpec:
-    """One text-conditioned latent diffusion model (KL first stage, CLIP)."""
+    """One text-conditioned latent diffusion model (KL first stage; CLIP or
+    LDM-BERT conditioning, ``cond_kind`` ``"clip"`` or ``"bert"``)."""
 
     name: str
     unet: GDUNetConfig
@@ -42,7 +48,8 @@ class LatentCoreSpec:
     linear_start: float
     linear_end: float
     num_timesteps: int = 1000
-    cond_cfg: Optional[CLIPTextConfig] = None
+    cond_kind: str = "clip"
+    cond_cfg: Optional[object] = None   # CLIPTextConfig or LDMBertConfig
     resolution: int = 256          # pixel-space resolution
 
     @property
@@ -64,22 +71,44 @@ class LatentCoreSpec:
         )
 
     @staticmethod
-    def tiny(resolution: int = 32) -> "LatentCoreSpec":
-        """CPU-runnable miniature (latent 8x8) — the JAX package's
-        ``LatentCoreSpec.tiny(cond_kind="clip")``."""
+    def ldm_text2img_large() -> "LatentCoreSpec":
+        """LDM text2img-large (txt2img-1p4B-eval.yaml) at 256 px."""
         return LatentCoreSpec(
-            name="tiny_latent_clip_kl",
+            name="ldm_text2img_large", unet=GDUNetConfig.ldm_text2img_large(),
+            first_stage=DDConfig.sd_f8(), embed_dim=4,
+            scale_factor=0.18215, linear_start=0.00085, linear_end=0.012,
+            cond_kind="bert", cond_cfg=LDMBertConfig.text2img_large(),
+            resolution=256,
+        )
+
+    @staticmethod
+    def tiny(cond_kind: str = "clip", resolution: int = 32) -> "LatentCoreSpec":
+        """CPU-runnable miniature (latent 8x8) — the JAX package's
+        ``LatentCoreSpec.tiny(cond_kind=...)`` with a KL first stage."""
+        if cond_kind == "clip":
+            cond_cfg = CLIPTextConfig(vocab_size=96, hidden_size=24, num_layers=2,
+                                      num_heads=4, max_positions=16, intermediate_size=48)
+        elif cond_kind == "bert":
+            cond_cfg = LDMBertConfig(vocab_size=96, dim=24, depth=2, heads=2,
+                                     dim_head=12, max_seq_len=16)
+        else:
+            raise ValueError(f"cond_kind={cond_kind!r} is not 'clip' or 'bert'")
+        return LatentCoreSpec(
+            name=f"tiny_latent_{cond_kind}_kl",
             unet=GDUNetConfig.tiny(context_dim=24),
             first_stage=DDConfig(ch=16, ch_mult=(1, 2, 4), num_res_blocks=1,
                                  resolution=resolution, z_channels=4,
                                  double_z=True, attn_resolutions=()),
             embed_dim=4, scale_factor=0.18215,
             linear_start=0.00085, linear_end=0.012, num_timesteps=100,
-            cond_cfg=CLIPTextConfig(vocab_size=96, hidden_size=24, num_layers=2,
-                                    num_heads=4, max_positions=16,
-                                    intermediate_size=48),
-            resolution=resolution,
+            cond_kind=cond_kind, cond_cfg=cond_cfg, resolution=resolution,
         )
+
+    @property
+    def context_length(self) -> int:
+        """Tokens of the conditioning text."""
+        cfg = self.cond_cfg
+        return cfg.max_positions if self.cond_kind == "clip" else cfg.max_seq_len
 
 
 class LatentDiffusionCore:
@@ -97,7 +126,8 @@ class LatentDiffusionCore:
         with self.device:
             self.unet = GDUNet(spec.unet, folded_attn)
             self.first_stage = AutoencoderKL(spec.first_stage, spec.embed_dim)
-            self.cond_model = CLIPTextEncoder(spec.cond_cfg)
+            self.cond_model = (CLIPTextEncoder(spec.cond_cfg) if spec.cond_kind == "clip"
+                               else LDMBertEncoder(spec.cond_cfg))
         for m in self.modules():
             m.to(dtype=dtype).eval().requires_grad_(False)
 
@@ -136,15 +166,18 @@ class LatentDiffusionCore:
                         dtype=torch.float32, folded_attn: Optional[str] = None,
                         use_ema: bool = False) -> "LatentDiffusionCore":
         """Weights from a CompVis ``LatentDiffusion`` checkpoint (SD v1's
-        ``sd-v1-4.ckpt`` layout, see ``convert.from_torch``); ``use_ema``
-        takes the UNet's LitEma shadows.  Raises on a missing file, an
-        unmapped or missing key, or a shape mismatch."""
+        ``sd-v1-4.ckpt`` or LDM text2img-large's ``model.ckpt`` layout, see
+        ``convert.from_torch``); ``use_ema`` takes the UNet's LitEma
+        shadows.  Raises on a missing file, an unmapped or missing key, or a
+        shape mismatch."""
         core = cls(spec, device, dtype, folded_attn)
         sd = from_torch.load_torch_state_dict(path)
         unet_sd, fs_sd, cond_sd = from_torch.split_latent_diffusion_state(sd, use_ema)
+        convert_cond = (from_torch.convert_clip_text if spec.cond_kind == "clip"
+                        else from_torch.convert_ldm_bert)
         for module, convert, part in ((core.unet, from_torch.convert_gd_unet, unet_sd),
                                       (core.first_stage, from_torch.convert_vae, fs_sd),
-                                      (core.cond_model, from_torch.convert_clip_text, cond_sd)):
+                                      (core.cond_model, convert_cond, cond_sd)):
             module.load_state_dict(convert(part, module), strict=True)
         return core
 
@@ -171,6 +204,14 @@ class LatentDiffusionCore:
     def apply_model(self, x, t, context):
         """fp32 NHWC latent -> fp32 eps, the UNet running in the core dtype."""
         return self.unet(x.to(self.dtype), t, context.to(self.dtype)).float()
+
+    @torch.no_grad()
+    def apply_model_cached(self, x, t, context, encoder_cache=None):
+        """The fast mode's UNet call: ``(fp32 eps, cache)``; given a cache,
+        the decoder half alone runs on it (see ``GDUNet.forward``)."""
+        eps, cache = self.unet(x.to(self.dtype), t, context.to(self.dtype),
+                               encoder_cache=encoder_cache, return_cache=True)
+        return eps.float(), cache
 
     @torch.no_grad()
     def get_learned_conditioning(self, token_ids):

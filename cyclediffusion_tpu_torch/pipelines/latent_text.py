@@ -1,5 +1,6 @@
-"""Text-guided stochastic translation with SD v1 (counterpart of
-``StochasticTextPipeline`` in ``cyclediffusion_tpu.pipelines.latent_text``).
+"""Text-guided stochastic translation with SD v1 or LDM text2img-large
+(counterpart of ``StochasticTextPipeline`` in
+``cyclediffusion_tpu.pipelines.latent_text``).
 
 * ``encode(image, encode_text)`` -> z-ensemble ordered ``trial -> enc_scale
   -> skip``, each z flattened with x_T first and then each eps, every entry
@@ -18,6 +19,11 @@ always-dual-batch CFG path, as in JAX).  Chunking caps memory and changes no
 result: every candidate's noise is drawn in candidate order before the
 chunks are cut.  The VAE posterior is sampled once per image and shared by
 all chains.
+
+``fast_key_every > 1`` is the encoder-caching fast mode on both chains
+(``samplers.dpm_encode_cached`` / ``ddim_decode_cached`` through
+``ops.cfg.cfg_model_fn_pair``): the UNet's encoder half runs at every
+``fast_key_every``-th step only.  The noise draws are the exact path's.
 """
 
 from __future__ import annotations
@@ -27,9 +33,15 @@ from typing import List, Optional, Sequence
 import torch
 
 from cyclediffusion_tpu_torch.energy.clean_clip import DirectionalCLIP, normalize
-from cyclediffusion_tpu_torch.ops.cfg import cfg_model_fn
+from cyclediffusion_tpu_torch.ops.cfg import cfg_model_fn, cfg_model_fn_pair
 from cyclediffusion_tpu_torch.pipelines.latent import LatentDiffusionCore
-from cyclediffusion_tpu_torch.samplers import ddim_decode, dpm_encode, num_recovered_eps
+from cyclediffusion_tpu_torch.samplers import (
+    ddim_decode,
+    ddim_decode_cached,
+    dpm_encode,
+    dpm_encode_cached,
+    num_recovered_eps,
+)
 
 # first-stage decode runs in micro-batches of this many latents: at 512 px
 # the decoder's activations are ~0.5 GB per latent
@@ -56,6 +68,7 @@ class StochasticTextPipeline:
         decoder_unconditional_guidance_scales: Sequence[float],
         n_trials: int,
         candidate_chunk: Optional[int] = None,
+        fast_key_every: Optional[int] = None,
     ):
         if eta <= 0:
             raise ValueError("the DPM-Encoder needs eta > 0 (it divides by sigma)")
@@ -72,6 +85,7 @@ class StochasticTextPipeline:
         self.enc_scales = list(encoder_unconditional_guidance_scales)
         self.dec_scales = list(decoder_unconditional_guidance_scales)
         self.n_trials = n_trials
+        self.fast_key_every = fast_key_every
         self.sched = core.make_ddim_schedule(custom_steps, eta)
         self.resolution = core.spec.resolution
 
@@ -90,13 +104,20 @@ class StochasticTextPipeline:
         s = self.core.spec
         return (bsz, s.image_size, s.image_size, s.channels)
 
+    @property
+    def _fast(self) -> bool:
+        return (self.fast_key_every or 0) > 1
+
     def _guided(self, c_ctx, uc_ctx, scales: Sequence[float], bsz: int):
-        """CFG eps model over K candidates folded into the batch axis."""
+        """CFG eps model over K candidates folded into the batch axis: one
+        ``fn(x, t)``, or in fast mode the ``(key_fn, reuse_fn)`` pair."""
         K = len(scales)
         scale_f = torch.tensor(scales, dtype=torch.float32, device=self.core.device)
         scale_f = scale_f.repeat_interleave(bsz).reshape(K * bsz, 1, 1, 1)
-        return cfg_model_fn(self.core.apply_model, uc_ctx.repeat(K, 1, 1),
-                            c_ctx.repeat(K, 1, 1), scale_f)
+        uc, c = uc_ctx.repeat(K, 1, 1), c_ctx.repeat(K, 1, 1)
+        if self._fast:
+            return cfg_model_fn_pair(self.core.apply_model_cached, uc, c, scale_f)
+        return cfg_model_fn(self.core.apply_model, uc, c, scale_f)
 
     def _encode_chains(self, x0, c_ctx, uc_ctx, scales, noises, skip):
         """DPM-Encoder over K candidates at one skip value, candidates folded
@@ -108,10 +129,14 @@ class StochasticTextPipeline:
         xT_noise = torch.cat([xn for xn, _ in noises], dim=0)
         post = torch.stack([p for _, p in noises], dim=1).reshape(
             (n, K * B) + tuple(x0.shape[1:]))
-        xT, eps = dpm_encode(
-            self._guided(c_ctx, uc_ctx, scales, B), self.sched, x0.repeat(K, 1, 1, 1),
-            white_box_steps=self.white_box_steps, skip_steps=skip,
-            xT_noise=xT_noise, posterior_noises=post)
+        fn = self._guided(c_ctx, uc_ctx, scales, B)
+        kw = dict(white_box_steps=self.white_box_steps, skip_steps=skip,
+                  xT_noise=xT_noise, posterior_noises=post)
+        if self._fast:
+            xT, eps = dpm_encode_cached(*fn, self.sched, x0.repeat(K, 1, 1, 1),
+                                        key_every=self.fast_key_every, **kw)
+        else:
+            xT, eps = dpm_encode(fn, self.sched, x0.repeat(K, 1, 1, 1), **kw)
         xT = xT.reshape((K, B) + xT.shape[1:])
         eps = eps.reshape((n, K, B) + eps.shape[2:]).transpose(0, 1)
         return xT, eps
@@ -124,8 +149,12 @@ class StochasticTextPipeline:
         n = eps.shape[1]
         xT_f = xT.reshape((K * B,) + xT.shape[2:])
         eps_f = eps.transpose(0, 1).reshape((n, K * B) + eps.shape[3:])
-        sample = ddim_decode(self._guided(c_ctx, uc_ctx, scales, B), self.sched,
-                             xT_f, eps_f, generator, skip_steps=skip)
+        fn = self._guided(c_ctx, uc_ctx, scales, B)
+        if self._fast:
+            sample = ddim_decode_cached(*fn, self.sched, xT_f, eps_f, generator,
+                                        key_every=self.fast_key_every, skip_steps=skip)
+        else:
+            sample = ddim_decode(fn, self.sched, xT_f, eps_f, generator, skip_steps=skip)
         return sample.reshape((K, B) + sample.shape[1:])
 
     # ---- protocol ---------------------------------------------------------- #
@@ -301,6 +330,15 @@ def sd_stochastic_text_pipeline(core: LatentDiffusionCore, tokenizer,
                                 dclip: Optional[DirectionalCLIP], **kw
                                 ) -> StochasticTextPipeline:
     """The pipeline behind the ``SDStochasticText`` gan_type."""
-    if core.spec.cond_cfg is None:
+    if core.spec.cond_kind != "clip":
         raise ValueError("SDStochasticText needs a CLIP text-conditioned core")
+    return StochasticTextPipeline(core, tokenizer, dclip, **kw)
+
+
+def latentdiff_stochastic_text_pipeline(core: LatentDiffusionCore, tokenizer,
+                                        dclip: Optional[DirectionalCLIP], **kw
+                                        ) -> StochasticTextPipeline:
+    """The pipeline behind the ``LatentDiffStochasticText`` gan_type."""
+    if core.spec.cond_kind != "bert":
+        raise ValueError("LatentDiffStochasticText needs an LDM-BERT text-conditioned core")
     return StochasticTextPipeline(core, tokenizer, dclip, **kw)

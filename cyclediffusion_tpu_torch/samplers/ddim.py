@@ -1,7 +1,9 @@
-"""Latent-family DDIM sampler: DPM-Encoder and eps-replay decoding
-(counterpart of ``cyclediffusion_tpu.samplers.ddim``).
+"""Latent-family DDIM sampler: DPM-Encoder and eps-replay decoding, exact
+and with encoder caching (counterpart of ``cyclediffusion_tpu.samplers.ddim``).
 
-Each ``lax.scan`` of the JAX module is a Python loop here; the per-step
+Each ``lax.scan`` of the JAX module is a Python loop here, one loop per
+chain kind shared by the exact and the cached variant (they differ only in
+how a step's eps is computed); the per-step
 coefficients are gathered on the host into time-major tables of 0-d fp32
 tensors.  Randomness comes from an explicit ``torch.Generator``, and every
 draw can be replaced by pre-drawn noise (the seam the parity tests use to
@@ -21,6 +23,8 @@ from cyclediffusion_tpu_torch.ops.schedule import DDIMSchedule
 
 # fn(x: (B,H,W,C) fp32, t: (B,) int64) -> eps (B,H,W,C) fp32
 EpsModel = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+# step i's eps: fn(i, x, t) -> eps
+_StepFn = Callable[[int, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 class _StepTables(NamedTuple):
@@ -71,28 +75,44 @@ def num_recovered_eps(sched_steps: int, white_box_steps: int, skip_steps: int) -
     return max(0, min(refine_steps, white_box_steps - skip_steps - 1))
 
 
+def _key_schedule(n: int, key_every: int, key_steps=None) -> list:
+    """The fast mode's is-key-step mask (n bools): every ``key_every``-th
+    step, or ``key_steps``; step 0 always fills the cache."""
+    if key_steps is None:
+        key_steps = np.arange(n) % max(1, int(key_every)) == 0
+    key_steps = [bool(k) for k in np.asarray(key_steps, bool)]
+    if len(key_steps) != n:
+        raise ValueError(f"key_steps has {len(key_steps)} entries for a {n}-step chain")
+    key_steps[0] = True
+    return key_steps
+
+
+def _exact_steps(model_fn: EpsModel) -> _StepFn:
+    return lambda i, x, t: model_fn(x, t)
+
+
+def _cached_steps(model_fn_key, model_fn_reuse, is_key: list) -> _StepFn:
+    """Step i runs ``model_fn_key(x, t) -> (eps, cache)`` at a key step and
+    ``model_fn_reuse(x, t, cache) -> eps`` on the last key step's cache
+    otherwise.  Step 0 is a key step, so no cache is read before one is
+    made."""
+    cache = None
+
+    def step(i, x, t):
+        nonlocal cache
+        if is_key[i]:
+            e_t, cache = model_fn_key(x, t)
+            return e_t
+        return model_fn_reuse(x, t, cache)
+    return step
+
+
 def _t_vec(t: int, bsz: int, device) -> torch.Tensor:
     return torch.full((bsz,), t, dtype=torch.int64, device=device)
 
 
-@torch.no_grad()
-def dpm_encode(
-    model_fn: EpsModel,
-    sched: DDIMSchedule,
-    x0: torch.Tensor,
-    generator: Optional[torch.Generator] = None,
-    *,
-    white_box_steps: int,
-    skip_steps: int = 0,
-    xT_noise: Optional[torch.Tensor] = None,
-    posterior_noises: Optional[torch.Tensor] = None,
-):
-    """DPM-Encoder: recover the latent code ``z = (x_T, eps_1..eps_n)`` of x0.
-
-    Returns ``(x_T, eps)`` with ``eps`` time-major ``(n, B, H, W, C)``.
-    ``xT_noise`` (x0-shaped) and ``posterior_noises`` (eps-shaped) replace
-    the draws from ``generator``.
-    """
+def _encode_chain(step: _StepFn, sched, x0, generator, white_box_steps, skip_steps,
+                  temperature, xT_noise, posterior_noises):
     refine_steps = sched.num_steps - skip_steps
     n = num_recovered_eps(sched.num_steps, white_box_steps, skip_steps)
     if refine_steps < 1 or n < 1:
@@ -112,11 +132,81 @@ def dpm_encode(
         xt_next = steps.sample_xt_next(
             x0, xt, tb.a_t[i], tb.a_prev[i], tb.sigma[i], posterior_noises[i],
             tb.index_is_zero[i])
-        e_t = model_fn(xt, _t_vec(tb.t[i], bsz, x0.device))
+        e_t = step(i, xt, _t_vec(tb.t[i], bsz, x0.device))
         eps[i] = steps.compute_eps(
-            xt, xt_next, e_t, tb.a_t[i], tb.a_prev[i], tb.sigma[i], tb.s1ma[i])
+            xt, xt_next, e_t, tb.a_t[i], tb.a_prev[i], tb.sigma[i], tb.s1ma[i],
+            temperature)
         xt = xt_next
     return xT, eps
+
+
+def _decode_chain(step: _StepFn, sched, x_T, eps, generator, skip_steps, temperature):
+    refine_steps = sched.num_steps - skip_steps
+    if refine_steps < 1:
+        raise ValueError(f"empty chain: refine_steps={refine_steps}")
+
+    eps_full = _eps_with_fresh_tail(eps, refine_steps, x_T, generator)
+    tb = _chain_tables(sched, refine_steps, refine_steps)
+    bsz = x_T.shape[0]
+    x = x_T
+    for i in range(refine_steps):
+        e_t = step(i, x, _t_vec(tb.t[i], bsz, x.device))
+        x, _ = steps.ddim_step(
+            x, e_t, tb.a_t[i], tb.a_prev[i], tb.sigma[i], tb.s1ma[i],
+            eps_full[i], temperature)
+    return x
+
+
+@torch.no_grad()
+def dpm_encode(
+    model_fn: EpsModel,
+    sched: DDIMSchedule,
+    x0: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    *,
+    white_box_steps: int,
+    skip_steps: int = 0,
+    temperature: float = 1.0,
+    xT_noise: Optional[torch.Tensor] = None,
+    posterior_noises: Optional[torch.Tensor] = None,
+):
+    """DPM-Encoder: recover the latent code ``z = (x_T, eps_1..eps_n)`` of x0.
+
+    Returns ``(x_T, eps)`` with ``eps`` time-major ``(n, B, H, W, C)``.
+    ``xT_noise`` (x0-shaped) and ``posterior_noises`` (eps-shaped) replace
+    the draws from ``generator``.
+    """
+    return _encode_chain(_exact_steps(model_fn), sched, x0, generator, white_box_steps,
+                         skip_steps, temperature, xT_noise, posterior_noises)
+
+
+@torch.no_grad()
+def dpm_encode_cached(
+    model_fn_key,
+    model_fn_reuse,
+    sched: DDIMSchedule,
+    x0: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    *,
+    white_box_steps: int,
+    key_every: int,
+    skip_steps: int = 0,
+    temperature: float = 1.0,
+    xT_noise: Optional[torch.Tensor] = None,
+    posterior_noises: Optional[torch.Tensor] = None,
+    key_steps=None,
+):
+    """:func:`dpm_encode` with encoder-feature caching, the fast mode's
+    encode side.  The trajectory never reads the model's output, so x_T and
+    every visited x_t are exact; only the eps recovered at non-key steps
+    come from the decoder half on cached features.  Model functions and
+    ``key_steps`` as in :func:`ddim_decode_cached`; the same draws as
+    :func:`dpm_encode`."""
+    n = num_recovered_eps(sched.num_steps, white_box_steps, skip_steps)
+    step = _cached_steps(model_fn_key, model_fn_reuse,
+                         _key_schedule(max(n, 1), key_every, key_steps))
+    return _encode_chain(step, sched, x0, generator, white_box_steps, skip_steps,
+                         temperature, xT_noise, posterior_noises)
 
 
 @torch.no_grad()
@@ -128,22 +218,40 @@ def ddim_decode(
     generator: Optional[torch.Generator] = None,
     *,
     skip_steps: int = 0,
+    temperature: float = 1.0,
 ):
     """Replay a DDIM chain from ``x_T`` consuming stored eps per step
     (``eps`` time-major ``(n, B, H, W, C)``, or None for plain sampling);
     steps past ``n`` draw fresh noise from ``generator``.  Returns the final
     sample (x at index 0)."""
-    refine_steps = sched.num_steps - skip_steps
-    if refine_steps < 1:
-        raise ValueError(f"empty chain: refine_steps={refine_steps}")
+    return _decode_chain(_exact_steps(model_fn), sched, x_T, eps, generator, skip_steps,
+                         temperature)
 
-    eps_full = _eps_with_fresh_tail(eps, refine_steps, x_T, generator)
-    tb = _chain_tables(sched, refine_steps, refine_steps)
-    bsz = x_T.shape[0]
-    x = x_T
-    for i in range(refine_steps):
-        e_t = model_fn(x, _t_vec(tb.t[i], bsz, x.device))
-        x, _ = steps.ddim_step(
-            x, e_t, tb.a_t[i], tb.a_prev[i], tb.sigma[i], tb.s1ma[i],
-            eps_full[i])
-    return x
+
+@torch.no_grad()
+def ddim_decode_cached(
+    model_fn_key,
+    model_fn_reuse,
+    sched: DDIMSchedule,
+    x_T: torch.Tensor,
+    eps: Optional[torch.Tensor],
+    generator: Optional[torch.Generator] = None,
+    *,
+    key_every: int,
+    skip_steps: int = 0,
+    temperature: float = 1.0,
+    key_steps=None,
+):
+    """:func:`ddim_decode` with encoder-feature caching (Faster Diffusion,
+    arXiv 2312.09608), the fast mode's decode side.
+
+    At key steps ``model_fn_key(x, t) -> (eps, cache)`` runs the full UNet
+    and keeps its encoder features; at the others ``model_fn_reuse(x, t,
+    cache) -> eps`` runs the decoder half on them with the current
+    timestep.  Key steps are every ``key_every``-th step (``key_every=1``:
+    every step, the exact chain) unless ``key_steps`` (bools, one per step)
+    says otherwise; step 0 is always one."""
+    step = _cached_steps(model_fn_key, model_fn_reuse,
+                         _key_schedule(max(sched.num_steps - skip_steps, 1), key_every,
+                                       key_steps))
+    return _decode_chain(step, sched, x_T, eps, generator, skip_steps, temperature)

@@ -1,4 +1,8 @@
 """Host-side text tokenization for the text conditioning and the CLIP
 scorer."""
 
-from cyclediffusion_tpu_torch.text.tokenizer import CLIPBPETokenizer, HashTokenizer  # noqa: F401
+from cyclediffusion_tpu_torch.text.tokenizer import (  # noqa: F401
+    BertWordPieceTokenizer,
+    CLIPBPETokenizer,
+    HashTokenizer,
+)

@@ -4,10 +4,12 @@
   ``clip.tokenize``: the SD conditioning text encoder and the ViT-B/32
   scorer both read its ids.  Needs the standard
   ``bpe_simple_vocab_16e6.txt.gz`` merges file.
+* :class:`BertWordPieceTokenizer` — bert-base-uncased's WordPiece, as the
+  LDM text2img-large conditioning reads it.  Needs the ``vocab.txt`` file.
 * :class:`HashTokenizer` — a hashed vocabulary for runs without vocab
   assets: stable ids across processes, no linguistic meaning.
 
-Both give the same ids as the JAX package's classes of the same names.
+All give the same ids as the JAX package's classes of the same names.
 """
 
 from __future__ import annotations
@@ -135,6 +137,71 @@ class CLIPBPETokenizer:
                 toks = toks[:self.context_length]
                 toks[-1] = self.eot
             out[i, :len(toks)] = toks
+        return out
+
+
+class BertWordPieceTokenizer:
+    """Lowercasing basic tokenizer + WordPiece (``##`` continuation pieces,
+    a word with an unmatched piece is ``[UNK]``), ``[CLS] ... [SEP]``,
+    truncated to ``max_length`` and padded with ``[PAD]``: HF's
+    ``BertTokenizerFast`` with ``padding="max_length"``, as the reference's
+    ``BERTTokenizer`` calls it."""
+
+    def __init__(self, vocab_path: str, max_length: int = 77):
+        if not os.path.exists(vocab_path):
+            raise FileNotFoundError(
+                f"BERT vocab.txt not found: {vocab_path}. Provide the "
+                "bert-base-uncased vocab asset (see README).")
+        self.max_length = max_length
+        with open(vocab_path, encoding="utf-8") as f:
+            tokens = [line.rstrip("\n") for line in f]
+        self.vocab = {t: i for i, t in enumerate(tokens)}
+        self.cls = self.vocab["[CLS]"]
+        self.sep = self.vocab["[SEP]"]
+        self.pad = self.vocab["[PAD]"]
+        self.unk = self.vocab["[UNK]"]
+        self.vocab_size = len(self.vocab)
+
+    @staticmethod
+    def _basic(text: str) -> List[str]:
+        """Lowercased words, each punctuation character a word of its own."""
+        text = text.lower().strip()
+        text = re.sub(r"([^\w\s])", r" \1 ", text)
+        return text.split()
+
+    def _wordpiece(self, word: str) -> List[int]:
+        if word in self.vocab:
+            return [self.vocab[word]]
+        ids: List[int] = []
+        start = 0
+        while start < len(word):
+            end = len(word)
+            cur = None
+            while start < end:
+                sub = word[start:end]
+                if start > 0:
+                    sub = "##" + sub
+                if sub in self.vocab:
+                    cur = self.vocab[sub]
+                    break
+                end -= 1
+            if cur is None:
+                return [self.unk]
+            ids.append(cur)
+            start = end
+        return ids
+
+    def __call__(self, texts: Sequence[str] | str) -> np.ndarray:
+        """``(len(texts), max_length)`` int32 token ids."""
+        if isinstance(texts, str):
+            texts = [texts]
+        out = np.full((len(texts), self.max_length), self.pad, dtype=np.int32)
+        for i, text in enumerate(texts):
+            ids: List[int] = []
+            for w in self._basic(text):
+                ids.extend(self._wordpiece(w))
+            ids = [self.cls] + ids[:self.max_length - 2] + [self.sep]
+            out[i, :len(ids)] = ids
         return out
 
 

@@ -1,19 +1,27 @@
-"""Synthetic Stable Diffusion v1 assets in the layouts the port reads, for
-tests and smoke runs where the real files are absent.
+"""Synthetic text-conditioned latent-diffusion assets (Stable Diffusion v1,
+LDM text2img-large) in the layouts the port reads, for tests and smoke runs
+where the real files are absent.
 
-* :func:`compvis_state_dict` / :func:`write_sd_checkpoint`: a core's weights
-  under CompVis's ``LatentDiffusion`` names (``model.diffusion_model.*``,
-  ``first_stage_model.*``, ``cond_stage_model.transformer.text_model.*`` with
-  HF's CLIP names), saved as ``{"state_dict": ...}`` in the core's dtype:
-  the inverse of ``convert.from_torch``.
+* :func:`compvis_state_dict` / :func:`write_compvis_checkpoint`: a core's
+  weights under CompVis's ``LatentDiffusion`` names
+  (``model.diffusion_model.*``, ``first_stage_model.*``, and the cond stage:
+  SD's ``cond_stage_model.transformer.text_model.*`` with HF's CLIP names,
+  or text2img-large's x-transformer ``cond_stage_model.transformer.*`` with
+  its unused ``to_logits`` head, zeros), saved as ``{"state_dict": ...}`` in
+  the core's dtype: the inverse of ``convert.from_torch``.
 * :func:`write_bpe_merges`: a short CLIP BPE merges file (the tokenizer takes
   short files).
+* :func:`write_bert_vocab`: a short WordPiece ``vocab.txt`` with
+  bert-base-uncased's special-token ids, covering given texts without
+  ``[UNK]`` (long words as a stem and a ``##`` piece).
 * :func:`seeded_scorer`: a DirectionalCLIP with a seeded random ViT-B/32 at
   its published widths.
 
-The factory finds the checkpoint at ``<root>/ckpts/stable_diffusion/<name>``
-with ``CYCLEDIFFUSION_CKPT_ROOT=<root>`` and the merges file through
-``CYCLEDIFFUSION_CLIP_BPE``; install the scorer with
+The factory finds an SD checkpoint at ``<root>/ckpts/stable_diffusion/<name>``
+and text2img-large's at ``<root>/ckpts/ldm_models/text2img-large/model.ckpt``
+with ``CYCLEDIFFUSION_CKPT_ROOT=<root>``, the merges file through
+``CYCLEDIFFUSION_CLIP_BPE`` and the vocab through
+``CYCLEDIFFUSION_BERT_VOCAB``; install the scorer with
 ``runtime.context.set_directional_clip``.
 """
 
@@ -21,7 +29,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Dict
+from typing import Dict, Iterable
 
 import torch
 
@@ -32,6 +40,7 @@ from cyclediffusion_tpu_torch.convert.from_torch import (
 )
 
 CLIP_TEXT_PREFIX = COND_PREFIX + "transformer.text_model."
+BERT_PREFIX = COND_PREFIX + "transformer."
 
 # port CLIPTextEncoder name -> HF CLIPTextModel name
 _HF_NAMES = (
@@ -54,19 +63,41 @@ def hf_clip_text_name(port_name: str) -> str:
     return port_name
 
 
+def compvis_bert_name(port_name: str) -> str:
+    """A port ``LDMBertEncoder`` name -> its x-transformer name (attention
+    and feed-forward layers alternate: layer j's are 2j and 2j+1)."""
+    if port_name == "pos_emb":
+        return "pos_emb.emb.weight"
+    m = re.match(r"^(attn_norm|attn|ff_norm|ff_in|ff_out)\.(\d+)\.(.+)$", port_name)
+    if not m:
+        return port_name
+    kind, j, leaf = m.group(1), int(m.group(2)), m.group(3)
+    layer = 2 * j + kind.startswith("ff")
+    slot = {"attn_norm": "0", "attn": "1", "ff_norm": "0", "ff_in": "1.net.0.0",
+            "ff_out": "1.net.2"}[kind]
+    return f"attn_layers.layers.{layer}.{slot}.{leaf}"
+
+
 def compvis_state_dict(core) -> Dict[str, torch.Tensor]:
     """A ``LatentDiffusionCore``'s weights (on the CPU, in its dtype) under
-    CompVis / HF names, with HF's ``position_ids`` buffer."""
+    CompVis names: with HF's CLIP names and ``position_ids`` buffer, or the
+    x-transformer's names and a zero ``to_logits`` head."""
     sd = {UNET_PREFIX + k: v for k, v in core.unet.state_dict().items()}
     sd.update({FIRST_STAGE_PREFIX + k: v for k, v in core.first_stage.state_dict().items()})
-    sd.update({CLIP_TEXT_PREFIX + hf_clip_text_name(k): v
-               for k, v in core.cond_model.state_dict().items()})
-    sd[CLIP_TEXT_PREFIX + "embeddings.position_ids"] = torch.arange(
-        core.spec.cond_cfg.max_positions)[None]
+    cond = core.cond_model.state_dict()
+    if core.spec.cond_kind == "clip":
+        sd.update({CLIP_TEXT_PREFIX + hf_clip_text_name(k): v for k, v in cond.items()})
+        sd[CLIP_TEXT_PREFIX + "embeddings.position_ids"] = torch.arange(
+            core.spec.cond_cfg.max_positions)[None]
+    else:
+        sd.update({BERT_PREFIX + compvis_bert_name(k): v for k, v in cond.items()})
+        emb = cond["token_emb.weight"]
+        sd[BERT_PREFIX + "to_logits.weight"] = torch.zeros_like(emb, device="cpu")
+        sd[BERT_PREFIX + "to_logits.bias"] = torch.zeros(emb.shape[0], dtype=emb.dtype)
     return {k: v.detach().cpu() for k, v in sd.items()}
 
 
-def write_sd_checkpoint(core, path: str) -> int:
+def write_compvis_checkpoint(core, path: str) -> int:
     """``{"state_dict": compvis_state_dict(core)}`` -> ``path``; returns its bytes."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     torch.save({"state_dict": compvis_state_dict(core)}, path)
@@ -77,6 +108,34 @@ def write_bpe_merges(path: str) -> str:
     with open(path, "w", encoding="utf-8") as f:
         f.write(MERGES)
     return path
+
+
+# bert-base-uncased's special tokens sit at these ids; [unused*] fill 1-99
+BERT_SPECIALS = {0: "[PAD]", 100: "[UNK]", 101: "[CLS]", 102: "[SEP]", 103: "[MASK]"}
+
+
+def write_bert_vocab(path: str, texts: Iterable[str]) -> str:
+    """A WordPiece ``vocab.txt`` under which every text of ``texts``
+    tokenises without ``[UNK]``: the special tokens at bert-base-uncased's
+    ids, then each word of the texts, a word longer than 6 characters as its
+    first 4 and a ``##`` piece of the rest (whole where that would not
+    tokenise back), and ``.``/``,`` and the like as their own tokens."""
+    from cyclediffusion_tpu_torch.text.tokenizer import BertWordPieceTokenizer
+
+    words = sorted({w for text in texts for w in BertWordPieceTokenizer._basic(text)})
+    tokens = [BERT_SPECIALS.get(i, f"[unused{i - 1}]") for i in range(104)]
+    for w in words:
+        for piece in ([w[:4], "##" + w[4:]] if len(w) > 6 else [w]):
+            if piece not in tokens:
+                tokens.append(piece)
+    while True:     # a word that a longer prefix captures is added whole
+        with open(path, "w", encoding="utf-8") as f:
+            f.write("\n".join(tokens) + "\n")
+        tok = BertWordPieceTokenizer(path)
+        missing = [w for w in words if tok.unk in tok._wordpiece(w)]
+        if not missing:
+            return path
+        tokens += missing
 
 
 def seeded_scorer(seed: int, tokenizer, device="cuda"):

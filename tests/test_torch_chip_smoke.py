@@ -159,3 +159,118 @@ def test_expected_cli_files_are_what_the_cli_writes(smoke, tmp_path):
     files = sorted(os.path.relpath(os.path.join(d, f), out)
                    for d, _, fs in os.walk(out) for f in fs)
     assert files == sorted(smoke.expected_cli_files(2))
+
+
+@pytest.mark.parametrize("chunk", [None, 3])
+@pytest.mark.parametrize("key_every", [None, 2, 3])
+def test_expected_calls_by_kind_counts_key_and_reuse_calls(smoke, key_every, chunk):
+    """Phase 8's expected UNet calls by kind equal what encode + generate
+    run on the tiny pipeline: exact calls, or with ``fast_key_every`` the
+    key calls (every k-th step of each chain, its first included) and the
+    reuse calls."""
+    import torch
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
+    from cyclediffusion_tpu_torch.pipelines.latent_text import StochasticTextPipeline
+    from cyclediffusion_tpu_torch.samplers import num_recovered_eps
+    from cyclediffusion_tpu_torch.text import HashTokenizer
+
+    core = LatentDiffusionCore.random_init(LatentCoreSpec.tiny(), device="cpu")
+    pipe = StochasticTextPipeline(
+        core, HashTokenizer(96, 16), custom_steps=5, eta=0.1, white_box_steps=5,
+        skip_steps=[0, 2], encoder_unconditional_guidance_scales=[1],
+        decoder_unconditional_guidance_scales=[1, 3], n_trials=2, candidate_chunk=chunk,
+        fast_key_every=key_every)
+    calls = {"full": 0, "key": 0, "reuse": 0}
+    apply_model, apply_model_cached = core.apply_model, core.apply_model_cached
+
+    def counted(*a):
+        calls["full"] += 1
+        return apply_model(*a)
+
+    def counted_cached(x, t, c, encoder_cache=None):
+        calls["key" if encoder_cache is None else "reuse"] += 1
+        return apply_model_cached(x, t, c, encoder_cache)
+
+    core.apply_model, core.apply_model_cached = counted, counted_cached
+    gen = torch.Generator().manual_seed(0)
+    z = pipe.encode(torch.rand(1, 32, 32, 3), ["a cat"], gen)
+    pipe.generate(z, ["a dog"], gen)
+    assert calls == smoke.expected_calls_by_kind(pipe, num_recovered_eps)
+    assert sum(calls.values()) == smoke.expected_unet_calls(pipe, num_recovered_eps)
+    assert (calls["full"] > 0) == (key_every is None) and (calls["reuse"] > 0) != (
+        key_every is None)
+
+
+@pytest.mark.parametrize("name,full,reuse", [
+    ("sd_v1", (5, 5), (3, 3)),
+    ("ldm_text2img_large", (5, 0), (3, 0)),
+])
+def test_launches_per_call_at_the_published_widths(smoke, name, full, reuse):
+    """K1/K2 launches per UNet call by kind: SD v1's 64x64 level (4096
+    tokens, K2) and 32x32 level (1024, K1), 5 transformers each of which the
+    decoder half holds 3; LDM text2img-large's 32x32 latent puts its 1024
+    tokens at ds 1 through K1 and nothing through K2."""
+    from cyclediffusion_tpu_torch.ops.flash_attention import attention_route
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec
+
+    spec = getattr(LatentCoreSpec, name)()
+    for want, is_reuse in ((full, False), (reuse, True)):
+        got = smoke.launches_per_call(spec, attention_route, reuse=is_reuse)
+        assert (got["flash_attention_bhtd"], got["flash_attention_packed"]) == want
+
+
+@pytest.mark.parametrize("reuse", [False, True])
+def test_launches_per_call_counts_the_unets_self_attention(smoke, reuse, monkeypatch):
+    """The helper's count equals the routed self-attention calls of a real
+    (tiny) UNet call, full or on a cache, under a route that sends each of
+    the tiny UNet's self-attention token counts (64 at ds 1, 16 at ds 2) to
+    a kernel."""
+    import torch
+    from cyclediffusion_tpu_torch.ops import flash_attention as fa
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
+
+    def route(tq, tk):
+        return {64: "packed", 16: "bhtd"}.get(tq, "plain") if tq == tk else "plain"
+
+    spec = LatentCoreSpec.tiny()
+    core = LatentDiffusionCore.random_init(spec, device="cpu")
+    # a 12-token context: no cross-attention has as many keys as queries
+    x, ctx = torch.randn(2, 8, 8, 4), torch.randn(2, 12, 24)
+    t = torch.tensor([3, 4])
+    _, cache = core.apply_model_cached(x, t, ctx)
+    seen = {"flash_attention_bhtd": 0, "flash_attention_packed": 0}
+
+    def recording(tq, tk):
+        r = route(tq, tk)
+        if r != "plain":
+            seen[smoke.ROUTE_KERNELS[r]] += 1
+        return r
+
+    monkeypatch.setattr(fa, "attention_route", recording)
+    core.apply_model_cached(x, t, ctx, cache if reuse else None)
+    assert seen == smoke.launches_per_call(spec, route, reuse=reuse)
+    assert seen["flash_attention_packed"] and seen["flash_attention_bhtd"]
+
+
+@pytest.mark.parametrize("cfg_name,model_type,fast", [
+    ("FAST_CLI_CFG", "sd-v1-4.ckpt", 2),
+    ("LDM_CLI_CFG", "text2img-large", None),
+])
+def test_cut_configs_of_the_fast_and_ldm_phases(smoke, tmp_path, cfg_name, model_type, fast):
+    """Phases 8 and 9 cut the shipped fast-mode SD and LDM text2img-large
+    experiments with phase 7's ``CLI_CUTS``; the model, the fast mode and
+    the task stay as shipped."""
+    from cyclediffusion_tpu_torch.runtime.config import config_root, get_config
+
+    name = getattr(smoke, cfg_name)
+    with open(os.path.join(config_root(), name)) as f:
+        text = f.read()
+    path = tmp_path / "cut.cfg"
+    path.write_text(smoke.cut_config(text, smoke.CLI_CUTS))
+    cut, full = get_config(str(path)), get_config(name)
+    assert (cut.gan.custom_steps, cut.gan.white_box_steps, cut.gan.skip_steps) == (50, 51, [25])
+    assert cut.gan.decoder_unconditional_guidance_scales == [1, 5]
+    assert cut.raw_data.range == [4, 6] and cut.gan.candidate_chunk == 4
+    assert cut.gan.source_model_type == model_type
+    assert getattr(cut.gan, "fast_key_every", None) == fast
+    assert cut.arg_paths.to_dict() == full.arg_paths.to_dict()

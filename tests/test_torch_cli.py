@@ -97,9 +97,12 @@ def test_config_root_is_packaged(monkeypatch):
     assert get_config("experiments/tiny_text_translation_fast.cfg").gan.fast_key_every == 2
 
 
-@pytest.mark.parametrize("name", [f"translate_text2img256_stable_diffusion_stochastic_{i}"
+@pytest.mark.parametrize("name", [f"translate_text2img256_{family}_stochastic_{i}"
+                                  for family in ("stable_diffusion", "latentdiff")
                                   for i in list(range(1, 9)) + ["full"]]
-                         + ["tiny_text_translation"])
+                         + ["translate_text2img256_stable_diffusion_stochastic_fast",
+                            "tiny_text_translation", "tiny_text_translation_latent",
+                            "tiny_text_translation_fast"])
 def test_packaged_configs_equal_the_jax_packages(name):
     """Every value of the port's copy equals the JAX package's config."""
     from cyclediffusion_tpu.runtime.config import get_config as jget_config

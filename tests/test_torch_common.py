@@ -71,7 +71,8 @@ def test_fill_flax_tree_draws_every_leaf():
 def test_port_imports_without_jax():
     """Every module of the port imports with jax and flax made unimportable
     (the card's machine has neither), and with PIL, cv2 and pandas too
-    (that machine does not promise them); none pulls in the JAX package."""
+    (that machine does not promise them); none pulls in the JAX package.
+    The fast mode's and LDM-BERT's entry points import too."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -91,7 +92,15 @@ def test_port_imports_without_jax():
         "        'data.preprocess.translate_text256', 'data.preprocess.tiny_text',\n"
         "        'data.preprocess.to_model', 'evaluation.utils', 'evaluation.translate_text',\n"
         "        'evaluation.multi_task', 'evaluation.empty', 'visualization.multi_image',\n"
-        "        'tools.sd_assets'}\n"
+        "        'tools.sd_assets', 'samplers.ddim', 'ops.cfg', 'models.text_encoders',\n"
+        "        'models.unet_gd', 'pipelines.latent', 'convert.from_torch'}\n"
+        "from cyclediffusion_tpu_torch.samplers import dpm_encode_cached, ddim_decode_cached\n"
+        "from cyclediffusion_tpu_torch.ops.cfg import cfg_model_fn_pair\n"
+        "from cyclediffusion_tpu_torch.models.text_encoders import LDMBertEncoder\n"
+        "from cyclediffusion_tpu_torch.text import BertWordPieceTokenizer\n"
+        "from cyclediffusion_tpu_torch.convert.from_torch import convert_ldm_bert\n"
+        "from cyclediffusion_tpu_torch.pipelines.latent_text import (\n"
+        "    latentdiff_stochastic_text_pipeline)\n"
         "missing = {w for w in want if 'cyclediffusion_tpu_torch.' + w not in names}\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules"

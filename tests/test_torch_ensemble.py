@@ -232,13 +232,44 @@ def test_factory_reads_the_folded_attn_env(monkeypatch):
     context.reset()
 
 
-@pytest.mark.parametrize("gan_type", ["LatentDiffStochastic", "LatentDiffStochasticText",
-                                      "DDPM_DDIM", "Unknown"])
+@pytest.mark.parametrize("gan_type", ["LatentDiffStochastic", "DDPM_DDIM", "Unknown"])
 def test_factory_refuses_other_gan_types(gan_type):
     gan = [("gan_type", gan_type), ("source_model_type", "tiny")]
     with pytest.raises(ValueError if gan_type == "Unknown" else NotImplementedError,
-                       match=gan_type if gan_type == "Unknown" else "ROADMAP"):
+                       match=gan_type if gan_type == "Unknown" else "ROADMAP §A queue item 3"):
         factory.get_gan_wrapper(gan, device="cpu")
+
+
+LDM_CFG = "experiments/translate_text2img256_latentdiff_stochastic_1.cfg"
+
+
+@pytest.mark.parametrize("case", ["tiny", "no checkpoint", "no vocab variable", "no vocab file"])
+def test_factory_builds_latentdiff_stochastic_text(case, tmp_path, monkeypatch):
+    """``LatentDiffStochasticText`` is built: the tiny LDM-BERT pipeline, or
+    text2img-large, which needs its checkpoint under the checkpoint root
+    and the WordPiece vocab that ``CYCLEDIFFUSION_BERT_VOCAB`` names."""
+    context.reset()
+    if case == "tiny":
+        pipe = factory.get_gan_wrapper(
+            get_config("experiments/tiny_text_translation_latent.cfg").gan, device="cpu")
+        assert pipe.core.spec.cond_kind == "bert" and pipe.fast_key_every is None
+        assert type(pipe.core.cond_model).__name__ == "LDMBertEncoder"
+        assert pipe.tokenizer(["a cat"]).shape == (1, 16)
+        context.reset()
+        return
+    ckpt = tmp_path / "ckpts" / "ldm_models" / "text2img-large" / "model.ckpt"
+    monkeypatch.setenv("CYCLEDIFFUSION_CKPT_ROOT", str(tmp_path))
+    monkeypatch.setenv("CYCLEDIFFUSION_BERT_VOCAB", str(tmp_path / "vocab.txt"))
+    if case != "no checkpoint":
+        ckpt.parent.mkdir(parents=True)
+        ckpt.write_bytes(b"")   # found; the tokenizer is checked before it is read
+    if case == "no vocab variable":
+        monkeypatch.delenv("CYCLEDIFFUSION_BERT_VOCAB")
+    match = {"no checkpoint": str(ckpt).replace(".", r"\."),
+             "no vocab variable": "CYCLEDIFFUSION_BERT_VOCAB",
+             "no vocab file": "vocab.txt not found"}[case]
+    with pytest.raises(FileNotFoundError, match=match):
+        factory.get_gan_wrapper(get_config(LDM_CFG).gan, device="cpu")
 
 
 def test_config_reader_matches_jax():

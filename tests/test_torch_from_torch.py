@@ -35,7 +35,7 @@ def written(tmp_path_factory):
     """(the seeded port core, the path of its CompVis checkpoint)."""
     core = LatentDiffusionCore.random_init(LatentCoreSpec.tiny(), seed=5, device="cpu")
     path = str(tmp_path_factory.mktemp("ckpt") / "tiny.ckpt")
-    assert sd_assets.write_sd_checkpoint(core, path) > 0
+    assert sd_assets.write_compvis_checkpoint(core, path) > 0
     return core, path
 
 
