@@ -13,13 +13,15 @@ Phases (each prints its results; any failure exits non-zero):
    and, from ``cuobjdump -sass``, the count of Hopper's tensor-core
    (``HGMMA``) and TMA-load (``UTMALDG``) instructions in the bf16 wgmma
    kernels: the attention kernel in both libraries (K1/K2, and K3/K4's
-   attention step; 3 head dims each) and the folded library's projection
+   attention step; 4 head dims each, 32 to 80) and the folded library's projection
    kernel (7 widths K), which must have both and spill nothing; ptxas may
    not fence their products (warning C7519).
 3. Kernel against plain: each of the four kernels (K1, K2 flash attention;
    K3, K4 folded self-attention) and its plain PyTorch version on the same
    inputs, at the main-path shapes in bf16 (and K2 at the encode chain's
-   batch 2, K1 at LDM text2img-large's 32x32 level, d = 40), at ragged
+   batch 2, K1 at LDM text2img-large's 32x32 level, d = 40, and at the
+   FFHQ/CelebA LDM's, d = 32 over 14 heads, head views of token-major
+   tensors, also in fp32), at ragged
    shapes (K1/K2 at every supported head dim, in bf16 and fp32, the
    sequence lengths off the kernel's 128-row tiles, one key axis shorter
    than a tile; K3/K4 off the tiles in bf16), and in fp32 with TF32 off;
@@ -67,6 +69,14 @@ Phases (each prints its results; any failure exits non-zero):
    ``main`` on a cut ``..._latentdiff_stochastic_1.cfg`` (5 K1 launches at
    d = 40 per UNet call, no K2-K4); the batch-4 UNet step eager and
    graph-replayed, beside SD v1's in turns.
+10. Unpaired translation, FFHQ -> CelebA-HQ (``LatentDiffStochastic``) at
+   the published widths (UNet 274,056,163 params, VQ-f4 55,322,782): two
+   seeded CompVis ``use_ema`` checkpoints (distinct raw UNet and EMA
+   shadows) loaded bit for bit through the factory, three synthetic 1024 px
+   FFHQ PNGs, ``main`` on the cut shipped experiment at batch 3 (100 encode
+   + 100 replay + 40 refine UNet calls, 5 K1 launches at d = 32 each, none
+   of K2-K4), an fp32 round trip on the latent (bounded at 50 steps as
+   phase 5's, read at 100), the batch-3 UNet step eager and graph-replayed.
 
 Each phase prints its peak device memory.  The last three lines of output
 are the card's name and power limit, the kernels' JSON record and the
@@ -117,8 +127,8 @@ EXP_RATE = 3.9e12
 # name, instantiations); the folded library carries its own copy of the
 # attention kernel
 SASS_KERNELS = {
-    "libflash_attention": (("flash_fwd_bf16_kernel", 3),),
-    "libfolded_attention": (("flash_fwd_bf16_kernel", 3), ("linear_bf16_kernel", 7)),
+    "libflash_attention": (("flash_fwd_bf16_kernel", 4),),
+    "libfolded_attention": (("flash_fwd_bf16_kernel", 4), ("linear_bf16_kernel", 7)),
 }
 
 KERNELS = {  # name -> (id, source under the repo, the TPU kernel it replaces)
@@ -283,8 +293,10 @@ def phase_kernels(torch, fa):
         ("flash_attention_bhtd", (2, 3, 300, 333, 40)),
         ("flash_attention_bhtd", (1, 2, 200, 77, 64)),
         ("flash_attention_bhtd", (2, 2, 333, 515, 80)),
+        ("flash_attention_bhtd", (2, 14, 300, 333, 32)),
         ("flash_attention_packed", (2, 300, 200, 4, 64)),
         ("flash_attention_packed", (2, 1000, 1100, 8, 40)),
+        ("flash_attention_packed", (2, 300, 200, 14, 32)),
     ]
     cases = [
         ("flash_attention_packed", "main path", bf16, (4, 4096, 4096, 8, 40)),
@@ -293,11 +305,13 @@ def phase_kernels(torch, fa):
         ("fused_self_attention_block", "main path", bf16, (4, 4096, 320, 8)),
         ("flash_attention_packed", "encode chain", bf16, (2, 4096, 4096, 8, 40)),
         ("flash_attention_bhtd", "ldm 32x32", bf16, (4, 8, 1024, 1024, 40)),
+        ("flash_attention_bhtd", "ffhq 32x32", bf16, (3, 14, 1024, 1024, 32)),
         *[(name, "ragged", dtype, shp) for dtype in (bf16, f32) for name, shp in ragged_flash],
         ("qout_self_attention_block", "ragged", bf16, (2, 300, 200, 256, 4)),
         ("fused_self_attention_block", "ragged", bf16, (2, 300, 256, 4)),
         ("flash_attention_packed", "sd 64x64", f32, (2, 4096, 4096, 8, 40)),
         ("flash_attention_bhtd", "sd 32x32", f32, (2, 8, 1024, 1024, 80)),
+        ("flash_attention_bhtd", "ffhq 32x32", f32, (3, 14, 1024, 1024, 32)),
         ("qout_self_attention_block", "sd 64x64", f32, (2, 4096, 4096, 320, 8)),
         ("fused_self_attention_block", "sd 64x64", f32, (2, 4096, 320, 8)),
         # K3/K4's projection kernel alone, (M, N, K, bias): q with the bias
@@ -318,7 +332,10 @@ def phase_kernels(torch, fa):
                                         heads(k, h), heads(v, h))
         elif name == "flash_attention_bhtd":
             b, h, tq, tk, d = shp
-            q, k, v = rand((b, h, tq, d), dtype), rand((b, h, tk, d), dtype), rand((b, h, tk, d), dtype)
+            if label == "ffhq 32x32":   # as the UNet hands them: head views of (B, T, H*d)
+                q, k, v = (heads(rand((b, t, h * d), dtype), h) for t in (tq, tk, tk))
+            else:
+                q, k, v = (rand((b, h, t, d), dtype) for t in (tq, tk, tk))
             kernel = functools.partial(fa.flash_attention_bhtd, q, k, v, d ** -0.5)
             plain = functools.partial(fa.attention_reference, q, k, v, d ** -0.5)
             library = functools.partial(F.scaled_dot_product_attention, q, k, v)
@@ -580,11 +597,15 @@ def cut_config(text: str, cuts: dict) -> str:
     return "\n".join(out) + "\n"
 
 
-def expected_cli_files(n_samples: int) -> list:
-    """The files an eval run of the CLI writes under its output directory."""
-    return (["all_results.json", "eval_results.csv", "eval_results.json"]
-            + [f"temp_gen/{i}.png" for i in range(n_samples)]
-            + ["visualization/eval_000000.png", "visualization/eval_256_000000.png"])
+def expected_cli_files(n_samples: int, per_sample: bool = True) -> list:
+    """The files an eval run of the CLI writes under its output directory;
+    without ``per_sample`` (the ``empty`` task evaluator of the unpaired
+    experiments) no CSV and no sample PNGs."""
+    files = ["all_results.json", "eval_results.json",
+             "visualization/eval_000000.png", "visualization/eval_256_000000.png"]
+    if per_sample:
+        files += ["eval_results.csv"] + [f"temp_gen/{i}.png" for i in range(n_samples)]
+    return sorted(files)
 
 
 def chain_lengths(pipe, num_recovered_eps) -> list:
@@ -625,12 +646,14 @@ ROUTE_KERNELS = {"bhtd": "flash_attention_bhtd", "packed": "flash_attention_pack
 
 def launches_per_call(spec, attention_route, reuse: bool = False) -> dict:
     """K1 and K2 launches of one UNet call on ``spec``'s latent (default
-    self-attention mode): one per spatial transformer whose self-attention
-    ``attention_route`` sends to a kernel — ``num_res_blocks`` in each
-    attention level of the input blocks, one more than that in the output
-    blocks, one in the middle block at the deepest level.  A reuse call of
-    the fast mode runs the output blocks only."""
+    self-attention mode): one per attention layer (a spatial transformer's
+    block, or an attention block) whose self-attention ``attention_route``
+    sends to a kernel — ``num_res_blocks`` layers in each attention level of
+    the input blocks, one more than that in the output blocks, one in the
+    middle block at the deepest level.  A reuse call of the fast mode runs
+    the output blocks only."""
     cfg = spec.unet
+    depth = cfg.transformer_depth if cfg.use_spatial_transformer else 1
     counts = dict.fromkeys(ROUTE_KERNELS.values(), 0)
     levels = len(cfg.channel_mult)
     blocks = [(2 ** lvl, (0 if reuse else cfg.num_res_blocks) + cfg.num_res_blocks + 1)
@@ -641,7 +664,7 @@ def launches_per_call(spec, attention_route, reuse: bool = False) -> dict:
         tokens = (spec.image_size // ds) ** 2
         route = attention_route(tokens, tokens)
         if route in ROUTE_KERNELS:
-            counts[ROUTE_KERNELS[route]] += n * cfg.transformer_depth
+            counts[ROUTE_KERNELS[route]] += n * depth
     return counts
 
 
@@ -1153,6 +1176,244 @@ def phase_ldm(torch, fa, root, num_recovered_eps):
     return counts
 
 
+# phase 10: the shipped FFHQ -> CelebA-HQ experiment, cut to a smoke run
+UNPAIRED_CFG = "experiments/translate_ffhq256_to_celeba256_latentdiff_ddim_eta01.cfg"
+UNPAIRED_CUTS = {("gan", "custom_steps"): "100", ("gan", "white_box_steps"): "101",
+                 ("gan", "refine_steps"): "40", ("gan", "eta"): "0.1"}
+UNPAIRED_SAMPLES = 3        # the task's three FFHQ picks, one batch
+UNPAIRED_MODELS = {"ffhq256": 0, "celeba256": 1}    # model type -> weight seed
+FFHQ_PICKS = (1, 11, 15)
+
+
+def unpaired_unet_calls(pipe, num_recovered_eps) -> dict:
+    """UNet calls of one batch through the unpaired task: the source
+    model's encode chain, the target model's replay and refine."""
+    sched_steps = pipe.sched.num_steps
+    return {"source": num_recovered_eps(sched_steps, pipe.white_box_steps, 0),
+            "target": sched_steps + pipe.refine_steps}
+
+
+def write_unpaired_assets(torch, root):
+    """Phase 10, first step: the two seeded LDMs as CompVis ``use_ema``
+    checkpoints (the core's UNet in the EMA shadows, other raw weights) and
+    three synthetic 1024 px FFHQ PNGs under ``root`` -> {model type: the
+    written core}."""
+    import numpy as np
+
+    from cyclediffusion_tpu_torch.data.png import write_png
+    from cyclediffusion_tpu_torch.pipelines.factory import LATENT_MODELS
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentDiffusionCore
+    from cyclediffusion_tpu_torch.tools import ldm_assets
+
+    torch.cuda.reset_peak_memory_stats()
+    cores = {}
+    for model_type, seed in UNPAIRED_MODELS.items():
+        t0 = time.perf_counter()
+        core = LatentDiffusionCore.random_init(LATENT_MODELS[model_type](), seed=seed,
+                                               device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        counts = {name: sum(p.numel() for p in m.parameters())
+                  for name, m in core._named_modules()}
+        path = os.path.join(root, "ckpts", "ldm_models", "ldm", model_type, "model.ckpt")
+        t1 = time.perf_counter()
+        nbytes = ldm_assets.write_ema_checkpoint(core, path, raw_seed=100 + seed)
+        say(f"unpaired: {model_type} {', '.join(f'{k} {v:,}' for k, v in counts.items())} "
+            f"params in bf16 (codebook fp32), random init {t1 - t0:.2f} s; {path}: "
+            f"{nbytes:,} bytes (raw UNet + EMA shadows + VQ) written in "
+            f"{time.perf_counter() - t1:.2f} s")
+        cores[model_type] = core
+    data = os.path.join(root, "data", "images1024x1024")
+    os.makedirs(data, exist_ok=True)
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    for pick in FFHQ_PICKS:
+        small = torch.rand((1, 3, 16, 16), generator=gen, device="cuda")
+        img = torch.nn.functional.interpolate(small, size=(1024, 1024), mode="bilinear",
+                                              align_corners=False)[0].permute(1, 2, 0)
+        write_png(os.path.join(data, f"{pick:05d}.png"),
+                  (img * 255).round().to(torch.uint8).cpu().numpy().astype(np.uint8))
+    say(f"unpaired: {len(FFHQ_PICKS)} synthetic 1024x1024 PNGs in {data}")
+    return cores
+
+
+def phase_unpaired(torch, fa, root, num_recovered_eps):
+    """Phase 10: the FFHQ -> CelebA-HQ experiment through the CLI on two
+    seeded checkpoints, loaded bit for bit with their EMA shadows; an fp32
+    round trip on the FFHQ latent; the batch-3 UNet step eager and
+    graph-replayed -> the CLI run's launch counts."""
+    import numpy as np
+
+    from cyclediffusion_tpu_torch import main as cli
+    from cyclediffusion_tpu_torch.pipelines.factory import LATENT_MODELS
+    from cyclediffusion_tpu_torch.pipelines.latent import (
+        LatentDiffStochasticPipeline,
+        LatentDiffusionCore,
+    )
+    from cyclediffusion_tpu_torch.runtime.config import config_root
+    from cyclediffusion_tpu_torch.tasks.unsupervised_translation import UnsupervisedTranslation
+    from cyclediffusion_tpu_torch.tools.step_probe import eager_ms, graph_ms, graph_of
+
+    written = write_unpaired_assets(torch, root)
+    os.environ["CYCLEDIFFUSION_CKPT_ROOT"] = root
+    os.environ["CYCLEDIFFUSION_DATA_ROOT"] = root
+    with open(os.path.join(config_root(), UNPAIRED_CFG)) as f:
+        cfg_text = cut_config(f.read(), UNPAIRED_CUTS)
+    cfg = os.path.join(root, "unpaired.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    out_dir = os.path.join(root, "unpaired")
+    say(f"unpaired: {UNPAIRED_CFG} cut to {UNPAIRED_CUTS}, batch {UNPAIRED_SAMPLES}")
+
+    # spies: the cores the factory loads (load time, UNet calls and batch
+    # sizes per core), the task's images, K1's head dims
+    seen = {"cores": [], "load_s": [], "dims": set(), "batches": set(), "images": []}
+    calls = []
+    from_ckpt = LatentDiffusionCore.from_torch_ckpt
+    forward = UnsupervisedTranslation.forward
+    bhtd = fa.flash_attention_bhtd
+
+    def spy_from_ckpt(*a, **k):
+        t0 = time.perf_counter()
+        core = from_ckpt(*a, **k)
+        torch.cuda.synchronize()
+        seen["load_s"].append(time.perf_counter() - t0)
+        apply_model, i = core.apply_model, len(calls)
+        calls.append(0)
+
+        def counted(x, *args):
+            calls[i] += 1
+            seen["batches"].add(x.shape[0])
+            return apply_model(x, *args)
+
+        core.apply_model = counted
+        seen["cores"].append(core)
+        return core
+
+    def spy_forward(self, *a, **k):
+        out = forward(self, *a, **k)
+        seen["pipe"] = self.target_gan_wrapper
+        seen["images"].append((out[0][0], out[0][1]))
+        return out
+
+    def spy_bhtd(q, k, v, sm_scale):
+        seen["dims"].add(q.shape[-1])
+        return bhtd(q, k, v, sm_scale)
+
+    argv = ["--cfg", cfg, "--output_dir", out_dir, "--seed", "42", "--do_eval",
+            "--per_device_eval_batch_size", str(UNPAIRED_SAMPLES)]
+    LatentDiffusionCore.from_torch_ckpt = spy_from_ckpt
+    UnsupervisedTranslation.forward = spy_forward
+    fa.flash_attention_bhtd = spy_bhtd
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        metrics = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        LatentDiffusionCore.from_torch_ckpt = from_ckpt
+        UnsupervisedTranslation.forward = forward
+        fa.flash_attention_bhtd = bhtd
+    secs = time.perf_counter() - t0
+    counts = dict(fa.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+
+    if len(seen["cores"]) != 2:
+        fail(f"unpaired: the CLI loaded {len(seen['cores'])} cores, expected 2")
+    for (model_type, ref), core, load_s in zip(written.items(), seen["cores"],
+                                               seen["load_s"]):
+        del core.apply_model                             # the spy
+        want_sd, got_sd = ref.state_dict(), core.state_dict()
+        differ = [k for k in want_sd if not torch.equal(want_sd[k], got_sd[k])]
+        if want_sd.keys() != got_sd.keys() or differ or core.spec != ref.spec:
+            fail(f"unpaired: the loaded {model_type} core differs from the written one "
+                 f"(EMA shadows expected): {differ[:4]}")
+        say(f"unpaired: {model_type} loaded in {load_s:.2f} s "
+            f"({sum(v.numel() for v in got_sd.values()):,} weights) equals the written "
+            f"core bit for bit (the EMA shadows, not the raw UNet)")
+    pipe = seen["pipe"]
+    per_call = launches_per_call(pipe.core.spec, fa.attention_route)
+    want_calls = unpaired_unet_calls(pipe, num_recovered_eps)
+    got_calls = dict(zip(("source", "target"), calls))
+    want_k1 = sum(want_calls.values()) * per_call["flash_attention_bhtd"]
+    say(f"unpaired: UNet calls {got_calls} (expected {want_calls}) at batch "
+        f"{sorted(seen['batches'])}, launches {counts} (K1/K2 per call {per_call}); K1 "
+        f"head dims {sorted(seen['dims'])}")
+    if got_calls != want_calls or seen["batches"] != {UNPAIRED_SAMPLES}:
+        fail(f"unpaired: UNet calls {got_calls} at batch {seen['batches']}, expected "
+             f"{want_calls} at {UNPAIRED_SAMPLES}")
+    if (counts["flash_attention_bhtd"] != want_k1 or per_call["flash_attention_bhtd"] != 5
+            or any(counts[n] for n in counts if n != "flash_attention_bhtd")):
+        fail(f"unpaired: launches {counts}, expected {want_k1} of K1 (5 per UNet call) "
+             f"and none of K2-K4")
+    if seen["dims"] != {32}:
+        fail(f"unpaired: K1 ran at head dims {sorted(seen['dims'])}, expected [32]")
+
+    files = sorted(os.path.relpath(os.path.join(d, f), out_dir)
+                   for d, _, fs in os.walk(out_dir) for f in fs)
+    want_files = expected_cli_files(UNPAIRED_SAMPLES, per_sample=False)
+    with open(os.path.join(out_dir, "eval_results.json")) as f:
+        results = json.load(f)
+    orig, img = seen["images"][0] if len(seen["images"]) == 1 else (None, None)
+    if files != want_files or results.get("eval_samples") != UNPAIRED_SAMPLES or img is None:
+        fail(f"unpaired: the CLI wrote {files} (expected {want_files}), results {results}, "
+             f"{len(seen['images'])} batches")
+    if tuple(img.shape) != (UNPAIRED_SAMPLES, 256, 256, 3) or not torch.isfinite(img).all():
+        fail(f"unpaired: images {tuple(img.shape)}, finite {bool(torch.isfinite(img).all())}")
+    say(f"unpaired: {files}; images {tuple(img.shape)} finite, range "
+        f"[{float(img.min()):.4f}, {float(img.max()):.4f}]; eval_runtime "
+        f"{results['eval_runtime']} s, eval_samples_per_second "
+        f"{results['eval_samples_per_second']}; the whole CLI call {secs:.2f} s; peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    if metrics.get("eval_samples") != UNPAIRED_SAMPLES:
+        fail(f"unpaired: main() returned {metrics}")
+
+    # the batch-3 UNet step of the loaded FFHQ core, eager and graph-replayed
+    core = seen["cores"][0]
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    x = torch.randn((UNPAIRED_SAMPLES, 64, 64, 3), generator=gen, device="cuda")
+    t = torch.full((UNPAIRED_SAMPLES,), 981, dtype=torch.int64, device="cuda")
+    step = functools.partial(core.apply_model, x, t)
+    graph, out = graph_of(step)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(out, step()):
+        fail("unpaired: the UNet step's graph replay differs from its eager call")
+    for _ in range(2):
+        host, dev = eager_ms(step, 10)
+        rep = graph_ms(graph, 10)
+        say(f"unpaired: FFHQ UNet step at batch {UNPAIRED_SAMPLES}: eager host {host:.3f} "
+            f"ms, device span {dev:.3f} ms; graph replay {rep:.3f} ms")
+    del graph, out, step, core, seen, written, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fp32 round trip on the FFHQ latent: encode, then replay (no refine);
+    # bounded at phase 5's STEPS, read at the CLI's 100
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    core32 = LatentDiffusionCore.random_init(LATENT_MODELS["ffhq256"](),
+                                             seed=UNPAIRED_MODELS["ffhq256"], device="cuda",
+                                             dtype=torch.float32)
+    images = orig.to("cuda", torch.float32)
+    x0 = core32.encode_first_stage(images * 2.0 - 1.0)
+    for steps in (STEPS, 100):
+        pipe32 = LatentDiffStochasticPipeline(core32, custom_steps=steps, eta=ETA,
+                                              white_box_steps=steps + 1)
+        z = pipe32.encode(images, torch.Generator(device="cuda").manual_seed(62))
+        err = float((pipe32.sample(z) - x0).abs().max())
+        bounded = steps == STEPS
+        say(f"round trip, FFHQ LDM fp32 (TF32 off), {UNPAIRED_SAMPLES} images, {steps} "
+            f"steps: max|replay - x0| = {err:.3e}, max|x0| = {float(x0.abs().max()):.3e} "
+            + (f"(bound {ROUND_TRIP_BOUND:.0e})" if bounded else "(a reading)"))
+        if bounded and not err <= ROUND_TRIP_BOUND:
+            fail(f"FFHQ round trip error {err} > {ROUND_TRIP_BOUND}")
+    del core32, pipe32
+    torch.cuda.empty_cache()
+    say_peak(torch, "unpaired")
+    return counts
+
+
 def round_trip(torch, core, pipe, images, src) -> float:
     """Phase 5: encode, then replay under the same text and scale 1 with
     deterministic cuDNN -> max|replay - x0| on the latent."""
@@ -1226,12 +1487,16 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         ldm_counts = phase_ldm(torch, fa, root, num_recovered_eps)
+        gc.collect()
+        torch.cuda.empty_cache()
+        unpaired_counts = phase_unpaired(torch, fa, root, num_recovered_eps)
 
     # launches on the path that runs each kernel: the translate slice (K1,
-    # K2) and LDM text2img-large's CLI run (K1), the ensemble (K3), the UNet
-    # call in folded mode "1" (K4)
+    # K2), LDM text2img-large's and FFHQ -> CelebA-HQ's CLI runs (K1), the
+    # ensemble (K3), the UNet call in folded mode "1" (K4)
     launches = {"flash_attention_bhtd": slice_counts["flash_attention_bhtd"]
-                + ldm_counts["flash_attention_bhtd"],
+                + ldm_counts["flash_attention_bhtd"]
+                + unpaired_counts["flash_attention_bhtd"],
                 "flash_attention_packed": slice_counts["flash_attention_packed"],
                 "qout_self_attention_block": ens_counts["qout_self_attention_block"],
                 "fused_self_attention_block": k4_counts["fused_self_attention_block"]}

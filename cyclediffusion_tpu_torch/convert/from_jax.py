@@ -6,9 +6,12 @@ Names: every ``_<index>`` path component of a Flax name becomes ``.<index>``
 ``to_out_0`` -> ``to_out.0``); the VAE mid block keeps the reference's
 ``mid.block_1`` / ``mid.attn_1`` / ``mid.block_2``.
 Leaves: Dense ``kernel (in, out)`` -> ``weight (out, in)``, or
-``(out, in, 1, 1)`` where the port's module is a 1x1 conv; Conv ``kernel``
-HWIO -> OIHW; norm ``scale`` -> ``weight``; ``Embed.embedding`` ->
-``weight``; ``bias`` and raw parameters (``position_embedding``) as they are.
+``(out, in, 1, 1)`` / ``(out, in, 1)`` where the port's module is a 1x1
+conv (the VAE's, VQ's ``quant_conv``) or a 1-tap Conv1d (``GDAttentionBlock``'s
+``qkv`` and ``proj_out``); Conv ``kernel`` HWIO -> OIHW; norm ``scale`` ->
+``weight``; ``Embed.embedding`` -> ``weight``, and the VQ codebook
+(``quantize/embedding``, a raw parameter) -> ``quantize.embedding.weight``;
+``bias`` and raw parameters (``position_embedding``) as they are.
 The ``_Kernel`` / ``_KernelBias`` holders are ordinary ``{kernel[, bias]}``
 dicts, so they land on ``Linear(bias=False)`` / ``Linear``.
 
@@ -60,11 +63,13 @@ def _convert_leaf(leaf: str, value: np.ndarray, target_shape) -> np.ndarray:
         return np.transpose(value, (3, 2, 0, 1))          # HWIO -> OIHW
     if leaf == "kernel" and value.ndim == 2:
         out = value.T
-        return out.reshape(target_shape) if len(target_shape) == 4 else out
+        return out.reshape(target_shape) if len(target_shape) > 2 else out
     return value
 
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+# whole Flax paths whose port name is not the rule's
+_PATH_NAMES = {("quantize", "embedding"): "quantize.embedding.weight"}
 
 
 def flax_to_state_dict(tree: dict, module: nn.Module) -> Dict[str, torch.Tensor]:
@@ -77,8 +82,8 @@ def flax_to_state_dict(tree: dict, module: nn.Module) -> Dict[str, torch.Tensor]
     out, unmapped, bad = {}, [], []
     for path, value in _flatten(tree):
         leaf = path[-1]
-        name = ".".join([module_name(p) for p in path[:-1]]
-                        + [_LEAF_NAMES.get(leaf, leaf)])
+        name = _PATH_NAMES.get(tuple(path)) or ".".join(
+            [module_name(p) for p in path[:-1]] + [_LEAF_NAMES.get(leaf, leaf)])
         if name not in targets:
             unmapped.append("/".join(path))
             continue

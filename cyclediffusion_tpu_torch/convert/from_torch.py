@@ -1,18 +1,23 @@
-"""CompVis text-conditioned latent diffusion checkpoints (Stable Diffusion
-v1, LDM text2img-large) -> the port's modules (counterpart of
+"""CompVis latent diffusion checkpoints (Stable Diffusion v1, LDM
+text2img-large, the unconditional FFHQ / CelebA-HQ LDMs) -> the port's
+modules (counterpart of
 ``load_torch_state_dict``, ``select_ema_weights``,
 ``split_latent_diffusion_state``, ``convert_gd_unet``, ``convert_vae``,
 ``convert_clip_text`` and ``convert_ldm_bert`` in
 ``cyclediffusion_tpu.convert.torch_import``).
 
-A Lightning ``LatentDiffusion`` state dict holds three subtrees:
+A Lightning ``LatentDiffusion`` state dict holds up to three subtrees:
 ``model.diffusion_model.*`` (the UNet), ``first_stage_model.*`` (the KL
-VAE) and ``cond_stage_model.*``: SD's ``transformer.text_model.*`` (HF's
-``CLIPTextModel``) or text2img-large's ``transformer.*`` (x-transformer's
-``TransformerWrapper``); its other entries (the schedule buffers, the
-LitEma state) are not weights of the core.  The port's UNet and VAE carry
-CompVis's own module names and leaf shapes (1x1 convolutions stay
-convolutions), so their keys map by stripping the prefix.  The CLIP text
+VAE, or the VQ model with its codebook ``quantize.embedding.weight``) and,
+for a text model, ``cond_stage_model.*``: SD's ``transformer.text_model.*``
+(HF's ``CLIPTextModel``) or text2img-large's ``transformer.*``
+(x-transformer's ``TransformerWrapper``); its other entries (the schedule
+buffers, the LitEma state ``model_ema.*``) are not weights of the core,
+unless ``use_ema`` takes the UNet from the LitEma shadows (the FFHQ /
+CelebA-HQ models).  The port's UNet and first stages carry CompVis's own
+module names and leaf shapes (1x1 convolutions and the attention blocks'
+1-tap Conv1d ``qkv`` / ``proj_out`` stay convolutions), so their keys map
+by stripping the prefix.  The CLIP text
 tower's HF names map onto the port's ``CLIPTextEncoder``
 (``encoder.layers.i.self_attn.q_proj`` -> ``layers.i.q_proj``,
 ``embeddings.position_embedding.weight`` -> ``position_embedding``); HF's
@@ -52,20 +57,21 @@ def load_torch_state_dict(path: str) -> StateDict:
     return {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
 
 
+def ema_key(key: str) -> str:
+    """LitEma's name of a parameter's shadow: its name below the root module
+    with the dots deleted (``model.diffusion_model.out.2.weight`` ->
+    ``model_ema.diffusion_modelout2weight``)."""
+    return "model_ema." + key.split(".", 1)[1].replace(".", "")
+
+
 def select_ema_weights(sd: StateDict, prefix: str = UNET_PREFIX) -> StateDict:
-    """Replace ``prefix`` weights with their LitEma shadows.  LitEma names a
-    shadow by the parameter's name below the root module with the dots
-    deleted (``model.diffusion_model.out.2.weight`` ->
-    ``model_ema.diffusion_modelout2weight``).  Raises if there is none."""
-    root = prefix.split(".", 1)[0] + "."
+    """Replace ``prefix`` weights with their LitEma shadows (:func:`ema_key`).
+    Raises if there is none."""
     out = dict(sd)
     hits = 0
     for k in sd:
-        if not k.startswith(prefix):
-            continue
-        ema_key = "model_ema." + k[len(root):].replace(".", "")
-        if ema_key in sd:
-            out[k] = sd[ema_key]
+        if k.startswith(prefix) and ema_key(k) in sd:
+            out[k] = sd[ema_key(k)]
             hits += 1
     if hits == 0:
         ema_prefix = "model_ema." + prefix.split(".", 1)[1].split(".")[0]
@@ -112,8 +118,9 @@ def convert_gd_unet(unet_sd: StateDict, module: nn.Module) -> StateDict:
 
 
 def convert_vae(first_stage_sd: StateDict, module: nn.Module) -> StateDict:
-    """``AutoencoderKL`` weights (prefix stripped) -> the port's AutoencoderKL."""
-    return _to_module(first_stage_sd, module, lambda k: k, "vae", FIRST_STAGE_PREFIX)
+    """``AutoencoderKL`` / ``VQModelInterface`` weights (prefix stripped) ->
+    the port's AutoencoderKL / VQModel."""
+    return _to_module(first_stage_sd, module, lambda k: k, "first-stage", FIRST_STAGE_PREFIX)
 
 
 _CLIP_TEXT_RENAMES = (

@@ -6,7 +6,9 @@
 //   * flash_attention_packed (_packed_kernel + _mha_online_update): token-major
 //     q (B,Tq,H*D), k/v (B,Tk,H*D) -> (B,Tq,H*D); the 64x64 level, H=8, D=40.
 //   * flash_attention_bhtd (_flash_kernel): head-major q (B,H,Tq,D),
-//     k/v (B,H,Tk,D) -> (B,H,Tq,D); the 32x32 level, H=8, D=80.
+//     k/v (B,H,Tk,D) -> (B,H,Tq,D); the 32x32 level, H=8, D=80 (LDM
+//     text2img-large's: D=40; the FFHQ/CelebA LDM's, ds 2 of its 64x64
+//     latent: H=14, D=32, head views of token-major (B, T, 448) tensors).
 // Both compute out = softmax(q k^T * scale) v per (batch, head): fp32 logits,
 // fp32 running max m and denominator l, p rounded to the input dtype before it
 // enters P.V, and l summing that same rounded p.  The two layouts reach the
@@ -154,6 +156,7 @@ int dispatch(const Args& a, int D, int is_bf16) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   switch (D) {
+    case 32: return launch_d<32>(a, is_bf16);
     case 40: return launch_d<40>(a, is_bf16);
     case 64: return launch_d<64>(a, is_bf16);
     case 80: return launch_d<80>(a, is_bf16);

@@ -24,7 +24,8 @@
 // Shared-memory layout.  Every operand tile is stored as 16-column chunks
 // of [rows][16] bf16 with TMA's 32-byte swizzle: a head row of 80 or 160
 // bytes (d = 40, 80) fits no swizzle width, but a 16-column chunk is exactly
-// one 32-byte swizzle row and one k16 step of wgmma.  TMA zero-fills the
+// one 32-byte swizzle row and one k16 step of wgmma (d = 32: two whole
+// chunks, two k16 steps of S, nothing padded).  TMA zero-fills the
 // columns past D (d = 40 -> the chunk 32..47) and the rows past T, so the
 // head-dim pad of Q and K reads as zero and the ragged edges need no
 // copies; keys >= Tk are still masked to -inf.  The tensor maps are 4-D,
@@ -212,6 +213,19 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 32) += A (registers) * B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 40) += A (registers) * B (smem, MN-major)
 __device__ __forceinline__ void wgmma_rs_n40(float (&d)[20], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -265,8 +279,11 @@ __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)
 
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db) {
-  static_assert(D == 40 || D == 64 || D == 80, "head dims of the SD UNet and the tests");
-  if constexpr (D == 40) {
+  static_assert(D == 32 || D == 40 || D == 64 || D == 80,
+                "head dims of the SD, LDM and FFHQ/CelebA UNets and the tests");
+  if constexpr (D == 32) {
+    wgmma_rs_n32(d, a, db);
+  } else if constexpr (D == 40) {
     wgmma_rs_n40(d, a, db);
   } else if constexpr (D == 64) {
     wgmma_rs_n64(d, a, db);
@@ -281,7 +298,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[
 
 template <int D>
 struct Smem {
-  static constexpr int kChunks = (D + kChunkCols - 1) / kChunkCols;  // 3, 4, 5
+  static constexpr int kChunks = (D + kChunkCols - 1) / kChunkCols;  // 2, 3, 4, 5
   static constexpr uint32_t kTileBytes = kChunks * kChunkBytes;       // one K or V tile
   // each chunk is [128 rows][16 columns] bf16 in TMA's 32-byte swizzle
   __nv_bfloat16 q[kChunks][kRowsQ * kChunkCols];
@@ -662,6 +679,7 @@ int launch_bf16(const Args& a) {
 // launch_bf16 for a head dim known at run time
 inline int launch_bf16_d(const Args& a, int D) {
   switch (D) {
+    case 32: return launch_bf16<32>(a);
     case 40: return launch_bf16<40>(a);
     case 64: return launch_bf16<64>(a);
     case 80: return launch_bf16<80>(a);

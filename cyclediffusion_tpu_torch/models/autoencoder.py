@@ -1,5 +1,5 @@
-"""First-stage KL autoencoder for latent diffusion (counterpart of
-``AutoencoderKL`` in ``cyclediffusion_tpu.models.autoencoder``).
+"""First-stage autoencoders for latent diffusion, KL and VQ (counterpart of
+``AutoencoderKL`` and ``VQModel`` in ``cyclediffusion_tpu.models.autoencoder``).
 
 The conv Encoder/Decoder backbones (ResnetBlock without time embedding,
 vanilla single-head AttnBlock, asymmetric-pad Downsample) run NCHW inside;
@@ -38,6 +38,11 @@ class DDConfig:
     def sd_f8() -> "DDConfig":
         """SD / txt2img-1p4B KL-f8 (v1-inference.yaml first_stage_config)."""
         return DDConfig()
+
+    @staticmethod
+    def vq_f4() -> "DDConfig":
+        """FFHQ/CelebA VQ-f4 (ffhq-ldm-vq-4.yaml): z=3, ch_mult (1,2,4)."""
+        return DDConfig(ch_mult=(1, 2, 4), z_channels=3, double_z=False)
 
 
 def _conv3x3(cin: int, cout: int):
@@ -200,3 +205,58 @@ class AutoencoderKL(nn.Module):
 
     def forward(self, x, noise):
         return self.decode(DiagonalGaussian(self.encode_moments(x)).sample(noise))
+
+
+class VectorQuantizer(nn.Module):
+    """Nearest-neighbour codebook lookup (taming's VectorQuantizer2,
+    inference only).  The codebook stays fp32 whatever the model's dtype and
+    the distances are taken in fp32, as in the JAX module, whose codebook is
+    an fp32 parameter: bf16 distances would pick other codes."""
+
+    def __init__(self, n_embed: int, embed_dim: int):
+        super().__init__()
+        self.embedding = nn.Embedding(n_embed, embed_dim)
+
+    def _apply(self, fn, recurse=True):
+        super()._apply(fn, recurse)
+        self.embedding.weight.data = self.embedding.weight.data.float()
+        return self
+
+    def forward(self, z):
+        """NHWC latent -> (fp32 quantised latent, code indices (B, H, W))."""
+        codebook = self.embedding.weight
+        flat = z.reshape(-1, codebook.shape[1]).float()
+        # ||z - e||^2 = ||z||^2 - 2 z.e + ||e||^2, argmin over the codebook
+        d = (flat.pow(2).sum(1, keepdim=True) - 2.0 * flat @ codebook.t()
+             + codebook.pow(2).sum(1)[None, :])
+        idx = torch.argmin(d, dim=1)
+        return codebook[idx].reshape(z.shape), idx.reshape(z.shape[:-1])
+
+
+class VQModel(nn.Module):
+    """VQ autoencoder with the VQModelInterface surface on NHWC tensors:
+    :meth:`encode` returns the PRE-quantisation latent (the diffusion runs
+    on it); :meth:`decode` quantises unless ``force_not_quantize``.
+    ``quant_conv`` / ``post_quant_conv`` are 1x1 convs, as in the
+    checkpoint."""
+
+    def __init__(self, cfg: DDConfig, n_embed: int = 8192, embed_dim: int = 3):
+        super().__init__()
+        if cfg.double_z:
+            raise ValueError("VQModel takes a single-z encoder (double_z False)")
+        self.encoder = Encoder(cfg)
+        self.decoder = Decoder(cfg)
+        self.quantize = VectorQuantizer(n_embed, embed_dim)
+        self.quant_conv = nn.Conv2d(cfg.z_channels, embed_dim, 1)
+        self.post_quant_conv = nn.Conv2d(embed_dim, cfg.z_channels, 1)
+
+    def encode(self, x):
+        return self.quant_conv(self.encoder(x.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+
+    def decode(self, h, force_not_quantize: bool = False):
+        if not force_not_quantize:
+            h = self.quantize(h)[0].to(self.post_quant_conv.weight.dtype)
+        return self.decoder(self.post_quant_conv(h.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+
+    def forward(self, x):
+        return self.decode(self.encode(x))

@@ -1,8 +1,8 @@
 """Shared neural-net primitives (counterpart of ``cyclediffusion_tpu.models.nn``).
 
 GroupNorm epsilons differ by family: CompVis blocks (VAE, the
-SpatialTransformer's norm) use 1e-6, guided-diffusion blocks (GDResBlock, the
-UNet's ``out.0``) use 1e-5.
+SpatialTransformer's norm) use 1e-6, guided-diffusion blocks (GDResBlock,
+GDAttentionBlock, the UNet's ``out.0``) use 1e-5.
 """
 
 from __future__ import annotations
@@ -108,3 +108,31 @@ class SpatialSelfAttention(nn.Module):
         wgt = torch.softmax(logits, dim=-1).to(v.dtype)                 # (b,q,k)
         out = torch.bmm(v, wgt.transpose(1, 2)).reshape(b, c, h, w)
         return x + self.proj_out(out)
+
+
+class GDAttentionBlock(nn.Module):
+    """guided-diffusion AttentionBlock on NCHW ``x``, residual included:
+    GroupNorm over the tokens, the fused ``qkv`` projection in the legacy
+    ``[head][q(d), k(d), v(d)]`` channel layout, :func:`multi_head_attention`
+    (a kernel at >= 1024 tokens), ``proj_out``.  ``qkv`` and ``proj_out``
+    are CompVis's 1-tap Conv1d modules, applied to the token-major
+    activations with their weights squeezed, as the JAX module's Dense
+    layers are."""
+
+    def __init__(self, channels: int, num_heads: int = 1, num_head_channels: int = -1):
+        super().__init__()
+        self.heads = num_heads if num_head_channels == -1 else channels // num_head_channels
+        self.norm = GroupNorm(32, channels, 1e-5)
+        self.qkv = nn.Conv1d(channels, 3 * channels, 1)
+        self.proj_out = nn.Conv1d(channels, channels, 1)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        d = c // self.heads
+        hn = self.norm(x.flatten(2)).transpose(1, 2)                    # (b, T, c)
+        qkv = F.linear(hn, self.qkv.weight[:, :, 0], self.qkv.bias)
+        qkv = qkv.reshape(b, h * w, self.heads, 3, d)
+        q, k, v = (qkv[..., i, :].reshape(b, h * w, c) for i in range(3))
+        out = F.linear(multi_head_attention(q, k, v, self.heads),
+                       self.proj_out.weight[:, :, 0], self.proj_out.bias)
+        return x + out.transpose(1, 2).reshape(b, c, h, w)

@@ -1,13 +1,17 @@
-"""The guided-diffusion-family UNet with spatial transformers — the LDM/SD
-cross-attention UNet (counterpart of ``cyclediffusion_tpu.models.unet_gd``).
+"""The guided-diffusion-family UNet of the latent models (counterpart of
+``cyclediffusion_tpu.models.unet_gd``).
 
-This slice covers the SD-v1 topology (and LDM text2img-large's, which is SD's
-with a 1280-d context): conv resampling, no scale-shift norm, no class
-labels, spatial-transformer attention.  The reference's stateful
+Two kinds of attention layer, chosen by ``use_spatial_transformer``: the
+SD-v1 / LDM text2img-large cross-attention UNet's spatial transformers
+(``context`` required), or the unconditional LDM UNet's
+``GDAttentionBlock`` (FFHQ/CelebA-HQ, ``ldm_ffhq256``; no context).  Conv
+resampling, no scale-shift norm, no class labels (``resblock_updown`` and
+scale-shift norm are the pixel models').  The reference's stateful
 head-count selection (``num_heads`` reassigned inside the layer loop when
-``num_head_channels`` is set) is kept in :func:`_attn_layout`, so converted
-checkpoints attend identically.  Module names mirror the reference
-(``input_blocks.3.0.in_layers.2``).
+``num_head_channels`` is set) is kept in :func:`_attn_layout`, and the
+output blocks' attention blocks take ``num_heads_upsample`` (by default the
+ORIGINAL ``num_heads``), so converted checkpoints attend identically.
+Module names mirror the reference (``input_blocks.3.0.in_layers.2``).
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cyclediffusion_tpu_torch.models.nn import GroupNorm, gd_timestep_embedding
+from cyclediffusion_tpu_torch.models.nn import GDAttentionBlock, GroupNorm, gd_timestep_embedding
 from cyclediffusion_tpu_torch.models.transformer import SpatialTransformer
 
 
@@ -33,7 +37,8 @@ class GDUNetConfig:
     channel_mult: Tuple[float, ...] = (1, 2, 4, 8)
     num_heads: int = -1
     num_head_channels: int = -1
-    use_spatial_transformer: bool = True
+    num_heads_upsample: int = -1
+    use_spatial_transformer: bool = False
     transformer_depth: int = 1
     context_dim: Optional[int] = None
     legacy: bool = True
@@ -54,12 +59,24 @@ class GDUNetConfig:
         return dataclasses.replace(GDUNetConfig.sd_v1(), context_dim=1280)
 
     @staticmethod
-    def tiny(context_dim: int = 24) -> "GDUNetConfig":
-        """The CPU-runnable miniature of ``LatentCoreSpec.tiny``."""
+    def ldm_ffhq256() -> "GDUNetConfig":
+        """Unconditional FFHQ/CelebA-HQ latent UNet (ffhq-ldm-vq-4.yaml)."""
+        return GDUNetConfig(
+            in_channels=3, model_channels=224, out_channels=3, num_res_blocks=2,
+            attention_resolutions=(8, 4, 2), channel_mult=(1, 2, 3, 4),
+            num_head_channels=32,
+        )
+
+    @staticmethod
+    def tiny(context_dim: Optional[int] = 24) -> "GDUNetConfig":
+        """The CPU-runnable miniature of ``LatentCoreSpec.tiny``: spatial
+        transformers over a ``context_dim`` context, or with ``None`` the
+        unconditional model's attention blocks."""
         return GDUNetConfig(
             in_channels=4, model_channels=32, out_channels=4, num_res_blocks=1,
             attention_resolutions=(1, 2), channel_mult=(1, 2), num_heads=4,
-            use_spatial_transformer=True, context_dim=context_dim, legacy=False,
+            use_spatial_transformer=context_dim is not None, context_dim=context_dim,
+            legacy=False,
         )
 
 
@@ -135,7 +152,8 @@ def _apply_layers(layers, h, emb, context):
 
 
 class GDUNet(nn.Module):
-    """``forward(x (B,H,W,C) NHWC, t (B,), context (B,T,ctx))`` -> eps NHWC.
+    """``forward(x (B,H,W,C) NHWC, t (B,), context (B,T,ctx) or None)`` ->
+    eps NHWC; the context only with spatial transformers.
 
     ``folded_attn`` (``None``, ``"qo"`` or ``"1"``) goes to every spatial
     transformer's self-attention (see ``transformer.CrossAttention``).
@@ -149,20 +167,26 @@ class GDUNet(nn.Module):
 
     def __init__(self, cfg: GDUNetConfig, folded_attn: Optional[str] = None):
         super().__init__()
-        if not cfg.use_spatial_transformer or cfg.context_dim is None:
-            raise NotImplementedError(
-                "this port covers the spatial-transformer (SD/LDM) UNet")
+        if cfg.use_spatial_transformer and cfg.context_dim is None:
+            raise ValueError("spatial transformers need a context_dim")
         self.config = cfg
         mc = cfg.model_channels
         emb_dim = mc * 4
         self.time_embed = nn.Sequential(
             nn.Linear(mc, emb_dim), nn.SiLU(), nn.Linear(emb_dim, emb_dim))
 
+        # the reference's head bookkeeping: num_heads is reassigned per
+        # layer; the output blocks' attention blocks bind to the original
         num_heads = cfg.num_heads
+        heads_upsample = (cfg.num_heads_upsample if cfg.num_heads_upsample != -1
+                          else cfg.num_heads)
 
-        def make_attn(ch):
+        def make_attn(ch, upsample=False):
             nonlocal num_heads
             num_heads, dim_head = _attn_layout(cfg, ch, num_heads)
+            if not cfg.use_spatial_transformer:
+                return GDAttentionBlock(ch, heads_upsample if upsample else num_heads,
+                                        dim_head)
             return SpatialTransformer(ch, num_heads, dim_head,
                                       depth=cfg.transformer_depth,
                                       context_dim=cfg.context_dim,
@@ -197,7 +221,7 @@ class GDUNet(nn.Module):
                 layers = [GDResBlock(ch + input_chans.pop(), out, emb_dim)]
                 ch = out
                 if ds in cfg.attention_resolutions:
-                    layers.append(make_attn(ch))
+                    layers.append(make_attn(ch, upsample=True))
                 if level and i == cfg.num_res_blocks:
                     layers.append(GDUpsample(ch, ch))
                     ds //= 2
@@ -222,7 +246,7 @@ class GDUNet(nn.Module):
             h = _apply_layers(layers, torch.cat([h, hs.pop()], dim=1), emb, context)
         return self.out(h).permute(0, 2, 3, 1)
 
-    def forward(self, x, t, context, encoder_cache=None, return_cache=False):
+    def forward(self, x, t, context=None, encoder_cache=None, return_cache=False):
         emb = self.time_embed(
             gd_timestep_embedding(t, self.config.model_channels).to(x.dtype))
         cache = self.encode(x, emb, context) if encoder_cache is None else encoder_cache

@@ -46,8 +46,11 @@ import torch
 
 from cyclediffusion_tpu_torch.ops import cuda_build
 
-# the SD-v1 levels' head dims (40, 80) and the ragged test shape's (64)
-SUPPORTED_HEAD_DIMS = (40, 64, 80)
+# K1/K2: the SD-v1 levels' head dims (40, 80), the FFHQ/CelebA LDM's (32)
+# and the ragged test shape's (64); K3/K4 (the SD UNet's folded modes) keep
+# the three they are checked at on the card
+SUPPORTED_HEAD_DIMS = (32, 40, 64, 80)
+FOLDED_HEAD_DIMS = (40, 64, 80)
 _DTYPES = (torch.float32, torch.bfloat16)
 # the widest C or H*D the folded kernels' bf16 path takes (the projection
 # kernel's X tile and W ring in shared memory: kLinMaxK in hopper_linear.cuh)
@@ -276,8 +279,8 @@ def _check_folded_limits(name: str, dtype, b: int, t: int, c: int, hd: int, d: i
     projection kernel (C and H*D <= LINEAR_MAX_K) and the attention kernel
     (B*H blocks on the grid's y axis); fp32 its [k | v] kernel (B*T / 64
     blocks on the y axis)."""
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
+    if d not in FOLDED_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {FOLDED_HEAD_DIMS}")
     if c % 64 or hd % 64:
         raise ValueError(f"{name}: widths C={c}, H*D={hd}; the kernel takes "
                          "multiples of 64")

@@ -4,7 +4,8 @@ of ``cyclediffusion_tpu.pipelines.factory``).
 ``source_*`` keys feed the source wrapper and ``target_*`` keys are renamed
 to ``source_*`` when ``target=True``; ``gan_type`` picks what is built.  This
 port builds the two text gan_types, ``SDStochasticText`` (CLIP-conditioned)
-and ``LatentDiffStochasticText`` (LDM-BERT-conditioned):
+and ``LatentDiffStochasticText`` (LDM-BERT-conditioned), and the
+unconditional ``LatentDiffStochastic`` (unpaired translation):
 
 * ``source_model_type = tiny*``: the CPU-runnable miniature of that
   conditioning with seeded random weights (``source_init_seed``), the hashed
@@ -20,6 +21,11 @@ and ``LatentDiffStochasticText`` (LDM-BERT-conditioned):
   missing file raises.  The scorer is the shared one from
   ``runtime.context`` (``CYCLEDIFFUSION_CLIP_CKPT``, or one a caller
   installed); without it the pipeline is built and its ranking raises.
+
+``LatentDiffStochastic`` builds ``tiny`` (a KL first stage at 32 px) and
+``tiny_vq`` (VQ at 16 px) with seeded random weights, and ``ffhq256`` /
+``celeba256`` from ``ckpts/ldm_models/ldm/<type>/model.ckpt`` with the UNet's
+EMA weights (a missing file raises; there are no random weights).
 
 ``fast_key_every`` (> 1) turns on the encoder-caching fast mode.
 ``jax_params`` (tests only) replaces either model's weights with the JAX
@@ -38,7 +44,11 @@ import torch
 
 from cyclediffusion_tpu_torch.energy.clean_clip import CLIPScorer, DirectionalCLIP
 from cyclediffusion_tpu_torch.models.clip import CLIPConfig
-from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
+from cyclediffusion_tpu_torch.pipelines.latent import (
+    LatentCoreSpec,
+    LatentDiffStochasticPipeline,
+    LatentDiffusionCore,
+)
 from cyclediffusion_tpu_torch.pipelines.latent_text import (
     StochasticTextPipeline,
     latentdiff_stochastic_text_pipeline,
@@ -51,7 +61,6 @@ FOLDED_ATTN_ENV = "CYCLEDIFFUSION_FOLDED_ATTN"
 
 # gan_types of the JAX package this port does not build yet -> ROADMAP item
 _NOT_PORTED = {
-    "LatentDiffStochastic": "ROADMAP §A queue item 3 (the other model families)",
     "DDPM_DDIM": "ROADMAP §A queue item 3 (the other model families)",
 }
 
@@ -61,6 +70,9 @@ _TEXT_GAN_TYPES = {
     "LatentDiffStochasticText": ("bert", latentdiff_stochastic_text_pipeline),
 }
 LDM_TEXT_MODEL = "text2img-large"
+# LatentDiffStochastic's published models, loaded with their EMA weights
+LATENT_MODELS = {"ffhq256": LatentCoreSpec.ldm_ffhq256,
+                 "celeba256": LatentCoreSpec.ldm_celeba256}
 
 # the tiny pipeline's scorer: the JAX factory's miniature ViT
 TINY_CLIP = CLIPConfig(embed_dim=16, image_resolution=32, vision_width=32,
@@ -121,6 +133,23 @@ def _published(cond_kind: str, model_type: str):
             os.path.join("ckpts", "ldm_models", model_type, "model.ckpt"))
 
 
+def _checkpoint(gan_type: str, path: str) -> str:
+    """``path`` under the checkpoint root; raises if there is no such file."""
+    path = _resolve_ckpt(path)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{gan_type} checkpoint not found: {path} (set "
+                                "CYCLEDIFFUSION_CKPT_ROOT to the directory holding ckpts/)")
+    return path
+
+
+def _default_dtype(dtype, tiny: bool, device):
+    """bf16 for a published model on CUDA, fp32 otherwise, unless given."""
+    if dtype is not None:
+        return dtype
+    return torch.bfloat16 if not tiny and torch.device(device).type == "cuda" \
+        else torch.float32
+
+
 def _tiny_scorer(seed: int, params, device) -> DirectionalCLIP:
     if params is not None:
         scorer = CLIPScorer.from_jax_params(params, TINY_CLIP, device)
@@ -150,9 +179,7 @@ def _build_text(gan_type: str, kwargs: dict, device, dtype,
     if kwargs:
         raise ValueError(f"unused gan kwargs: {kwargs}")
     tiny = model_type.startswith("tiny")
-    if dtype is None:
-        dtype = torch.bfloat16 if not tiny and torch.device(device).type == "cuda" \
-            else torch.float32
+    dtype = _default_dtype(dtype, tiny, device)
     folded = folded_attn_from_env()
     jax_params = jax_params or {}
     if tiny:
@@ -169,22 +196,55 @@ def _build_text(gan_type: str, kwargs: dict, device, dtype,
         return StochasticTextPipeline(core, HashTokenizer(96, 16), dclip, **pipe_kw)
 
     spec, path = _published(cond_kind, model_type)
-    path = _resolve_ckpt(path)
-    if not os.path.exists(path):
-        raise FileNotFoundError(f"{gan_type} checkpoint not found: {path} (set "
-                                "CYCLEDIFFUSION_CKPT_ROOT to the directory holding ckpts/)")
+    path = _checkpoint(gan_type, path)
     tokenizer = _tokenizer(cond_kind)
     core = LatentDiffusionCore.from_torch_ckpt(spec, path, device, dtype, folded)
     dclip = context.get_directional_clip(required=False, device=device)
     return make_pipeline(core, tokenizer, dclip, **pipe_kw)
 
 
+def _build_latent(kwargs: dict, device, dtype, jax_params) -> LatentDiffStochasticPipeline:
+    model_type = kwargs.pop("source_model_type")
+    seed = int(kwargs.pop("source_init_seed", 0))     # tiny models only
+    pipe_kw = dict(
+        custom_steps=kwargs.pop("custom_steps"),
+        eta=kwargs.pop("eta"),
+        white_box_steps=kwargs.pop("white_box_steps"),
+        refine_steps=kwargs.pop("refine_steps", 0),
+        enforce_class_input=kwargs.pop("enforce_class_input", None),
+        unconditional_guidance_scale=kwargs.pop("unconditional_guidance_scale", None),
+        fast_key_every=kwargs.pop("fast_key_every", None),
+    )
+    if kwargs:
+        raise ValueError(f"unused gan kwargs: {kwargs}")
+    tiny = model_type.startswith("tiny")
+    dtype = _default_dtype(dtype, tiny, device)
+    if tiny:
+        vq = model_type == "tiny_vq"
+        spec = LatentCoreSpec.tiny(cond_kind=None, fs_kind="vq" if vq else "kl",
+                                   resolution=16 if vq else 32)
+        if jax_params and "core" in jax_params:
+            core = LatentDiffusionCore.from_jax_params(spec, jax_params["core"], device,
+                                                       dtype)
+        else:
+            core = LatentDiffusionCore.random_init(spec, seed, device, dtype)
+    else:
+        if model_type not in LATENT_MODELS:
+            raise ValueError(f"unknown latent model type {model_type!r}: the port has "
+                             f"{sorted(LATENT_MODELS)}")
+        path = _checkpoint("LatentDiffStochastic",
+                           os.path.join("ckpts", "ldm_models", "ldm", model_type, "model.ckpt"))
+        core = LatentDiffusionCore.from_torch_ckpt(LATENT_MODELS[model_type](), path, device,
+                                                   dtype, use_ema=True)
+    return LatentDiffStochasticPipeline(core, **pipe_kw)
+
+
 def get_gan_wrapper(gan_args, target: bool = False, *, device="cuda", dtype=None,
-                    jax_params: Optional[dict] = None) -> StochasticTextPipeline:
+                    jax_params: Optional[dict] = None):
     """Build the pipeline a ``[gan]`` section describes.
 
     ``jax_params`` (tests, tiny models only): ``{"core": {"unet",
-    "first_stage", "cond"}, "clip": <CLIPModel tree>}`` with numpy leaves,
+    "first_stage"[, "cond"]}, "clip": <CLIPModel tree>}`` with numpy leaves,
     the JAX pipeline's weights.  ``dtype`` defaults to bf16 for a published
     model on CUDA, fp32 otherwise.
     """
@@ -192,6 +252,8 @@ def get_gan_wrapper(gan_args, target: bool = False, *, device="cuda", dtype=None
     kwargs = _collect_kwargs(gan_args, target)
     if gan_type in _TEXT_GAN_TYPES:
         return _build_text(gan_type, kwargs, device, dtype, jax_params)
+    if gan_type == "LatentDiffStochastic":
+        return _build_latent(kwargs, device, dtype, jax_params)
     if gan_type in _NOT_PORTED:
         raise NotImplementedError(f"gan_type {gan_type} is not ported yet: "
                                   f"{_NOT_PORTED[gan_type]}")

@@ -1,11 +1,13 @@
-"""LatentDiffusion core: UNet + KL first stage + text conditioning, CLIP
-(SD v1) or LDM-BERT (LDM text2img-large) (counterpart of ``LatentCoreSpec``
-/ ``LatentDiffusionCore`` in ``cyclediffusion_tpu.pipelines.latent``).
+"""LatentDiffusion core: UNet + first stage (KL or VQ) + optional text
+conditioning, CLIP (SD v1) or LDM-BERT (LDM text2img-large), and the
+unconditional stochastic latent pipeline of unpaired translation (FFHQ ->
+CelebA-HQ) (counterpart of ``LatentCoreSpec``, ``LatentDiffusionCore`` and
+``LatentDiffStochasticPipeline`` in ``cyclediffusion_tpu.pipelines.latent``).
 
 The modules run in the core's dtype (bf16 on the card); the sampler around
 them stays fp32: :meth:`LatentDiffusionCore.apply_model` casts the latent
-to the core's dtype and its eps back to fp32, and the first-stage posterior
-is sampled in fp32.
+to the core's dtype and its eps back to fp32, the KL posterior is sampled in
+fp32, and the VQ codebook lookup runs in fp32.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from cyclediffusion_tpu_torch.models.autoencoder import (
     AutoencoderKL,
     DDConfig,
     DiagonalGaussian,
+    VQModel,
 )
 from cyclediffusion_tpu_torch.models.nn import fill_random_, resolve_device
 from cyclediffusion_tpu_torch.models.text_encoders import (
@@ -33,22 +36,32 @@ from cyclediffusion_tpu_torch.models.text_encoders import (
 )
 from cyclediffusion_tpu_torch.models.unet_gd import GDUNet, GDUNetConfig
 from cyclediffusion_tpu_torch.ops import schedule
+from cyclediffusion_tpu_torch.samplers import (
+    ddim_decode,
+    ddim_decode_cached,
+    ddim_refine,
+    dpm_encode,
+    dpm_encode_cached,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class LatentCoreSpec:
-    """One text-conditioned latent diffusion model (KL first stage; CLIP or
-    LDM-BERT conditioning, ``cond_kind`` ``"clip"`` or ``"bert"``)."""
+    """One latent diffusion model: UNet + first stage (``fs_kind`` ``"kl"``
+    or ``"vq"``) + optional conditioning (``cond_kind`` ``"clip"``,
+    ``"bert"`` or None)."""
 
     name: str
     unet: GDUNetConfig
     first_stage: DDConfig
+    fs_kind: str                   # "kl" | "vq"
     embed_dim: int
     scale_factor: float
     linear_start: float
     linear_end: float
     num_timesteps: int = 1000
-    cond_kind: str = "clip"
+    n_embed: int = 8192            # vq codebook size
+    cond_kind: Optional[str] = None
     cond_cfg: Optional[object] = None   # CLIPTextConfig or LDMBertConfig
     resolution: int = 256          # pixel-space resolution
 
@@ -65,9 +78,9 @@ class LatentCoreSpec:
     def sd_v1() -> "LatentCoreSpec":
         return LatentCoreSpec(
             name="sd_v1", unet=GDUNetConfig.sd_v1(), first_stage=DDConfig.sd_f8(),
-            embed_dim=4, scale_factor=0.18215,
+            fs_kind="kl", embed_dim=4, scale_factor=0.18215,
             linear_start=0.00085, linear_end=0.0120,
-            cond_cfg=CLIPTextConfig.vit_l_14(), resolution=512,
+            cond_kind="clip", cond_cfg=CLIPTextConfig.vit_l_14(), resolution=512,
         )
 
     @staticmethod
@@ -75,44 +88,71 @@ class LatentCoreSpec:
         """LDM text2img-large (txt2img-1p4B-eval.yaml) at 256 px."""
         return LatentCoreSpec(
             name="ldm_text2img_large", unet=GDUNetConfig.ldm_text2img_large(),
-            first_stage=DDConfig.sd_f8(), embed_dim=4,
+            first_stage=DDConfig.sd_f8(), fs_kind="kl", embed_dim=4,
             scale_factor=0.18215, linear_start=0.00085, linear_end=0.012,
             cond_kind="bert", cond_cfg=LDMBertConfig.text2img_large(),
             resolution=256,
         )
 
     @staticmethod
-    def tiny(cond_kind: str = "clip", resolution: int = 32) -> "LatentCoreSpec":
-        """CPU-runnable miniature (latent 8x8) — the JAX package's
-        ``LatentCoreSpec.tiny(cond_kind=...)`` with a KL first stage."""
+    def ldm_ffhq256() -> "LatentCoreSpec":
+        """The unconditional FFHQ LDM (ffhq-ldm-vq-4.yaml): VQ-f4 first
+        stage, 64x64x3 latent, no conditioning."""
+        return LatentCoreSpec(
+            name="ldm_ffhq256", unet=GDUNetConfig.ldm_ffhq256(),
+            first_stage=DDConfig.vq_f4(), fs_kind="vq", embed_dim=3,
+            scale_factor=1.0, linear_start=0.0015, linear_end=0.0195,
+            resolution=256,
+        )
+
+    @staticmethod
+    def ldm_celeba256() -> "LatentCoreSpec":
+        """The CelebA-HQ LDM: the FFHQ model's architecture."""
+        return dataclasses.replace(LatentCoreSpec.ldm_ffhq256(), name="ldm_celeba256")
+
+    @staticmethod
+    def tiny(cond_kind: Optional[str] = "clip", resolution: int = 32,
+             fs_kind: str = "kl") -> "LatentCoreSpec":
+        """CPU-runnable miniature — the JAX package's ``LatentCoreSpec.tiny``:
+        text-conditioned (``cond_kind``) or, with None, the unconditional
+        UNet's attention blocks; ``fs_kind="vq"`` miniaturises the
+        FFHQ/CelebA first stage (single z, codebook of 64, scale 1)."""
         if cond_kind == "clip":
             cond_cfg = CLIPTextConfig(vocab_size=96, hidden_size=24, num_layers=2,
                                       num_heads=4, max_positions=16, intermediate_size=48)
         elif cond_kind == "bert":
             cond_cfg = LDMBertConfig(vocab_size=96, dim=24, depth=2, heads=2,
                                      dim_head=12, max_seq_len=16)
+        elif cond_kind is None:
+            cond_cfg = None
         else:
-            raise ValueError(f"cond_kind={cond_kind!r} is not 'clip' or 'bert'")
+            raise ValueError(f"cond_kind={cond_kind!r} is not 'clip', 'bert' or None")
+        if fs_kind not in ("kl", "vq"):
+            raise ValueError(f"fs_kind={fs_kind!r} is not 'kl' or 'vq'")
         return LatentCoreSpec(
-            name=f"tiny_latent_{cond_kind}_kl",
-            unet=GDUNetConfig.tiny(context_dim=24),
+            name=f"tiny_latent_{cond_kind}_{fs_kind}",
+            unet=GDUNetConfig.tiny(context_dim=None if cond_kind is None else 24),
             first_stage=DDConfig(ch=16, ch_mult=(1, 2, 4), num_res_blocks=1,
                                  resolution=resolution, z_channels=4,
-                                 double_z=True, attn_resolutions=()),
-            embed_dim=4, scale_factor=0.18215,
+                                 double_z=fs_kind == "kl", attn_resolutions=()),
+            fs_kind=fs_kind, embed_dim=4, n_embed=64,
+            scale_factor=0.18215 if fs_kind == "kl" else 1.0,
             linear_start=0.00085, linear_end=0.012, num_timesteps=100,
             cond_kind=cond_kind, cond_cfg=cond_cfg, resolution=resolution,
         )
 
     @property
-    def context_length(self) -> int:
-        """Tokens of the conditioning text."""
+    def context_length(self) -> Optional[int]:
+        """Tokens of the conditioning text (None without conditioning)."""
         cfg = self.cond_cfg
+        if self.cond_kind is None:
+            return None
         return cfg.max_positions if self.cond_kind == "clip" else cfg.max_seq_len
 
 
 class LatentDiffusionCore:
-    """The three modules of the model on one device, in one dtype, frozen.
+    """The model's modules (UNet, first stage and, for a text model, the
+    conditioning model) on one device, in one dtype, frozen.
 
     ``folded_attn`` (``None``, ``"qo"``, ``"1"``) selects the UNet's long
     self-attention path (see ``models.transformer.CrossAttention``)."""
@@ -125,9 +165,13 @@ class LatentDiffusionCore:
         self.folded_attn = folded_attn
         with self.device:
             self.unet = GDUNet(spec.unet, folded_attn)
-            self.first_stage = AutoencoderKL(spec.first_stage, spec.embed_dim)
-            self.cond_model = (CLIPTextEncoder(spec.cond_cfg) if spec.cond_kind == "clip"
-                               else LDMBertEncoder(spec.cond_cfg))
+            self.first_stage = (
+                AutoencoderKL(spec.first_stage, spec.embed_dim) if spec.fs_kind == "kl"
+                else VQModel(spec.first_stage, spec.n_embed, spec.embed_dim))
+            self.cond_model = None
+            if spec.cond_kind is not None:
+                self.cond_model = {"clip": CLIPTextEncoder,
+                                   "bert": LDMBertEncoder}[spec.cond_kind](spec.cond_cfg)
         for m in self.modules():
             m.to(dtype=dtype).eval().requires_grad_(False)
 
@@ -153,11 +197,12 @@ class LatentDiffusionCore:
                         dtype=torch.float32, folded_attn: Optional[str] = None
                         ) -> "LatentDiffusionCore":
         """Weights from the JAX core's parameter tree (numpy leaves):
-        ``{"unet": ..., "first_stage": ..., "cond": ...}``."""
+        ``{"unet": ..., "first_stage": ...[, "cond": ...]}``."""
         core = cls(spec, device, dtype, folded_attn)
         load_flax_params(core.unet, params["unet"])
         load_flax_params(core.first_stage, params["first_stage"])
-        load_flax_params(core.cond_model, params["cond"])
+        if core.cond_model is not None:
+            load_flax_params(core.cond_model, params["cond"])
         return core
 
     @classmethod
@@ -166,18 +211,23 @@ class LatentDiffusionCore:
                         dtype=torch.float32, folded_attn: Optional[str] = None,
                         use_ema: bool = False) -> "LatentDiffusionCore":
         """Weights from a CompVis ``LatentDiffusion`` checkpoint (SD v1's
-        ``sd-v1-4.ckpt`` or LDM text2img-large's ``model.ckpt`` layout, see
-        ``convert.from_torch``); ``use_ema`` takes the UNet's LitEma
-        shadows.  Raises on a missing file, an unmapped or missing key, or a
-        shape mismatch."""
+        ``sd-v1-4.ckpt``, LDM text2img-large's or the FFHQ/CelebA LDMs'
+        ``model.ckpt`` layout, see ``convert.from_torch``); ``use_ema``
+        takes the UNet's LitEma shadows.  Raises on a missing file, an
+        unmapped or missing key, or a shape mismatch."""
         core = cls(spec, device, dtype, folded_attn)
         sd = from_torch.load_torch_state_dict(path)
         unet_sd, fs_sd, cond_sd = from_torch.split_latent_diffusion_state(sd, use_ema)
-        convert_cond = (from_torch.convert_clip_text if spec.cond_kind == "clip"
-                        else from_torch.convert_ldm_bert)
-        for module, convert, part in ((core.unet, from_torch.convert_gd_unet, unet_sd),
-                                      (core.first_stage, from_torch.convert_vae, fs_sd),
-                                      (core.cond_model, convert_cond, cond_sd)):
+        parts = [(core.unet, from_torch.convert_gd_unet, unet_sd),
+                 (core.first_stage, from_torch.convert_vae, fs_sd)]
+        if core.cond_model is not None:
+            parts.append((core.cond_model, {"clip": from_torch.convert_clip_text,
+                                            "bert": from_torch.convert_ldm_bert}[spec.cond_kind],
+                          cond_sd))
+        elif cond_sd:
+            raise KeyError(f"unmapped cond-stage key of an unconditional model: "
+                           f"{from_torch.COND_PREFIX}{next(iter(cond_sd))}")
+        for module, convert, part in parts:
             module.load_state_dict(convert(part, module), strict=True)
         return core
 
@@ -195,45 +245,171 @@ class LatentDiffusionCore:
                                if k.startswith(prefix + ".")}, strict=True)
 
     def _named_modules(self):
-        return (("unet", self.unet), ("first_stage", self.first_stage),
-                ("cond_model", self.cond_model))
+        named = (("unet", self.unet), ("first_stage", self.first_stage),
+                 ("cond_model", self.cond_model))
+        return tuple((name, m) for name, m in named if m is not None)
 
     # ---- model surface -------------------------------------------------- #
 
     @torch.no_grad()
-    def apply_model(self, x, t, context):
+    def apply_model(self, x, t, context=None):
         """fp32 NHWC latent -> fp32 eps, the UNet running in the core dtype."""
-        return self.unet(x.to(self.dtype), t, context.to(self.dtype)).float()
+        return self.unet(x.to(self.dtype), t, self._ctx(context)).float()
 
     @torch.no_grad()
-    def apply_model_cached(self, x, t, context, encoder_cache=None):
+    def apply_model_cached(self, x, t, context=None, encoder_cache=None):
         """The fast mode's UNet call: ``(fp32 eps, cache)``; given a cache,
         the decoder half alone runs on it (see ``GDUNet.forward``)."""
-        eps, cache = self.unet(x.to(self.dtype), t, context.to(self.dtype),
+        eps, cache = self.unet(x.to(self.dtype), t, self._ctx(context),
                                encoder_cache=encoder_cache, return_cache=True)
         return eps.float(), cache
 
+    def _ctx(self, context):
+        return None if context is None else context.to(self.dtype)
+
     @torch.no_grad()
     def get_learned_conditioning(self, token_ids):
+        if self.cond_model is None:
+            raise ValueError(f"{self.spec.name} has no conditioning model")
         ids = torch.as_tensor(np.asarray(token_ids), dtype=torch.int64,
                               device=self.device)
         return self.cond_model(ids)
 
     @torch.no_grad()
-    def encode_first_stage(self, image_m11, noise):
-        """[-1,1] NHWC image -> x0 latent: the KL posterior sampled with
-        ``noise`` (fp32), times the scale factor."""
-        moments = self.first_stage.encode_moments(image_m11.to(self.dtype)).float()
+    def encode_first_stage(self, image_m11, noise=None):
+        """[-1,1] NHWC image -> x0 latent (fp32), times the scale factor: the
+        KL posterior sampled with ``noise``, or the VQ encoder's
+        pre-quantisation latent (no noise)."""
+        image = image_m11.to(self.dtype)
+        if self.spec.fs_kind == "vq":
+            return self.first_stage.encode(image).float() * self.spec.scale_factor
+        if noise is None:
+            raise ValueError("the KL first stage's posterior sample needs noise")
+        moments = self.first_stage.encode_moments(image).float()
         return DiagonalGaussian(moments).sample(noise) * self.spec.scale_factor
 
     @torch.no_grad()
     def decode_first_stage(self, z):
-        """Latent -> [-1,1] NHWC image (fp32)."""
-        z = (z / self.spec.scale_factor).to(self.dtype)
-        return self.first_stage.decode(z).float()
+        """Latent -> [-1,1] NHWC image (fp32).  The VQ decoder quantises the
+        fp32 latent, then runs in the core dtype."""
+        z = z / self.spec.scale_factor
+        return self.first_stage.decode(
+            z if self.spec.fs_kind == "vq" else z.to(self.dtype)).float()
 
     def make_ddim_schedule(self, custom_steps: int, eta: float):
         betas = schedule.make_beta_schedule(
             "linear", self.spec.num_timesteps,
             linear_start=self.spec.linear_start, linear_end=self.spec.linear_end)
         return schedule.DDIMSchedule.create(betas, custom_steps, eta)
+
+
+class LatentDiffStochasticPipeline:
+    """Unconditional latent DPM-Encoder pipeline (FFHQ / CelebA-HQ).
+
+    * ``encode(image01, generator)`` -> ``z = (x_T, eps_1..eps_n)`` per image,
+      flattened to ``latent_dim = image_size^2 * channels * white_box_steps``
+      (x_T first, every entry NHWC-flattened).
+    * ``sample(z, generator)`` -> the latent that ``generate`` decodes: the
+      eps replay (``ddim_decode``), then, with ``refine_steps > 0``,
+      ``ddim_refine`` at the pipeline's own ``eta`` (the JAX pipeline passes
+      its one schedule to the refine; see ROADMAP §C).
+    * ``generate(z, generator)`` -> [-1, 1] NHWC images; ``__call__`` maps
+      them to [0, 1].
+
+    The noise seams replace the generator's draws: ``vae_noise`` (a KL first
+    stage's posterior), ``xT_noise`` and ``posterior_noises`` of the encode
+    chain, and the refine's ``q_noise`` and ``chain_eps``.  The draws come in
+    that order from one generator.  ``fast_key_every > 1`` runs both chains
+    with encoder caching; the refine runs exact, as in JAX.
+    ``unconditional_guidance_scale`` is accepted and unused, as in JAX."""
+
+    def __init__(self, core: LatentDiffusionCore, *, custom_steps: int, eta: float,
+                 white_box_steps: int, refine_steps: int = 0,
+                 enforce_class_input: Optional[bool] = None,
+                 unconditional_guidance_scale: Optional[float] = None,
+                 fast_key_every: Optional[int] = None):
+        if enforce_class_input:
+            raise NotImplementedError("class-conditional latent sampling is plumbed but not "
+                                      "implemented, as in the reference")
+        if eta <= 0:
+            raise ValueError("the DPM-Encoder needs eta > 0 (it divides by sigma)")
+        if white_box_steps > custom_steps + 1:
+            raise ValueError(f"white_box_steps={white_box_steps} > custom_steps + 1")
+        self.core = core
+        self.custom_steps = custom_steps
+        self.eta = eta
+        self.white_box_steps = white_box_steps
+        self.refine_steps = refine_steps
+        self.fast_key_every = fast_key_every
+        self.sched = core.make_ddim_schedule(custom_steps, eta)
+        spec = core.spec
+        self.resolution = spec.resolution
+        self.latent_dim = spec.image_size ** 2 * spec.channels * white_box_steps
+
+    @property
+    def _fast(self) -> bool:
+        return (self.fast_key_every or 0) > 1
+
+    def _cached_fns(self):
+        """(key_fn, reuse_fn) of the unconditional cached UNet call."""
+        core = self.core
+        return (lambda x, t: core.apply_model_cached(x, t),
+                lambda x, t, cache: core.apply_model_cached(x, t, None, cache)[0])
+
+    def encode(self, image01, generator: Optional[torch.Generator] = None,
+               class_label=None, *, vae_noise=None, xT_noise=None,
+               posterior_noises=None) -> torch.Tensor:
+        """[0, 1] NHWC images -> z (B, latent_dim)."""
+        if class_label is not None:
+            raise NotImplementedError("class-conditional translation is not implemented")
+        core, spec = self.core, self.core.spec
+        image01 = torch.as_tensor(image01, dtype=torch.float32, device=core.device)
+        if not image01.shape[1] == image01.shape[2] == self.resolution:
+            raise ValueError(f"image {tuple(image01.shape)} is not "
+                             f"{self.resolution}x{self.resolution}")
+        image = (image01 - 0.5) * 2.0
+        if spec.fs_kind == "kl" and vae_noise is None:
+            vae_noise = torch.randn((image.shape[0], spec.image_size, spec.image_size,
+                                     spec.embed_dim), generator=generator,
+                                    device=core.device)
+        x0 = core.encode_first_stage(image, vae_noise)
+        kw = dict(white_box_steps=self.white_box_steps, xT_noise=xT_noise,
+                  posterior_noises=posterior_noises)
+        if self._fast:
+            xT, eps = dpm_encode_cached(*self._cached_fns(), self.sched, x0, generator,
+                                        key_every=self.fast_key_every, **kw)
+        else:
+            xT, eps = dpm_encode(core.apply_model, self.sched, x0, generator, **kw)
+        z = torch.cat([xT[None], eps], dim=0)
+        return z.transpose(0, 1).reshape(x0.shape[0], -1)
+
+    def sample(self, z, generator: Optional[torch.Generator] = None, *,
+               q_noise=None, chain_eps=None) -> torch.Tensor:
+        """z -> the latent sample: the replay, then the refine."""
+        spec = self.core.spec
+        if z.shape[1] != self.latent_dim:
+            raise ValueError(f"z of {z.shape[1]} values per image, expected {self.latent_dim}")
+        z = z.reshape(z.shape[0], self.white_box_steps, spec.image_size, spec.image_size,
+                      spec.channels)
+        xT, eps = z[:, 0], z[:, 1:].transpose(0, 1)
+        if self._fast:
+            x = ddim_decode_cached(*self._cached_fns(), self.sched, xT, eps, generator,
+                                   key_every=self.fast_key_every)
+        else:
+            x = ddim_decode(self.core.apply_model, self.sched, xT, eps, generator)
+        if self.refine_steps > 0:
+            x = ddim_refine(self.core.apply_model, self.sched, x, generator,
+                            refine_steps=self.refine_steps, q_noise=q_noise,
+                            chain_eps=chain_eps)
+        return x
+
+    def generate(self, z, generator: Optional[torch.Generator] = None, class_label=None,
+                 **noises) -> torch.Tensor:
+        """z -> [-1, 1] NHWC images (fp32); ``noises`` as in :meth:`sample`."""
+        if class_label is not None:
+            raise NotImplementedError("class-conditional translation is not implemented")
+        return self.core.decode_first_stage(self.sample(z, generator, **noises))
+
+    def __call__(self, z, generator: Optional[torch.Generator] = None, class_label=None,
+                 **noises) -> torch.Tensor:
+        return (self.generate(z, generator, class_label, **noises) + 1.0) / 2.0

@@ -16,9 +16,8 @@ _BASE = "cyclediffusion_tpu_torch"
 
 _FAMILIES = "ROADMAP §A queue item 3 (the other model families)"
 _NOT_PORTED = {
-    "tasks": {"unsupervised_translation": _FAMILIES},
-    "data.preprocess": {name: _FAMILIES for name in
-                        ("afhqcat256", "afhqwild256", "ffhq256", "tiny_images")},
+    "tasks": {},
+    "data.preprocess": {name: _FAMILIES for name in ("afhqcat256", "afhqwild256")},
     "evaluation": {"translate_to_dog": _FAMILIES},
     "visualization": {},
 }

@@ -1,5 +1,6 @@
 """Latent-family DDIM sampler: DPM-Encoder and eps-replay decoding, exact
-and with encoder caching (counterpart of ``cyclediffusion_tpu.samplers.ddim``).
+and with encoder caching, and the stochastic refine (counterpart of
+``cyclediffusion_tpu.samplers.ddim``).
 
 Each ``lax.scan`` of the JAX module is a Python loop here, one loop per
 chain kind shared by the exact and the cached variant (they differ only in
@@ -255,3 +256,29 @@ def ddim_decode_cached(
                          _key_schedule(max(sched.num_steps - skip_steps, 1), key_every,
                                        key_steps))
     return _decode_chain(step, sched, x_T, eps, generator, skip_steps, temperature)
+
+
+@torch.no_grad()
+def ddim_refine(
+    model_fn: EpsModel,
+    sched: DDIMSchedule,
+    x0: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    *,
+    refine_steps: int,
+    temperature: float = 1.0,
+    q_noise: Optional[torch.Tensor] = None,
+    chain_eps: Optional[torch.Tensor] = None,
+):
+    """Stochastic refinement: re-noise x0 to index ``refine_steps - 1``
+    (``x_t ~ q(x_t | x0)`` at ``alphas[refine_steps - 1]``), then a plain
+    DDIM decode over the last ``refine_steps`` indices at ``sched``'s eta.
+    ``q_noise`` (x0-shaped) and ``chain_eps`` (time-major ``(refine_steps,
+    B, H, W, C)``) replace the draws from ``generator``, in that order."""
+    if not 0 < refine_steps < sched.num_steps:
+        raise ValueError(f"refine_steps={refine_steps} must be in (0, {sched.num_steps})")
+    if q_noise is None:
+        q_noise = _randn(x0.shape, x0, generator)
+    xt = steps.q_sample(x0, sched.alphas[refine_steps - 1], q_noise)
+    return ddim_decode(model_fn, sched, xt, chain_eps, generator,
+                       skip_steps=sched.num_steps - refine_steps, temperature=temperature)

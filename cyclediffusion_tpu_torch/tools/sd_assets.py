@@ -79,11 +79,14 @@ def compvis_bert_name(port_name: str) -> str:
 
 
 def compvis_state_dict(core) -> Dict[str, torch.Tensor]:
-    """A ``LatentDiffusionCore``'s weights (on the CPU, in its dtype) under
-    CompVis names: with HF's CLIP names and ``position_ids`` buffer, or the
-    x-transformer's names and a zero ``to_logits`` head."""
+    """A ``LatentDiffusionCore``'s weights (on the CPU, in its dtype; a VQ
+    codebook in fp32) under CompVis names: with HF's CLIP names and
+    ``position_ids`` buffer, or the x-transformer's names and a zero
+    ``to_logits`` head, or no cond stage for an unconditional model."""
     sd = {UNET_PREFIX + k: v for k, v in core.unet.state_dict().items()}
     sd.update({FIRST_STAGE_PREFIX + k: v for k, v in core.first_stage.state_dict().items()})
+    if core.cond_model is None:
+        return {k: v.detach().cpu() for k, v in sd.items()}
     cond = core.cond_model.state_dict()
     if core.spec.cond_kind == "clip":
         sd.update({CLIP_TEXT_PREFIX + hf_clip_text_name(k): v for k, v in cond.items()})

@@ -3,6 +3,7 @@ or of the JAX package, and it refuses to run — exit code non-zero and no
 result line — both in a checkout and when it stands alone in a directory."""
 
 import ast
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -274,3 +275,116 @@ def test_cut_configs_of_the_fast_and_ldm_phases(smoke, tmp_path, cfg_name, model
     assert cut.gan.source_model_type == model_type
     assert getattr(cut.gan, "fast_key_every", None) == fast
     assert cut.arg_paths.to_dict() == full.arg_paths.to_dict()
+
+
+def test_unpaired_cut_config_and_expected_counts(smoke, tmp_path):
+    """Phase 10's config: the shipped FFHQ -> CelebA-HQ experiment with
+    ``UNPAIRED_CUTS`` (100 steps, white_box_steps 101, refine 40, eta 0.1),
+    the models and the task as shipped; 100 + 100 + 40 = 240 UNet calls per
+    batch, 5 K1 launches per call at the published widths, 1,200 in all."""
+    from cyclediffusion_tpu_torch.ops.flash_attention import attention_route
+    from cyclediffusion_tpu_torch.pipelines.latent import (
+        LatentCoreSpec,
+        LatentDiffStochasticPipeline,
+        LatentDiffusionCore,
+    )
+    from cyclediffusion_tpu_torch.runtime.config import config_root, get_config
+    from cyclediffusion_tpu_torch.samplers import num_recovered_eps
+
+    with open(os.path.join(config_root(), smoke.UNPAIRED_CFG)) as f:
+        text = f.read()
+    path = tmp_path / "cut.cfg"
+    path.write_text(smoke.cut_config(text, smoke.UNPAIRED_CUTS))
+    cut, full = get_config(str(path)), get_config(smoke.UNPAIRED_CFG)
+    g = cut.gan
+    assert (g.custom_steps, g.white_box_steps, g.refine_steps, g.eta) == (100, 101, 40, 0.1)
+    assert (g.source_model_type, g.target_model_type) == ("ffhq256", "celeba256")
+    assert set(smoke.UNPAIRED_MODELS) == {g.source_model_type, g.target_model_type}
+    kept = {k: v for k, v in full.to_dict().items() if k != "gan"}
+    assert {k: v for k, v in cut.to_dict().items() if k != "gan"} == kept
+    spec = LatentCoreSpec.ldm_ffhq256()
+    core = LatentDiffusionCore(dataclasses.replace(LatentCoreSpec.tiny(None, 16, "vq"),
+                                                   num_timesteps=1000), device="cpu")
+    pipe = LatentDiffStochasticPipeline(core, custom_steps=100, eta=0.1,
+                                        white_box_steps=101, refine_steps=40)
+    calls = smoke.unpaired_unet_calls(pipe, num_recovered_eps)
+    assert calls == {"source": 100, "target": 140}
+    per_call = smoke.launches_per_call(spec, attention_route)
+    assert per_call == {"flash_attention_bhtd": 5, "flash_attention_packed": 0}
+    assert sum(calls.values()) * per_call["flash_attention_bhtd"] == 1200
+    assert smoke.launches_per_call(spec, attention_route, reuse=True)[
+        "flash_attention_bhtd"] == 3
+
+
+def test_unpaired_calls_are_what_the_task_model_runs(smoke):
+    """``unpaired_unet_calls`` equals the UNet calls that the task model's
+    forward makes on the tiny unpaired config, per model, at the batch."""
+    import numpy as np
+    from cyclediffusion_tpu_torch.runtime.config import get_config
+    from cyclediffusion_tpu_torch.samplers import num_recovered_eps
+    from cyclediffusion_tpu_torch.tasks.unsupervised_translation import (
+        UnsupervisedTranslation,
+    )
+
+    model = UnsupervisedTranslation(get_config("experiments/tiny_unpaired_latent.cfg"),
+                                    device="cpu")
+    calls, batches = [], set()
+    for pipe in (model.source_gan_wrapper, model.target_gan_wrapper):
+        apply_model, i = pipe.core.apply_model, len(calls)
+        calls.append(0)
+
+        def counted(x, *a, i=i, apply_model=apply_model):
+            calls[i] += 1
+            batches.add(x.shape[0])
+            return apply_model(x, *a)
+        pipe.core.apply_model = counted
+    images = [np.full((16, 16, 3), v, np.float32) for v in (0.2, 0.5, 0.9)]
+    model.forward(np.array([0, 1, 2]), original_image=images)
+    want = smoke.unpaired_unet_calls(model.target_gan_wrapper, num_recovered_eps)
+    assert dict(zip(("source", "target"), calls)) == want == {"source": 8, "target": 11}
+    assert batches == {3}
+
+
+@pytest.mark.parametrize("reuse", [False, True])
+def test_launches_per_call_counts_the_attention_blocks(smoke, reuse, monkeypatch):
+    """The unconditional UNet's attention blocks count one launch each: the
+    helper's count equals the routed attention calls of a tiny unconditional
+    UNet call (16 tokens at ds 1 to K2, 4 at ds 2 to K1 under a test route)."""
+    import torch
+    from cyclediffusion_tpu_torch.ops import flash_attention as fa
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
+
+    def route(tq, tk):
+        return {16: "packed", 4: "bhtd"}.get(tq, "plain")
+
+    spec = LatentCoreSpec.tiny(None, 16, "vq")
+    core = LatentDiffusionCore.random_init(spec, device="cpu")
+    x, t = torch.randn(2, 4, 4, 4), torch.tensor([3, 4])
+    _, cache = core.apply_model_cached(x, t)
+    seen = {"flash_attention_bhtd": 0, "flash_attention_packed": 0}
+
+    def recording(tq, tk):
+        r = route(tq, tk)
+        if r != "plain":
+            seen[smoke.ROUTE_KERNELS[r]] += 1
+        return r
+
+    monkeypatch.setattr(fa, "attention_route", recording)
+    core.apply_model_cached(x, t, None, cache if reuse else None)
+    assert seen == smoke.launches_per_call(spec, route, reuse=reuse)
+    assert seen["flash_attention_packed"] and seen["flash_attention_bhtd"]
+
+
+@pytest.mark.parametrize("shape,gflop,bound_ms,floor_ms", [
+    ((3, 14, 1024, 1024, 32), 5.637, 0.0057, 0.0113),
+])
+def test_k1_work_and_bounds_at_the_ffhq_level(smoke, shape, gflop, bound_ms, floor_ms):
+    """K1 at the FFHQ/CelebA LDM's ds-2 level, batch 3: 5.6 GFLOP, bound by
+    operations at ~0.0057 ms on the H100; its exponentials take ~0.011 ms,
+    twice that."""
+    flops, _ = smoke.work("flash_attention_bhtd", shape, "bf16")
+    assert abs(flops / 1e9 - gflop) < 0.005
+    ms, by = smoke.bound_of("flash_attention_bhtd", shape, "bf16")
+    assert by == "operations" and ms == pytest.approx(bound_ms, abs=5e-5)
+    assert smoke.exp_floor_ms("flash_attention_bhtd", shape) == pytest.approx(floor_ms,
+                                                                              abs=5e-5)

@@ -115,6 +115,9 @@ def test_packaged_configs_equal_the_jax_packages(name):
     (registry.get_preprocessor, "translate_text512", "Preprocessor"),
     (registry.get_evaluator, "multi_task", "Evaluator"),
     (registry.get_visualizer, "multi_image", "Visualizer"),
+    (registry.get_model, "unsupervised_translation", "UnsupervisedTranslation"),
+    (registry.get_preprocessor, "ffhq256", "Preprocessor"),
+    (registry.get_preprocessor, "tiny_images", "Preprocessor"),
 ])
 def test_registry_resolves_in_the_port(getter, name, symbol):
     cls = getter(name)
@@ -122,7 +125,7 @@ def test_registry_resolves_in_the_port(getter, name, symbol):
 
 
 @pytest.mark.parametrize("getter,name", [
-    (registry.get_model, "unsupervised_translation"),
+    (registry.get_preprocessor, "afhqwild256"),
     (registry.get_preprocessor, "afhqcat256"),
     (registry.get_evaluator, "translate_to_dog"),
 ])

@@ -93,7 +93,9 @@ def test_port_imports_without_jax():
         "        'data.preprocess.to_model', 'evaluation.utils', 'evaluation.translate_text',\n"
         "        'evaluation.multi_task', 'evaluation.empty', 'visualization.multi_image',\n"
         "        'tools.sd_assets', 'samplers.ddim', 'ops.cfg', 'models.text_encoders',\n"
-        "        'models.unet_gd', 'pipelines.latent', 'convert.from_torch'}\n"
+        "        'models.unet_gd', 'pipelines.latent', 'convert.from_torch',\n"
+        "        'tasks.unsupervised_translation', 'data.preprocess.ffhq256',\n"
+        "        'data.preprocess.tiny_images', 'tools.ldm_assets'}\n"
         "from cyclediffusion_tpu_torch.samplers import dpm_encode_cached, ddim_decode_cached\n"
         "from cyclediffusion_tpu_torch.ops.cfg import cfg_model_fn_pair\n"
         "from cyclediffusion_tpu_torch.models.text_encoders import LDMBertEncoder\n"
@@ -101,6 +103,10 @@ def test_port_imports_without_jax():
         "from cyclediffusion_tpu_torch.convert.from_torch import convert_ldm_bert\n"
         "from cyclediffusion_tpu_torch.pipelines.latent_text import (\n"
         "    latentdiff_stochastic_text_pipeline)\n"
+        "from cyclediffusion_tpu_torch.pipelines.latent import LatentDiffStochasticPipeline\n"
+        "from cyclediffusion_tpu_torch.models.autoencoder import VQModel\n"
+        "from cyclediffusion_tpu_torch.models.nn import GDAttentionBlock\n"
+        "from cyclediffusion_tpu_torch.samplers import ddim_refine\n"
         "missing = {w for w in want if 'cyclediffusion_tpu_torch.' + w not in names}\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules"

@@ -233,8 +233,18 @@ def test_factory_reads_the_folded_attn_env(monkeypatch):
 
 
 @pytest.mark.parametrize("gan_type", ["LatentDiffStochastic", "DDPM_DDIM", "Unknown"])
-def test_factory_refuses_other_gan_types(gan_type):
+def test_factory_refuses_other_gan_types(gan_type, tmp_path, monkeypatch):
+    """``DDPM_DDIM`` is not ported (ROADMAP item 3), an unknown gan_type is
+    refused, and ``LatentDiffStochastic`` (ported) refuses a published model
+    whose checkpoint is absent: it has no random weights."""
     gan = [("gan_type", gan_type), ("source_model_type", "tiny")]
+    if gan_type == "LatentDiffStochastic":
+        monkeypatch.setenv("CYCLEDIFFUSION_CKPT_ROOT", str(tmp_path))
+        gan = [("gan_type", gan_type), ("source_model_type", "ffhq256"),
+               ("custom_steps", 4), ("eta", 0.1), ("white_box_steps", 5)]
+        with pytest.raises(FileNotFoundError, match="ffhq256"):
+            factory.get_gan_wrapper(gan, device="cpu")
+        return
     with pytest.raises(ValueError if gan_type == "Unknown" else NotImplementedError,
                        match=gan_type if gan_type == "Unknown" else "ROADMAP §A queue item 3"):
         factory.get_gan_wrapper(gan, device="cpu")

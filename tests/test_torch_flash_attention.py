@@ -25,11 +25,13 @@ def _qkv(shape_q, shape_kv, seed=0):
     return q, k, v
 
 
-# the last three: chip_smoke.py's ragged K1 shapes, Tq and Tk off the CUDA
-# kernel's 128-row q and key tiles, one key axis shorter than a tile
+# then: chip_smoke.py's ragged K1 shapes, Tq and Tk off the CUDA kernel's
+# 128-row q and key tiles, one key axis shorter than a tile; d = 32 at the
+# FFHQ/CelebA LDM's 1024 tokens and at a ragged length
 @pytest.mark.parametrize("tq,tk,d", [(300, 512, 40), (1024, 512, 80),
                                      (1024, 77, 40), (512, 200, 64),
-                                     (300, 333, 40), (200, 77, 64), (333, 515, 80)])
+                                     (300, 333, 40), (200, 77, 64), (333, 515, 80),
+                                     (1024, 1024, 32), (300, 333, 32)])
 def test_bhtd_plain_matches_pallas_fp32(tq, tk, d):
     b, h = 1, 2
     q, k, v = _qkv((b, h, tq, d), (b, h, tk, d))
@@ -43,7 +45,8 @@ def test_bhtd_plain_matches_pallas_fp32(tq, tk, d):
 
 # (1000, 1100, 40, 8): chip_smoke.py's ragged K2 shape, off the 128-row tiles
 @pytest.mark.parametrize("tq,tk,d,heads", [(2048, 2048, 40, 8), (1024, 77, 40, 8),
-                                           (300, 200, 64, 4), (1000, 1100, 40, 8)])
+                                           (300, 200, 64, 4), (1000, 1100, 40, 8),
+                                           (300, 200, 32, 14)])
 def test_packed_plain_matches_pallas_fp32(tq, tk, d, heads):
     b = 2
     q, k, v = _qkv((b, tq, heads * d), (b, tk, heads * d))
@@ -138,3 +141,28 @@ def test_kernel_input_checks_refuse_non_cuda_tensors():
     q = torch.zeros(1, 2, 64, 40, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_bhtd(q, q, q, 1.0)
+
+
+def test_dispatcher_at_the_ffhq_level_matches_jax_fp32():
+    """The FFHQ/CelebA LDM's ds-2 attention through the dispatcher: 1024
+    tokens of 14 heads x 32 (the K1 route) against the JAX dispatcher."""
+    b, t, heads, d = 1, 1024, 14, 32
+    q, k, v = _qkv((b, t, heads * d), (b, t, heads * d), seed=3)
+    assert fa.attention_route(t, t) == "bhtd"
+    want = jfa.multi_head_attention_fused(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v), heads)
+    got = fa.multi_head_attention_fused(to_torch(q), to_torch(k), to_torch(v), heads)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d,accepted", [(32, True), (40, True), (48, False), (96, False)])
+def test_head_dims_the_wrappers_take(d, accepted):
+    """K1/K2 take d in SUPPORTED_HEAD_DIMS (32 for the FFHQ/CelebA LDM);
+    K3/K4 keep 40, 64, 80, the dims phase 3 holds them at on the card, and
+    refuse any other before a launch."""
+    assert (d in fa.SUPPORTED_HEAD_DIMS) == accepted
+    assert set(fa.FOLDED_HEAD_DIMS) == {40, 64, 80}
+    if d not in fa.FOLDED_HEAD_DIMS:
+        with pytest.raises(ValueError, match=f"head dim {d}"):
+            fa._check_folded_limits("qout_self_attention_block", torch.bfloat16, 1, 64, 64,
+                                    64, d, 2)
