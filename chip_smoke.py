@@ -77,6 +77,19 @@ Phases (each prints its results; any failure exits non-zero):
    + 100 replay + 40 refine UNet calls, 5 K1 launches at d = 32 each, none
    of K2-K4), an fp32 round trip on the latent (bounded at 50 steps as
    phase 5's, read at 100), the batch-3 UNet step eager and graph-replayed.
+11. Unpaired translation in pixel space, AFHQ cat -> dog (``DDPM_DDIM``),
+   at the published widths (the improved-DDPM ``afhq256`` UNet, 93,563,910
+   params, fp32): two seeded improved-diffusion checkpoints (cat, dog)
+   loaded bit for bit through the factory, a seeded pytorch-fid Inception,
+   synthetic 512 px cat and dog PNGs, ``main`` on the shipped experiment
+   cut to 100 encode steps of its 1000-step grid and refine 20 (99 source
+   + 120 target UNet calls at batch 2, no kernel launch: its attention is
+   at 256 tokens and fewer), under PyTorch's default flags as a user runs
+   it (cuDNN's convolutions in TF32), ``translate_to_dog``'s PSNR / SSIM /
+   L2 / FID / KID; the card's Inception against the CPU's; an fp32 round
+   trip with TF32 off (the replay's states against the encode chain's);
+   the batch-2 UNet call eager and graph-replayed in fp32 (TF32 off and
+   on) and bf16 beside its operation bound.
 
 Each phase prints its peak device memory.  The last three lines of output
 are the card's name and power limit, the kernels' JSON record and the
@@ -85,6 +98,7 @@ result ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -118,6 +132,7 @@ KEY1_REL_BOUND = 1e-6
 # the card's published peaks (H100 SXM, dense): bf16 tensor cores, fp32 CUDA
 # cores, HBM bandwidth
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+TF32_FLOPS = 495e12     # TF32 tensor cores, dense
 PEAK_BYTES = 3.35e12
 # exponentials per second of the H100 SXM's special-function units (FA3
 # paper, Shah et al. 2024, sec. 3): one per logit sets a floor under K1/K2
@@ -578,33 +593,50 @@ METRIC_KEYS = ["eval_translate/psnr", "eval_translate/ssim", "eval_translate/l2"
                "eval_translate/clip", "eval_translate/d-clip", "eval_avr"]
 
 
-def cut_config(text: str, cuts: dict) -> str:
+def cut_config(text: str, cuts: dict, adds: dict = None) -> str:
     """An experiment cfg's text with each ``(section, key)`` of ``cuts`` set
-    to its value and every other line kept; raises if a key is absent."""
+    to its value, each of ``adds`` appended to its section, and every other
+    line kept; raises if a key of ``cuts`` is absent or one of ``adds``
+    present, or a section of ``adds`` is absent."""
+    adds = dict(adds or {})
     out, section, seen = [], None, set()
+
+    def flush(sec):
+        for (s, key), value in list(adds.items()):
+            if s == sec:
+                out.append(f"{key} = {value}")
+                del adds[(s, key)]
+
     for line in text.splitlines():
         stripped = line.strip()
         if stripped.startswith("[") and stripped.endswith("]"):
+            flush(section)
             section = stripped[1:-1]
         elif "=" in stripped and not stripped.startswith("#"):
             key = stripped.split("=", 1)[0].strip()
+            if (section, key) in adds:
+                raise ValueError(f"{(section, key)} is in the config already")
             if (section, key) in cuts:
                 line = f"{key} = {cuts[(section, key)]}"
                 seen.add((section, key))
         out.append(line)
-    if set(cuts) - seen:
-        raise ValueError(f"keys not in the config: {sorted(set(cuts) - seen)}")
+    flush(section)
+    if set(cuts) - seen or adds:
+        raise ValueError(f"keys not in the config: {sorted(set(cuts) - seen)}; sections "
+                         f"not in it: {sorted(adds)}")
     return "\n".join(out) + "\n"
 
 
-def expected_cli_files(n_samples: int, per_sample: bool = True) -> list:
+def expected_cli_files(n_samples: int, per_sample: bool = True, csv: bool = True) -> list:
     """The files an eval run of the CLI writes under its output directory;
     without ``per_sample`` (the ``empty`` task evaluator of the unpaired
-    experiments) no CSV and no sample PNGs."""
+    experiments) no CSV and no sample PNGs; without ``csv`` (the AFHQ
+    experiments' ``translate_to_dog``) the sample PNGs and no CSV."""
     files = ["all_results.json", "eval_results.json",
              "visualization/eval_000000.png", "visualization/eval_256_000000.png"]
     if per_sample:
-        files += ["eval_results.csv"] + [f"temp_gen/{i}.png" for i in range(n_samples)]
+        files += [f"temp_gen/{i}.png" for i in range(n_samples)]
+        files += ["eval_results.csv"] if csv else []
     return sorted(files)
 
 
@@ -1414,6 +1446,316 @@ def phase_unpaired(torch, fa, root, num_recovered_eps):
     return counts
 
 
+# phase 11: the shipped AFHQ cat -> dog experiment, cut to a smoke run: 100
+# of the 850 encode steps on the shipped 1000-step grid, refine 20 of 100
+AFHQ_CFG = "experiments/translate_afhqcat256_to_afhqdog256_ddim_eta01.cfg"
+AFHQ_CUTS = {("gan", "es_steps"): "100", ("gan", "refine_steps"): "20"}
+AFHQ_ADDS = {("raw_data", "eval_num"): "2"}
+AFHQ_SAMPLES = 2            # eval_num of AFHQ_CATS cats, one batch
+AFHQ_CATS, AFHQ_DOGS = 3, 4
+# checkpoint key of the [gan] section -> weight seed (the cat model, the dog model)
+AFHQ_MODELS = {"source_model_path": 0, "target_model_path": 1}
+AFHQ_METRICS = ["eval_translate/psnr", "eval_translate/ssim", "eval_translate/l2",
+                "eval_translate/fid", "eval_translate/kid", "eval_avr"]
+# pool3 features of the fp32 Inception on the card against the same module
+# on the CPU, max abs error / max|CPU|: fp32 both ways (TF32 off), but cuDNN's
+# convolution algorithms round otherwise than the CPU's over ~100 layers
+INCEPTION_REL_BOUND = 1e-3
+# the pixel round trip: the replay's states x_t against the encode chain's,
+# max abs on [-1, 1] pixels, fp32 UNet (TF32 off)
+PIXEL_TRAJECTORY_BOUND = 1e-3
+
+
+@contextlib.contextmanager
+def torch_default_backends(torch):
+    """PyTorch's own backend flags inside the block, as a user's CLI run has
+    them (cuDNN's convolutions in TF32, matmuls in fp32, cuDNN neither
+    deterministic nor benchmarking); the smoke's own after it."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic, cudnn.benchmark)
+    cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic, cudnn.benchmark = (
+        True, False, False, False)
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic, cudnn.benchmark = saved
+
+
+def pixel_unet_calls(pipe) -> dict:
+    """UNet calls of one batch through the pixel task: the source model's
+    encode chain, the target model's replay and its refine chains."""
+    return {"source": pipe.es_steps - 1,
+            "target": pipe.es_steps + pipe.refine_steps * pipe.refine_iterations}
+
+
+def pixel_round_trip(torch, pipe, images, generator):
+    """Encode, then replay on the same pipeline (no refine) -> (max|replay
+    state - encode state| over the x_t both chains give the UNet, t > 0;
+    max|image - x0|).  The second is a reading: the replay's last step (t =
+    0 -> -1) is the model's x0 prediction from x_0', which misses x0 by
+    sqrt(1 - a_0) times the model's eps error there."""
+    seen = {}
+    model_fn = pipe._model_fn
+
+    def spy(x, t):
+        seen.setdefault(int(t[0]), []).append(x.clone())
+        return model_fn(x, t)
+
+    pipe._model_fn = spy
+    try:
+        out = pipe.generate(pipe.encode(images, generator), generator)
+    finally:
+        del pipe._model_fn
+    pairs = [xs for t, xs in seen.items() if t > 0]
+    if any(len(xs) != 2 for xs in pairs) or len(seen.get(0, ())) != 1:
+        raise ValueError(f"the chains called the UNet at {sorted(seen)} "
+                         f"{[len(v) for v in seen.values()]} times")
+    traj = max(float((b - a).abs().max()) for a, b in pairs)
+    x0 = torch.as_tensor(images, device=out.device) * 2.0 - 1.0
+    return traj, float((out - x0).abs().max())
+
+
+def write_afhq_assets(torch, root, gan):
+    """Phase 11, first step: the cat and dog models as seeded full-width
+    improved-diffusion checkpoints at the config's paths under ``root``,
+    the seeded Inception state dict, and synthetic 512 px cat and dog PNGs
+    in the stargan-v2 layout -> ({checkpoint key: the written model},
+    Inception path)."""
+    import numpy as np
+
+    from cyclediffusion_tpu_torch.data.png import write_png
+    from cyclediffusion_tpu_torch.pipelines import zoo
+    from cyclediffusion_tpu_torch.tools import pixel_assets
+
+    models = {}
+    for key, seed in AFHQ_MODELS.items():
+        spec = zoo.PIXEL_ZOO[getattr(gan, key.replace("_path", "_type"))]
+        t0 = time.perf_counter()
+        with torch.device("cuda"):
+            model = zoo.build_pixel_model(spec)
+        zoo.init_random_params(model, torch.Generator(device="cuda").manual_seed(seed))
+        path = os.path.join(root, getattr(gan, key))
+        t1 = time.perf_counter()
+        nbytes = pixel_assets.write_pixel_checkpoint(model, path)
+        say(f"afhq: {spec.name} {sum(p.numel() for p in model.parameters()):,} params (fp32), "
+            f"random init {t1 - t0:.2f} s; {path}: {nbytes:,} bytes written in "
+            f"{time.perf_counter() - t1:.2f} s")
+        models[key] = model
+    inception = os.path.join(root, "pt_inception-2015-12-05.pth")
+    say(f"afhq: {inception}: {pixel_assets.write_inception_checkpoint(inception, seed=2):,} "
+        f"bytes (seeded pytorch-fid layout)")
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    for split, n in (("cat", AFHQ_CATS), ("dog", AFHQ_DOGS)):
+        d = os.path.join(root, "stargan-v2", "data", "test", split)
+        os.makedirs(d, exist_ok=True)
+        for i in range(n):
+            small = torch.rand((1, 3, 16, 16), generator=gen, device="cuda")
+            img = torch.nn.functional.interpolate(small, size=(512, 512), mode="bilinear",
+                                                  align_corners=False)[0].permute(1, 2, 0)
+            write_png(os.path.join(d, f"flickr_{split}_{i:06d}.png"),
+                      (img * 255).round().to(torch.uint8).cpu().numpy().astype(np.uint8))
+    say(f"afhq: {AFHQ_CATS} cat and {AFHQ_DOGS} dog synthetic 512x512 PNGs under "
+        f"{os.path.join(root, 'stargan-v2')}")
+    return models, inception
+
+
+def phase_afhq(torch, fa, root):
+    """Phase 11: the AFHQ cat -> dog experiment through the CLI on two
+    seeded full-width improved-DDPM checkpoints (fp32, loaded bit for bit,
+    TF32 convolutions as PyTorch's defaults have it), FID / KID on the
+    seeded Inception; the card's Inception against the CPU's; an fp32 pixel
+    round trip; the batch-2 UNet call eager and graph-replayed; fails
+    unless the path launched none of K1-K4."""
+    import copy
+
+    import numpy as np
+
+    from cyclediffusion_tpu_torch import main as cli
+    from cyclediffusion_tpu_torch.data.png import read_png
+    from cyclediffusion_tpu_torch.evaluation import fid
+    from cyclediffusion_tpu_torch.evaluation.utils import to_uint8
+    from cyclediffusion_tpu_torch.models.inception import inception_pool3_features
+    from cyclediffusion_tpu_torch.pipelines.ddpm_ddim import DDPMDDIMPipeline
+    from cyclediffusion_tpu_torch.runtime.config import config_root, get_config
+    from cyclediffusion_tpu_torch.tasks.unsupervised_translation import UnsupervisedTranslation
+    from cyclediffusion_tpu_torch.tools.pixel_probe import unet_flops
+    from cyclediffusion_tpu_torch.tools.step_probe import eager_ms, graph_ms, graph_of
+
+    torch.cuda.reset_peak_memory_stats()
+    with open(os.path.join(config_root(), AFHQ_CFG)) as f:
+        cfg_text = cut_config(f.read(), AFHQ_CUTS, AFHQ_ADDS)
+    cfg = os.path.join(root, "afhq.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    gan = get_config(cfg).gan
+    written, inception = write_afhq_assets(torch, root, gan)
+    os.environ["CYCLEDIFFUSION_CKPT_ROOT"] = root
+    os.environ["CYCLEDIFFUSION_DATA_ROOT"] = root
+    os.environ[fid.INCEPTION_CKPT_ENV] = inception
+    out_dir = os.path.join(root, "afhq")
+    say(f"afhq: {AFHQ_CFG} cut to {AFHQ_CUTS} plus {AFHQ_ADDS}, batch {AFHQ_SAMPLES}")
+
+    # spies: the pipelines the factory loads (load time, UNet calls and
+    # batch sizes per pipeline), the task's images
+    seen = {"pipes": [], "load_s": [], "batches": set(), "images": []}
+    calls = []
+    from_ckpt = DDPMDDIMPipeline.from_torch_ckpt
+    forward = UnsupervisedTranslation.forward
+
+    def spy_from_ckpt(*a, **k):
+        t0 = time.perf_counter()
+        pipe = from_ckpt(*a, **k)
+        torch.cuda.synchronize()
+        seen["load_s"].append(time.perf_counter() - t0)
+        model_fn, i = pipe._model_fn, len(calls)
+        calls.append(0)
+
+        def counted(x, t):
+            calls[i] += 1
+            seen["batches"].add(x.shape[0])
+            return model_fn(x, t)
+
+        pipe._model_fn = counted
+        seen["pipes"].append(pipe)
+        return pipe
+
+    def spy_forward(self, *a, **k):
+        out = forward(self, *a, **k)
+        seen["images"].append((out[0][0], out[0][1]))
+        return out
+
+    argv = ["--cfg", cfg, "--output_dir", out_dir, "--seed", "42", "--do_eval",
+            "--per_device_eval_batch_size", str(AFHQ_SAMPLES)]
+    DDPMDDIMPipeline.from_torch_ckpt = spy_from_ckpt
+    UnsupervisedTranslation.forward = spy_forward
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with torch_default_backends(torch):
+            metrics = cli.main(argv)
+            torch.cuda.synchronize()
+    finally:
+        DDPMDDIMPipeline.from_torch_ckpt = from_ckpt
+        UnsupervisedTranslation.forward = forward
+    secs = time.perf_counter() - t0
+    counts = dict(fa.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+
+    if len(seen["pipes"]) != 2:
+        fail(f"afhq: the CLI loaded {len(seen['pipes'])} pipelines, expected 2")
+    for (key, ref), pipe, load_s in zip(written.items(), seen["pipes"], seen["load_s"]):
+        del pipe._model_fn                              # the spy
+        want_sd, got_sd = ref.state_dict(), pipe.model.state_dict()
+        differ = [k for k in want_sd if not torch.equal(want_sd[k], got_sd[k])]
+        if want_sd.keys() != got_sd.keys() or differ or pipe.dtype != torch.float32:
+            fail(f"afhq: the {key} pipeline ({pipe.dtype}) differs from the written "
+                 f"model: {differ[:4]}")
+        say(f"afhq: {pipe.spec.name} loaded in {load_s:.2f} s ({pipe.dtype}) equals the "
+            f"written model bit for bit")
+    pipe = seen["pipes"][1]
+    want_calls = pixel_unet_calls(pipe)
+    got_calls = dict(zip(("source", "target"), calls))
+    say(f"afhq: UNet calls {got_calls} (expected {want_calls}) at batch "
+        f"{sorted(seen['batches'])}; kernel launches {counts}")
+    if got_calls != want_calls or seen["batches"] != {AFHQ_SAMPLES}:
+        fail(f"afhq: UNet calls {got_calls} at batch {seen['batches']}, expected "
+             f"{want_calls} at {AFHQ_SAMPLES}")
+    if any(counts.values()):
+        fail(f"afhq: the pixel path launched a kernel: {counts} (its attention has <= 256 "
+             f"tokens, which go plain)")
+
+    files = sorted(os.path.relpath(os.path.join(d, f), out_dir)
+                   for d, _, fs in os.walk(out_dir) for f in fs)
+    want_files = expected_cli_files(AFHQ_SAMPLES, csv=False)
+    with open(os.path.join(out_dir, "eval_results.json")) as f:
+        results = json.load(f)
+    bad = [k for k in AFHQ_METRICS
+           if not isinstance(results.get(k), float) or not math.isfinite(results[k])]
+    if files != want_files or bad or results.get("eval_samples") != AFHQ_SAMPLES \
+            or len(seen["images"]) != 1:
+        fail(f"afhq: the CLI wrote {files} (expected {want_files}); non-finite or missing "
+             f"{bad} in {results}; {len(seen['images'])} batches")
+    if any("_feat" in k for k in results):
+        fail(f"afhq: FID/KID fell back from the Inception asset: {sorted(results)}")
+    orig, img = seen["images"][0]
+    returned = img.float().cpu().numpy()
+    for i in range(AFHQ_SAMPLES):
+        png = read_png(os.path.join(out_dir, "temp_gen", f"{i}.png"))
+        if png.shape != (256, 256, 3) or not np.array_equal(
+                png, to_uint8(np.clip(returned[i], 0, 1))):
+            fail(f"afhq: temp_gen/{i}.png is not the returned image {i} in uint8")
+    say(f"afhq: {files}; images {tuple(img.shape)}, range [{float(img.min()):.4f}, "
+        f"{float(img.max()):.4f}]")
+    say(f"afhq: metrics {{{', '.join(f'{k}: {results[k]:.6g}' for k in AFHQ_METRICS)}}}")
+    say(f"afhq: eval_runtime {results['eval_runtime']} s, eval_samples_per_second "
+        f"{results['eval_samples_per_second']}; the whole CLI call {secs:.2f} s, under "
+        f"PyTorch's default flags (fp32 UNet, cuDNN convolutions in TF32); peak device "
+        f"memory {peak / 2**30:.2f} GiB")
+    if metrics.get("eval_samples") != AFHQ_SAMPLES:
+        fail(f"afhq: main() returned {metrics}")
+
+    # the card's Inception against the same module on the CPU
+    (model, native), = fid._INCEPTION_CACHE.values()      # the evaluator's module
+    if not native:
+        fail("afhq: the Inception asset did not load as a state dict")
+    x = fid.resize_299_bicubic(img.float().clamp(0, 1))
+    on_card = inception_pool3_features(model, x).cpu()
+    on_cpu = inception_pool3_features(copy.deepcopy(model).cpu(), x.cpu())
+    rel = float((on_card - on_cpu).abs().max() / on_cpu.abs().max())
+    say(f"afhq: Inception pool3 ({tuple(on_cpu.shape)}, fp32) card vs CPU: max abs err "
+        f"{rel:.3e} of max|CPU| {float(on_cpu.abs().max()):.4f} (bound "
+        f"{INCEPTION_REL_BOUND:.0e})")
+    if not rel <= INCEPTION_REL_BOUND:
+        fail(f"afhq: the card's Inception differs from the CPU's by {rel}")
+
+    # fp32 round trip on the cat model: 100 steps of the shipped grid, no refine
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    src = seen["pipes"][0]
+    rt = DDPMDDIMPipeline(src.spec, src.model, custom_steps=1000, es_steps=100, eta=0.1,
+                          refine_steps=0)
+    traj, x0_err = pixel_round_trip(torch, rt, orig,
+                                    torch.Generator(device="cuda").manual_seed(72))
+    say(f"round trip, AFHQ pixel UNet fp32 (TF32 off), {AFHQ_SAMPLES} images, 100 steps: "
+        f"max|replay x_t - encode x_t| = {traj:.3e} (bound {PIXEL_TRAJECTORY_BOUND:.0e}); "
+        f"max|image - x0| = {x0_err:.3e} (a reading: the last step predicts x0)")
+    if not traj <= PIXEL_TRAJECTORY_BOUND:
+        fail(f"afhq: the replay left the encode trajectory by {traj}")
+
+    # the batch-2 UNet call, eager and graph-replayed: fp32 (TF32 off), fp32
+    # with cuDNN's TF32 convolutions (the CLI's default), bf16
+    flops = unet_flops(src.model, AFHQ_SAMPLES)
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    x = torch.randn((AFHQ_SAMPLES, 256, 256, 3), generator=gen, device="cuda")
+    t = torch.full((AFHQ_SAMPLES,), 500, dtype=torch.int64, device="cuda")
+    bf16 = copy.deepcopy(src.model).to(torch.bfloat16)
+    for name, model, flags, peak_flops in (
+            ("fp32", src.model, contextlib.nullcontext, PEAK_FLOPS["fp32"]),
+            ("fp32, TF32 convolutions", src.model, functools.partial(torch_default_backends,
+                                                                     torch), TF32_FLOPS),
+            ("bf16", bf16, contextlib.nullcontext, PEAK_FLOPS["bf16"])):
+        step = functools.partial(model, x.to(next(model.parameters()).dtype), t)
+        with torch.no_grad(), flags():
+            graph, out = graph_of(step)
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(out, step()):
+                fail(f"afhq: the {name} UNet call's graph replay differs from its eager call")
+            bound = 1e3 * flops / peak_flops
+            for _ in range(2):
+                host, dev = eager_ms(step, 10)
+                rep = graph_ms(graph, 10)
+                say(f"afhq: AFHQ UNet call at batch {AFHQ_SAMPLES}, {name}: eager host "
+                    f"{host:.3f} ms, device span {dev:.3f} ms; graph replay {rep:.3f} ms; "
+                    f"{flops / 1e9:.1f} GFLOP, bound {bound:.3f} ms by operations")
+        del graph, out, step
+    del seen, written, src, rt, bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    say_peak(torch, "afhq")
+
+
 def round_trip(torch, core, pipe, images, src) -> float:
     """Phase 5: encode, then replay under the same text and scale 1 with
     deterministic cuDNN -> max|replay - x0| on the latent."""
@@ -1490,6 +1832,9 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         unpaired_counts = phase_unpaired(torch, fa, root, num_recovered_eps)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_afhq(torch, fa, root)
 
     # launches on the path that runs each kernel: the translate slice (K1,
     # K2), LDM text2img-large's and FFHQ -> CelebA-HQ's CLI runs (K1), the

@@ -3,8 +3,9 @@ dicts.
 
 Names: every ``_<index>`` path component of a Flax name becomes ``.<index>``
 (``input_blocks_3_0`` / ``in_layers_2`` -> ``input_blocks.3.0.in_layers.2``,
-``to_out_0`` -> ``to_out.0``); the VAE mid block keeps the reference's
-``mid.block_1`` / ``mid.attn_1`` / ``mid.block_2``.
+``to_out_0`` -> ``to_out.0``); the VAE's and the pixel DDPM's mid block
+keep the reference's ``mid.block_1`` / ``mid.attn_1`` / ``mid.block_2``,
+and the DDPM's ``temb_dense_0`` / ``_1`` become ``temb.dense.0`` / ``.1``.
 Leaves: Dense ``kernel (in, out)`` -> ``weight (out, in)``, or
 ``(out, in, 1, 1)`` / ``(out, in, 1)`` where the port's module is a 1x1
 conv (the VAE's, VQ's ``quant_conv``) or a 1-tap Conv1d (``GDAttentionBlock``'s
@@ -34,7 +35,8 @@ from torch import nn
 
 # Flax names whose numbered tail is part of the module's name, not an index
 _KEPT_NAMES = {"mid_block_1": "mid.block_1", "mid_attn_1": "mid.attn_1",
-               "mid_block_2": "mid.block_2", "ln_1": "ln_1", "ln_2": "ln_2"}
+               "mid_block_2": "mid.block_2", "ln_1": "ln_1", "ln_2": "ln_2",
+               "temb_dense_0": "temb.dense.0", "temb_dense_1": "temb.dense.1"}
 
 
 def module_name(flax_name: str) -> str:

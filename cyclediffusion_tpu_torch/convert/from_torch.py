@@ -1,10 +1,18 @@
 """CompVis latent diffusion checkpoints (Stable Diffusion v1, LDM
-text2img-large, the unconditional FFHQ / CelebA-HQ LDMs) -> the port's
-modules (counterpart of
+text2img-large, the unconditional FFHQ / CelebA-HQ LDMs) and the pixel
+DDPMs' checkpoints -> the port's modules (counterpart of
 ``load_torch_state_dict``, ``select_ema_weights``,
 ``split_latent_diffusion_state``, ``convert_gd_unet``, ``convert_vae``,
-``convert_clip_text`` and ``convert_ldm_bert`` in
+``convert_clip_text``, ``convert_ldm_bert`` and ``convert_ddpm_unet`` in
 ``cyclediffusion_tpu.convert.torch_import``).
+
+The pixel checkpoints are a bare UNet state dict, no prefix: the
+improved-diffusion UNet's (``cat_ema_0.9999_050000.pt``, ``afhq_dog_4m.pt``;
+``qkv`` / ``proj_out`` 1-tap Conv1d weights, ``skip_connection`` a 1x1
+conv, ``label_emb`` the class embedding) or the CompVis DDPM's
+(``celeba_hq.ckpt``: ``temb.dense.0``, ``down.0.block.1``, ``mid.attn_1``,
+q / k / v / ``proj_out`` 1x1 convs).  The port's UNets carry those names
+and shapes, so the keys map as they are.
 
 A Lightning ``LatentDiffusion`` state dict holds up to three subtrees:
 ``model.diffusion_model.*`` (the UNet), ``first_stage_model.*`` (the KL
@@ -115,6 +123,16 @@ def _to_module(sd: StateDict, module: nn.Module, rename, label: str,
 def convert_gd_unet(unet_sd: StateDict, module: nn.Module) -> StateDict:
     """``openaimodel.UNetModel`` weights (prefix stripped) -> the port's GDUNet."""
     return _to_module(unet_sd, module, lambda k: k, "gd-unet", UNET_PREFIX)
+
+
+def convert_pixel_gd_unet(sd: StateDict, module: nn.Module) -> StateDict:
+    """An improved-diffusion ``UNetModel`` state dict -> the port's GDUNet."""
+    return _to_module(sd, module, lambda k: k, "improved-diffusion unet", "")
+
+
+def convert_ddpm_unet(sd: StateDict, module: nn.Module) -> StateDict:
+    """A CompVis pixel ``DDPM`` state dict -> the port's DDPMUNet."""
+    return _to_module(sd, module, lambda k: k, "ddpm-unet", "")
 
 
 def convert_vae(first_stage_sd: StateDict, module: nn.Module) -> StateDict:

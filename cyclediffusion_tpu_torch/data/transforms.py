@@ -28,8 +28,8 @@ def load_image(path: str) -> np.ndarray:
     """An image file -> uint8 (H, W, 3) RGB (``pil_loader``'s counterpart).
     PNG only; any other format raises."""
     if not path.lower().endswith(".png"):
-        raise ValueError(f"{path}: only PNG images are read; JPEG (the AFHQ data) "
-                         "comes with ROADMAP §A queue item 3")
+        raise ValueError(f"{path}: only PNG images are read; JPEG (the AFHQ release) "
+                         "comes with ROADMAP §A queue item 3 (JPEG decoding)")
     img = read_png(path)
     if img.shape[2] == 1:          # grey
         return np.repeat(img, 3, axis=2)

@@ -16,6 +16,21 @@ from torch import nn
 from cyclediffusion_tpu_torch.ops.flash_attention import multi_head_attention_fused
 
 
+def ddpm_timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The CompVis pixel DDPM's [sin, cos] embedding, frequency divisor
+    ``half - 1`` (not :func:`gd_timestep_embedding`'s [cos, sin] over
+    ``half``)."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(10000.0)
+        * torch.arange(half, dtype=torch.float32, device=t.device) / (half - 1))
+    args = t.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.sin(args), torch.cos(args)], dim=1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
 def gd_timestep_embedding(t: torch.Tensor, dim: int,
                           max_period: float = 10000.0) -> torch.Tensor:
     """guided-diffusion-style [cos, sin] embedding (improved-DDPM, LDM, SD)."""
@@ -59,6 +74,16 @@ def fill_random_(module: nn.Module, generator: torch.Generator) -> None:
 
 def silu(x):
     return F.silu(x)
+
+
+def nearest_upsample_2x(x):
+    """Nearest-neighbour 2x upsample, NCHW."""
+    return F.interpolate(x, scale_factor=2.0, mode="nearest")
+
+
+def avg_pool_2x(x):
+    """2x2 average pool with stride 2, NCHW."""
+    return F.avg_pool2d(x, 2, 2)
 
 
 class GroupNorm(nn.Module):

@@ -1,17 +1,22 @@
-"""The guided-diffusion-family UNet of the latent models (counterpart of
+"""The guided-diffusion-family UNet: the improved-DDPM pixel models (AFHQ,
+FFHQ, ImageNet-512) and the latent models' UNet (counterpart of
 ``cyclediffusion_tpu.models.unet_gd``).
 
 Two kinds of attention layer, chosen by ``use_spatial_transformer``: the
 SD-v1 / LDM text2img-large cross-attention UNet's spatial transformers
-(``context`` required), or the unconditional LDM UNet's
-``GDAttentionBlock`` (FFHQ/CelebA-HQ, ``ldm_ffhq256``; no context).  Conv
-resampling, no scale-shift norm, no class labels (``resblock_updown`` and
-scale-shift norm are the pixel models').  The reference's stateful
+(``context`` required), or ``GDAttentionBlock`` (the pixel models and the
+unconditional FFHQ/CelebA-HQ LDM, ``ldm_ffhq256``; no context).
+``use_scale_shift_norm`` conditions the ResBlocks' second norm on the
+timestep by scale and shift, ``resblock_updown`` resamples inside ResBlocks
+in place of the conv ``GDDownsample`` / ``GDUpsample`` layers, and
+``num_classes`` adds the class-label embedding (``y``; the AFHQ preset is
+``afhq256``).  The reference's stateful
 head-count selection (``num_heads`` reassigned inside the layer loop when
 ``num_head_channels`` is set) is kept in :func:`_attn_layout`, and the
 output blocks' attention blocks take ``num_heads_upsample`` (by default the
 ORIGINAL ``num_heads``), so converted checkpoints attend identically.
-Module names mirror the reference (``input_blocks.3.0.in_layers.2``).
+Module names mirror the reference (``input_blocks.3.0.in_layers.2``,
+``emb_layers.1``, ``out_layers.3``, ``skip_connection``, ``label_emb``).
 """
 
 from __future__ import annotations
@@ -20,10 +25,15 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from cyclediffusion_tpu_torch.models.nn import GDAttentionBlock, GroupNorm, gd_timestep_embedding
+from cyclediffusion_tpu_torch.models.nn import (
+    GDAttentionBlock,
+    GroupNorm,
+    avg_pool_2x,
+    gd_timestep_embedding,
+    nearest_upsample_2x,
+)
 from cyclediffusion_tpu_torch.models.transformer import SpatialTransformer
 
 
@@ -35,13 +45,27 @@ class GDUNetConfig:
     num_res_blocks: int = 2
     attention_resolutions: Tuple[int, ...] = (16,)  # downsample factors (ds)
     channel_mult: Tuple[float, ...] = (1, 2, 4, 8)
+    num_classes: Optional[int] = None
     num_heads: int = -1
     num_head_channels: int = -1
     num_heads_upsample: int = -1
+    use_scale_shift_norm: bool = False
+    resblock_updown: bool = False
     use_spatial_transformer: bool = False
     transformer_depth: int = 1
     context_dim: Optional[int] = None
     legacy: bool = True
+
+    @staticmethod
+    def afhq256() -> "GDUNetConfig":
+        """The improved-DDPM AFHQ / FFHQ pixel UNet (256 px; attention at
+        ds 16, heads of 64 channels)."""
+        return GDUNetConfig(
+            in_channels=3, model_channels=128, out_channels=6, num_res_blocks=1,
+            attention_resolutions=(16,), channel_mult=(1, 1, 2, 2, 4, 4),
+            num_heads=4, num_head_channels=64, use_scale_shift_norm=True,
+            resblock_updown=True,
+        )
 
     @staticmethod
     def sd_v1() -> "GDUNetConfig":
@@ -98,15 +122,23 @@ def _conv3x3(cin: int, cout: int, stride: int = 1):
 
 
 class GDResBlock(nn.Module):
-    """guided-diffusion ResBlock with additive timestep conditioning."""
+    """guided-diffusion ResBlock: the timestep embedding added after the
+    first conv, or with ``use_scale_shift_norm`` applied to the second norm
+    as ``norm(h) * (1 + scale) + shift``; ``up`` / ``down`` resample both
+    ``h`` (after the first norm and SiLU, before the first conv) and the
+    skip input."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_dim: int,
-                 norm_eps: float = 1e-5):
+                 norm_eps: float = 1e-5, use_scale_shift_norm: bool = False,
+                 up: bool = False, down: bool = False):
         super().__init__()
+        self.use_scale_shift_norm = use_scale_shift_norm
+        self.resample = nearest_upsample_2x if up else avg_pool_2x if down else None
         self.in_layers = nn.Sequential(
             GroupNorm(32, in_channels, norm_eps), nn.SiLU(),
             _conv3x3(in_channels, out_channels))
-        self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_dim, out_channels))
+        self.emb_layers = nn.Sequential(
+            nn.SiLU(), nn.Linear(emb_dim, (2 if use_scale_shift_norm else 1) * out_channels))
         self.out_layers = nn.Sequential(
             GroupNorm(32, out_channels, norm_eps), nn.SiLU(), nn.Identity(),
             _conv3x3(out_channels, out_channels))
@@ -115,9 +147,18 @@ class GDResBlock(nn.Module):
             else nn.Conv2d(in_channels, out_channels, 1))
 
     def forward(self, x, emb):
-        h = self.in_layers(x)
-        h = h + self.emb_layers(emb)[:, :, None, None]
-        return self.skip_connection(x) + self.out_layers(h)
+        h = self.in_layers[1](self.in_layers[0](x))
+        if self.resample is not None:
+            h, x = self.resample(h), self.resample(x)
+        h = self.in_layers[2](h)
+        emb_out = self.emb_layers(emb)[:, :, None, None]
+        if self.use_scale_shift_norm:
+            scale, shift = torch.chunk(emb_out, 2, dim=1)
+            h = self.out_layers[0](h) * (1 + scale) + shift
+            h = self.out_layers[3](self.out_layers[1](h))
+        else:
+            h = self.out_layers(h + emb_out)
+        return self.skip_connection(x) + h
 
 
 class GDDownsample(nn.Module):
@@ -137,7 +178,7 @@ class GDUpsample(nn.Module):
         self.conv = _conv3x3(channels, out_channels)
 
     def forward(self, x):
-        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+        return self.conv(nearest_upsample_2x(x))
 
 
 def _apply_layers(layers, h, emb, context):
@@ -152,8 +193,10 @@ def _apply_layers(layers, h, emb, context):
 
 
 class GDUNet(nn.Module):
-    """``forward(x (B,H,W,C) NHWC, t (B,), context (B,T,ctx) or None)`` ->
-    eps NHWC; the context only with spatial transformers.
+    """``forward(x (B,H,W,C) NHWC, t (B,), context (B,T,ctx) or None, y=
+    (B,) class labels or None)`` -> the model output NHWC (eps, or eps and
+    the variance values for a 2C ``out_channels``); the context only with
+    spatial transformers, the labels exactly when ``num_classes`` is set.
 
     ``folded_attn`` (``None``, ``"qo"`` or ``"1"``) goes to every spatial
     transformer's self-attention (see ``transformer.CrossAttention``).
@@ -174,6 +217,12 @@ class GDUNet(nn.Module):
         emb_dim = mc * 4
         self.time_embed = nn.Sequential(
             nn.Linear(mc, emb_dim), nn.SiLU(), nn.Linear(emb_dim, emb_dim))
+        if cfg.num_classes is not None:
+            self.label_emb = nn.Embedding(cfg.num_classes, emb_dim)
+
+        def resblock(cin, cout, **updown):
+            return GDResBlock(cin, cout, emb_dim,
+                              use_scale_shift_norm=cfg.use_scale_shift_norm, **updown)
 
         # the reference's head bookkeeping: num_heads is reassigned per
         # layer; the output blocks' attention blocks bind to the original
@@ -200,30 +249,33 @@ class GDUNet(nn.Module):
         for level, mult in enumerate(cfg.channel_mult):
             for _ in range(cfg.num_res_blocks):
                 out = int(mult * mc)
-                layers = [GDResBlock(ch, out, emb_dim)]
+                layers = [resblock(ch, out)]
                 ch = out
                 if ds in cfg.attention_resolutions:
                     layers.append(make_attn(ch))
                 self.input_blocks.append(nn.ModuleList(layers))
                 input_chans.append(ch)
             if level != len(cfg.channel_mult) - 1:
-                self.input_blocks.append(nn.ModuleList([GDDownsample(ch, ch)]))
+                self.input_blocks.append(nn.ModuleList([
+                    resblock(ch, ch, down=True) if cfg.resblock_updown
+                    else GDDownsample(ch, ch)]))
                 input_chans.append(ch)
                 ds *= 2
 
         self.middle_block = nn.ModuleList(
-            [GDResBlock(ch, ch, emb_dim), make_attn(ch), GDResBlock(ch, ch, emb_dim)])
+            [resblock(ch, ch), make_attn(ch), resblock(ch, ch)])
 
         self.output_blocks = nn.ModuleList()
         for level, mult in list(enumerate(cfg.channel_mult))[::-1]:
             for i in range(cfg.num_res_blocks + 1):
                 out = int(mult * mc)
-                layers = [GDResBlock(ch + input_chans.pop(), out, emb_dim)]
+                layers = [resblock(ch + input_chans.pop(), out)]
                 ch = out
                 if ds in cfg.attention_resolutions:
                     layers.append(make_attn(ch, upsample=True))
                 if level and i == cfg.num_res_blocks:
-                    layers.append(GDUpsample(ch, ch))
+                    layers.append(resblock(ch, ch, up=True) if cfg.resblock_updown
+                                  else GDUpsample(ch, ch))
                     ds //= 2
                 self.output_blocks.append(nn.ModuleList(layers))
 
@@ -246,9 +298,14 @@ class GDUNet(nn.Module):
             h = _apply_layers(layers, torch.cat([h, hs.pop()], dim=1), emb, context)
         return self.out(h).permute(0, 2, 3, 1)
 
-    def forward(self, x, t, context=None, encoder_cache=None, return_cache=False):
+    def forward(self, x, t, context=None, encoder_cache=None, return_cache=False, y=None):
         emb = self.time_embed(
             gd_timestep_embedding(t, self.config.model_channels).to(x.dtype))
+        if (y is None) != (self.config.num_classes is None):
+            raise ValueError("class labels y go with num_classes, and only with it "
+                             f"(num_classes={self.config.num_classes})")
+        if y is not None:
+            emb = emb + self.label_emb(y)
         cache = self.encode(x, emb, context) if encoder_cache is None else encoder_cache
         out = self.decode(*cache, emb, context)
         return (out, cache) if return_cache else out

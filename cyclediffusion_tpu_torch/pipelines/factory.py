@@ -27,6 +27,13 @@ unconditional ``LatentDiffStochastic`` (unpaired translation):
 ``celeba256`` from ``ckpts/ldm_models/ldm/<type>/model.ckpt`` with the UNet's
 EMA weights (a missing file raises; there are no random weights).
 
+``DDPM_DDIM`` (the pixel DDPMs of unpaired translation, AFHQ cat/wild ->
+dog) builds ``tiny_improved_<res>`` / ``tiny_compvis_<res>`` with seeded
+random weights, and a model of the zoo (``pipelines.zoo.PIXEL_ZOO``) from
+``source_model_path``, or else the spec's ``default_ckpt``, under the
+checkpoint root (a missing file raises).  ``enforce_class_input`` is
+dropped, as in JAX.
+
 ``fast_key_every`` (> 1) turns on the encoder-caching fast mode.
 ``jax_params`` (tests only) replaces either model's weights with the JAX
 pipeline's.  ``CYCLEDIFFUSION_FOLDED_ATTN`` (``qo`` or ``1``; anything else
@@ -44,6 +51,7 @@ import torch
 
 from cyclediffusion_tpu_torch.energy.clean_clip import CLIPScorer, DirectionalCLIP
 from cyclediffusion_tpu_torch.models.clip import CLIPConfig
+from cyclediffusion_tpu_torch.pipelines.ddpm_ddim import DDPMDDIMPipeline
 from cyclediffusion_tpu_torch.pipelines.latent import (
     LatentCoreSpec,
     LatentDiffStochasticPipeline,
@@ -54,15 +62,11 @@ from cyclediffusion_tpu_torch.pipelines.latent_text import (
     latentdiff_stochastic_text_pipeline,
     sd_stochastic_text_pipeline,
 )
+from cyclediffusion_tpu_torch.pipelines.zoo import PIXEL_ZOO, tiny_pixel_spec
 from cyclediffusion_tpu_torch.runtime import context
 from cyclediffusion_tpu_torch.text import BertWordPieceTokenizer, CLIPBPETokenizer, HashTokenizer
 
 FOLDED_ATTN_ENV = "CYCLEDIFFUSION_FOLDED_ATTN"
-
-# gan_types of the JAX package this port does not build yet -> ROADMAP item
-_NOT_PORTED = {
-    "DDPM_DDIM": "ROADMAP §A queue item 3 (the other model families)",
-}
 
 # gan_type -> (conditioning, pipeline constructor of the published model)
 _TEXT_GAN_TYPES = {
@@ -143,7 +147,10 @@ def _checkpoint(gan_type: str, path: str) -> str:
 
 
 def _default_dtype(dtype, tiny: bool, device):
-    """bf16 for a published model on CUDA, fp32 otherwise, unless given."""
+    """bf16 for a published latent model on CUDA, fp32 otherwise, unless
+    given.  The pixel family (``DDPM_DDIM``) does not use it: it runs fp32
+    unless given, as the JAX pipeline does (its eta-DDIM eps recovery
+    amplifies the UNet's error)."""
     if dtype is not None:
         return dtype
     return torch.bfloat16 if not tiny and torch.device(device).type == "cuda" \
@@ -239,14 +246,49 @@ def _build_latent(kwargs: dict, device, dtype, jax_params) -> LatentDiffStochast
     return LatentDiffStochasticPipeline(core, **pipe_kw)
 
 
+def _build_ddpm_ddim(kwargs: dict, device, dtype, jax_params) -> DDPMDDIMPipeline:
+    model_type = kwargs.pop("source_model_type")
+    model_path = kwargs.pop("source_model_path", None)
+    seed = int(kwargs.pop("source_init_seed", 0))     # tiny models only
+    pipe_kw = dict(
+        sample_type=kwargs.pop("sample_type"),
+        custom_steps=kwargs.pop("custom_steps"),
+        es_steps=kwargs.pop("es_steps"),
+        eta=kwargs.pop("eta", None),
+        refine_steps=kwargs.pop("refine_steps", 0),
+        refine_iterations=kwargs.pop("refine_iterations", 1),
+        t_0=kwargs.pop("t_0", None),
+        device=device,
+        dtype=torch.float32 if dtype is None else dtype,
+    )
+    kwargs.pop("enforce_class_input", None)
+    if kwargs:
+        raise ValueError(f"unused gan kwargs: {kwargs}")
+    if model_type.startswith("tiny"):
+        _, kind, res = model_type.split("_")    # tiny_improved_16 / tiny_compvis_16
+        spec = tiny_pixel_spec(resolution=int(res), kind=kind)
+        if jax_params and "unet" in jax_params:
+            return DDPMDDIMPipeline.from_jax_params(spec, jax_params["unet"], **pipe_kw)
+        return DDPMDDIMPipeline.random_init(spec, seed, **pipe_kw)
+    if model_type not in PIXEL_ZOO:
+        raise ValueError(f"unknown pixel model type {model_type!r}: the zoo has "
+                         f"{sorted(PIXEL_ZOO)}")
+    spec = PIXEL_ZOO[model_type]
+    path = model_path or spec.default_ckpt
+    if not path:
+        raise ValueError(f"{model_type} needs source_model_path (no default checkpoint)")
+    return DDPMDDIMPipeline.from_torch_ckpt(spec, _checkpoint("DDPM_DDIM", path), **pipe_kw)
+
+
 def get_gan_wrapper(gan_args, target: bool = False, *, device="cuda", dtype=None,
                     jax_params: Optional[dict] = None):
     """Build the pipeline a ``[gan]`` section describes.
 
     ``jax_params`` (tests, tiny models only): ``{"core": {"unet",
-    "first_stage"[, "cond"]}, "clip": <CLIPModel tree>}`` with numpy leaves,
-    the JAX pipeline's weights.  ``dtype`` defaults to bf16 for a published
-    model on CUDA, fp32 otherwise.
+    "first_stage"[, "cond"]}, "clip": <CLIPModel tree>}``, or for
+    ``DDPM_DDIM`` ``{"unet": <tree>}``, with numpy leaves, the JAX
+    pipeline's weights.  ``dtype`` defaults to bf16 for a published latent
+    model on CUDA, fp32 otherwise (and always for ``DDPM_DDIM``).
     """
     gan_type = dict(list(gan_args))["gan_type"]
     kwargs = _collect_kwargs(gan_args, target)
@@ -254,7 +296,6 @@ def get_gan_wrapper(gan_args, target: bool = False, *, device="cuda", dtype=None
         return _build_text(gan_type, kwargs, device, dtype, jax_params)
     if gan_type == "LatentDiffStochastic":
         return _build_latent(kwargs, device, dtype, jax_params)
-    if gan_type in _NOT_PORTED:
-        raise NotImplementedError(f"gan_type {gan_type} is not ported yet: "
-                                  f"{_NOT_PORTED[gan_type]}")
+    if gan_type == "DDPM_DDIM":
+        return _build_ddpm_ddim(kwargs, device, dtype, jax_params)
     raise ValueError(f"unknown gan_type {gan_type}")

@@ -347,6 +347,10 @@ class LatentDiffStochasticPipeline:
         self.latent_dim = spec.image_size ** 2 * spec.channels * white_box_steps
 
     @property
+    def device(self) -> torch.device:
+        return self.core.device
+
+    @property
     def _fast(self) -> bool:
         return (self.fast_key_every or 0) > 1
 

@@ -3,9 +3,9 @@ of ``cyclediffusion_tpu.runtime.registry``).
 
 Names resolve inside ``cyclediffusion_tpu_torch.{tasks, data.preprocess,
 evaluation, visualization}``; each module exports ``Model``,
-``Preprocessor``, ``Evaluator`` or ``Visualizer``.  A name that the JAX
-package's configs use but this port does not have yet raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+``Preprocessor``, ``Evaluator`` or ``Visualizer``.  Every program that the
+JAX package's configs name is ported; an unknown name raises
+``ModuleNotFoundError``.
 """
 
 from __future__ import annotations
@@ -14,19 +14,8 @@ import importlib
 
 _BASE = "cyclediffusion_tpu_torch"
 
-_FAMILIES = "ROADMAP §A queue item 3 (the other model families)"
-_NOT_PORTED = {
-    "tasks": {},
-    "data.preprocess": {name: _FAMILIES for name in ("afhqcat256", "afhqwild256")},
-    "evaluation": {"translate_to_dog": _FAMILIES},
-    "visualization": {},
-}
-
 
 def _resolve(kind: str, name: str, symbol: str):
-    if name in _NOT_PORTED[kind]:
-        raise NotImplementedError(f"{kind} program {name!r} is not ported yet: "
-                                  f"{_NOT_PORTED[kind][name]}")
     return getattr(importlib.import_module(f"{_BASE}.{kind}.{name}"), symbol)
 
 

@@ -1,8 +1,9 @@
-"""Unpaired domain translation task model, FFHQ -> CelebA-HQ (counterpart of
-``cyclediffusion_tpu.tasks.unsupervised_translation``).
+"""Unpaired domain translation task model, AFHQ cat/wild -> dog and FFHQ ->
+CelebA-HQ (counterpart of ``cyclediffusion_tpu.tasks.unsupervised_translation``).
 
 The source and target pipelines are built from one ``[gan]`` section (the
-factory's ``source_`` / ``target_`` remapping); ``forward(sample_id,
+factory's ``source_`` / ``target_`` remapping) on one ``device``, which the
+evaluators read for their own models; ``forward(sample_id,
 original_image)`` encodes each image with the source model, ``z =
 source.encode(images)``, decodes it with the target model, ``img =
 target(z)``, and returns ``((original, image), weighted_loss=0,
@@ -32,13 +33,14 @@ class UnsupervisedTranslation:
         if self.source_gan_wrapper.resolution != self.target_gan_wrapper.resolution:
             raise ValueError("the source and target models differ in resolution")
         self.resolution = self.source_gan_wrapper.resolution
+        self.device = self.source_gan_wrapper.device
         self.base_seed = base_seed
 
     def forward(self, sample_id, class_label=None, original_image=None):
         if class_label is not None:
             raise NotImplementedError("class-conditional translation is plumbed but not "
                                       "implemented")
-        device = self.source_gan_wrapper.core.device
+        device = self.device
         images = torch.as_tensor(np.stack([np.asarray(im, np.float32)
                                            for im in original_image]), device=device)
         ids = np.asarray(sample_id).reshape(-1)

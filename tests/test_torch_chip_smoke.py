@@ -388,3 +388,109 @@ def test_k1_work_and_bounds_at_the_ffhq_level(smoke, shape, gflop, bound_ms, flo
     assert by == "operations" and ms == pytest.approx(bound_ms, abs=5e-5)
     assert smoke.exp_floor_ms("flash_attention_bhtd", shape) == pytest.approx(floor_ms,
                                                                               abs=5e-5)
+
+
+def test_cut_config_adds_keys_to_their_section(smoke):
+    text = "[a]\nx = 1\n\n[b]\ny = 2\n"
+    assert smoke.cut_config(text, {("a", "x"): "3"}, {("a", "z"): "4"}) == (
+        "[a]\nx = 3\n\nz = 4\n[b]\ny = 2\n")
+    assert smoke.cut_config(text, {}, {("b", "z"): "5"}).endswith("y = 2\nz = 5\n")
+    with pytest.raises(ValueError):
+        smoke.cut_config(text, {}, {("a", "x"): "5"})        # present already
+    with pytest.raises(ValueError):
+        smoke.cut_config(text, {}, {("c", "x"): "5"})        # no such section
+
+
+def test_afhq_cut_config_and_expected_counts(smoke, tmp_path):
+    """Phase 11's config: the shipped AFHQ cat -> dog experiment with
+    ``AFHQ_CUTS`` (100 encode steps of the 1000-step grid, refine 20) and
+    ``eval_num`` 2 added, the rest as shipped; 99 source + 120 target UNet
+    calls per batch; the full-width UNet's operations at batch 2."""
+    from cyclediffusion_tpu_torch.pipelines import zoo
+    from cyclediffusion_tpu_torch.pipelines.ddpm_ddim import DDPMDDIMPipeline
+    from cyclediffusion_tpu_torch.runtime.config import config_root, get_config
+
+    with open(os.path.join(config_root(), smoke.AFHQ_CFG)) as f:
+        text = f.read()
+    path = tmp_path / "cut.cfg"
+    path.write_text(smoke.cut_config(text, smoke.AFHQ_CUTS, smoke.AFHQ_ADDS))
+    cut, full = get_config(str(path)), get_config(smoke.AFHQ_CFG)
+    g = cut.gan
+    assert (g.es_steps, g.refine_steps, g.custom_steps, g.eta, g.sample_type) == (
+        100, 20, 1000, 0.1, "ddim")
+    assert cut.raw_data.eval_num == smoke.AFHQ_SAMPLES == 2 < smoke.AFHQ_CATS
+    assert {k: v for k, v in cut.to_dict().items() if k not in ("gan", "raw_data")} == {
+        k: v for k, v in full.to_dict().items() if k not in ("gan", "raw_data")}
+    assert set(smoke.AFHQ_MODELS) == {"source_model_path", "target_model_path"}
+    spec = dataclasses.replace(zoo.tiny_pixel_spec(16), num_diffusion_timesteps=1000)
+    pipe = DDPMDDIMPipeline.random_init(spec, 0, device="cpu", custom_steps=1000,
+                                        es_steps=100, eta=0.1, refine_steps=20)
+    assert smoke.pixel_unet_calls(pipe) == {"source": 99, "target": 120}
+    import torch
+    from cyclediffusion_tpu_torch.tools.pixel_probe import unet_flops
+    with torch.device("meta"):
+        afhq = zoo.build_pixel_model(zoo.PIXEL_ZOO["afhqdog256"])
+    assert unet_flops(afhq, 2) == 775_868_383_232
+
+
+def test_pixel_calls_and_round_trip_on_the_tiny_config(smoke):
+    """``pixel_unet_calls`` equals the UNet calls that the task model makes
+    on the tiny pixel config, per pipeline, at the batch; the round-trip
+    helper on the tiny pipeline reads the replay on the encode chain's
+    states to roundoff."""
+    import numpy as np
+    import torch
+    from cyclediffusion_tpu_torch.runtime.config import get_config
+    from cyclediffusion_tpu_torch.tasks.unsupervised_translation import (
+        UnsupervisedTranslation,
+    )
+
+    model = UnsupervisedTranslation(get_config("experiments/tiny_unpaired_translation.cfg"),
+                                    device="cpu")
+    calls, batches = [], set()
+    for pipe in (model.source_gan_wrapper, model.target_gan_wrapper):
+        model_fn, i = pipe._model_fn, len(calls)
+        calls.append(0)
+
+        def counted(x, t, i=i, model_fn=model_fn):
+            calls[i] += 1
+            batches.add(x.shape[0])
+            return model_fn(x, t)
+        pipe._model_fn = counted
+    images = [np.full((16, 16, 3), v, np.float32) for v in (0.2, 0.5, 0.9)]
+    model.forward(np.array([0, 1, 2]), original_image=images)
+    want = smoke.pixel_unet_calls(model.target_gan_wrapper)
+    assert dict(zip(("source", "target"), calls)) == want == {"source": 19, "target": 24}
+    assert batches == {3}
+    pipe = model.source_gan_wrapper
+    del pipe._model_fn
+    pipe.refine_steps = 0
+    traj, x0_err = smoke.pixel_round_trip(torch, pipe, torch.rand(2, 16, 16, 3),
+                                          torch.Generator().manual_seed(0))
+    assert traj < 1e-5 and 1e-4 < x0_err < 0.1
+    assert "_model_fn" not in vars(pipe)
+
+
+def test_afhq_cli_files_are_what_translate_to_dog_writes(smoke, tmp_path, monkeypatch):
+    """``expected_cli_files(n, csv=False)`` is what the CLI writes with the
+    AFHQ task evaluator (``translate_to_dog``; no dog set here, so no FID):
+    the sample PNGs and no CSV."""
+    from cyclediffusion_tpu_torch import main as cli
+    from cyclediffusion_tpu_torch.runtime.config import config_root
+
+    task = tmp_path / "task.cfg"
+    with open(os.path.join(config_root(), "tasks", "tiny_cat_dog.cfg")) as f:
+        task.write_text(f.read().replace("evaluator_program = empty",
+                                         "evaluator_program = translate_to_dog"))
+    with open(os.path.join(config_root(), "experiments", "tiny_unpaired_translation.cfg")) as f:
+        text = smoke.cut_config(f.read(), {("arg_paths", "translate"): str(task)})
+    cfg = tmp_path / "exp.cfg"
+    cfg.write_text(text)
+    monkeypatch.setenv("CYCLEDIFFUSION_DATA_ROOT", str(tmp_path))
+    out = tmp_path / "out"
+    cli.main(["--cfg", str(cfg), "--output_dir", str(out), "--do_eval",
+              "--per_device_eval_batch_size", "2"], device="cpu")
+    files = sorted(os.path.relpath(os.path.join(d, f), out) for d, _, fs in os.walk(out)
+                   for f in fs)
+    assert files == smoke.expected_cli_files(2, csv=False)
+    assert "temp_gen/1.png" in files and "eval_results.csv" not in files

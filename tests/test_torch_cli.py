@@ -130,8 +130,12 @@ def test_registry_resolves_in_the_port(getter, name, symbol):
     (registry.get_evaluator, "translate_to_dog"),
 ])
 def test_registry_names_the_roadmap_for_unported_programs(getter, name):
-    with pytest.raises(NotImplementedError, match="ROADMAP §A queue item 3"):
-        getter(name)
+    """The AFHQ programs, which the registry refused naming the ROADMAP
+    item before the pixel slice, resolve in the port now; an unknown name
+    raises."""
+    cls = getter(name)
+    assert cls.__module__.startswith("cyclediffusion_tpu_torch.")
+    assert cls.__module__.endswith(f".{name}")
     with pytest.raises(ModuleNotFoundError):
         getter("no_such_program")
 

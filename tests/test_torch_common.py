@@ -72,7 +72,8 @@ def test_port_imports_without_jax():
     """Every module of the port imports with jax and flax made unimportable
     (the card's machine has neither), and with PIL, cv2 and pandas too
     (that machine does not promise them); none pulls in the JAX package.
-    The fast mode's and LDM-BERT's entry points import too."""
+    The fast mode's, LDM-BERT's and the pixel slice's entry points import
+    too (FID and Inception included)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -95,7 +96,11 @@ def test_port_imports_without_jax():
         "        'tools.sd_assets', 'samplers.ddim', 'ops.cfg', 'models.text_encoders',\n"
         "        'models.unet_gd', 'pipelines.latent', 'convert.from_torch',\n"
         "        'tasks.unsupervised_translation', 'data.preprocess.ffhq256',\n"
-        "        'data.preprocess.tiny_images', 'tools.ldm_assets'}\n"
+        "        'data.preprocess.tiny_images', 'tools.ldm_assets', 'samplers.pixel',\n"
+        "        'pipelines.zoo', 'pipelines.ddpm_ddim', 'models.unet_ddpm',\n"
+        "        'models.inception', 'convert.inception_import', 'evaluation.fid',\n"
+        "        'evaluation.translate_to_dog', 'data.preprocess.afhqcat256',\n"
+        "        'data.preprocess.afhqwild256', 'tools.pixel_assets'}\n"
         "from cyclediffusion_tpu_torch.samplers import dpm_encode_cached, ddim_decode_cached\n"
         "from cyclediffusion_tpu_torch.ops.cfg import cfg_model_fn_pair\n"
         "from cyclediffusion_tpu_torch.models.text_encoders import LDMBertEncoder\n"
@@ -107,6 +112,11 @@ def test_port_imports_without_jax():
         "from cyclediffusion_tpu_torch.models.autoencoder import VQModel\n"
         "from cyclediffusion_tpu_torch.models.nn import GDAttentionBlock\n"
         "from cyclediffusion_tpu_torch.samplers import ddim_refine\n"
+        "from cyclediffusion_tpu_torch.samplers import pixel_encode, pixel_generate\n"
+        "from cyclediffusion_tpu_torch.pipelines.ddpm_ddim import DDPMDDIMPipeline\n"
+        "from cyclediffusion_tpu_torch.pipelines.zoo import PIXEL_ZOO\n"
+        "from cyclediffusion_tpu_torch.models.inception import InceptionV3Features\n"
+        "from cyclediffusion_tpu_torch.evaluation.fid import compute_fid_kid\n"
         "missing = {w for w in want if 'cyclediffusion_tpu_torch.' + w not in names}\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules"

@@ -1,13 +1,14 @@
 """The probes' host-side pieces: the step probe's kernel kinds, the
 alternating order of its runs, and the swap of the four kernels' entry
 points for their plain versions (undone on leaving, also on an error); the
-flash-variants tool's edits of the kernel header and its library swap."""
+flash-variants tool's edits of the kernel header and its library swap; the
+pixel probe's settings and inputs."""
 
 import pytest
 
 from cyclediffusion_tpu_torch.ops import cuda_build
 from cyclediffusion_tpu_torch.ops import flash_attention as fa
-from cyclediffusion_tpu_torch.tools import flash_variants, step_probe
+from cyclediffusion_tpu_torch.tools import flash_variants, pixel_probe, step_probe
 
 
 @pytest.mark.parametrize("name,kind", [
@@ -73,3 +74,27 @@ def test_flash_variants_library_swap_is_undone():
             assert fa._library("flash_attention")[1] == "handle"
             raise RuntimeError("inside")
     assert fa._library is saved
+
+
+def test_pixel_probe_settings_and_inputs():
+    """Every precision x layout x determinism once; the ``nchw`` input is an
+    NHWC view of a contiguous NCHW tensor, the ``nhwc`` one is contiguous
+    NHWC, both holding the same values; the flags follow the setting."""
+    import torch
+
+    assert len(set(pixel_probe.SETTINGS)) == len(pixel_probe.SETTINGS) == 12
+    models = {"fp32": lambda x, t: x, "bf16": lambda x, t: x}
+    x = torch.randn(2, 4, 4, 3)
+    nhwc = pixel_probe._step(models, x, None, ("fp32", "nhwc", False))()
+    nchw = pixel_probe._step(models, x, None, ("tf32", "nchw", False))()
+    assert nhwc.is_contiguous() and nchw.permute(0, 3, 1, 2).is_contiguous()
+    assert torch.equal(nhwc, nchw)
+    assert pixel_probe._step(models, x, None, ("bf16", "nhwc", True))().dtype == torch.bfloat16
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+    try:
+        pixel_probe._apply(("tf32", "nchw", True))
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.deterministic
+        pixel_probe._apply(("fp32", "nhwc", False))
+        assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cudnn.deterministic
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = saved
