@@ -90,6 +90,20 @@ Phases (each prints its results; any failure exits non-zero):
    trip with TF32 off (the replay's states against the encode chain's);
    the batch-2 UNet call eager and graph-replayed in fp32 (TF32 off and
    on) and bf16 beside its operation bound.
+12. Guided sampling (tracked config 5) and the rest of the latent surface:
+   (a) SD v1 in bf16 at full width with a seeded ViT-B/32 scorer
+   (``tools/guided_probe.py``'s problem): a 50-step eps replay at eta 0.1,
+   CFG 5.0, batch 1, plain and CLIP-energy guided (weight 0.05, a gradient
+   through the 512 px decoder and the vision tower every step) in turns,
+   s/chain, ms/step, their ratio, mean|dz0| and the chains' peak memory;
+   50 UNet calls per chain with their K1/K2 launches and none in the
+   energy's forward and backward (timed by CUDA events); weight 0 equal to
+   the plain replay; K2 refusing an input that requires a gradient; the
+   gradient, core and scorer in fp32, against a central difference along a
+   seeded direction.  (c) The tiled decode of the 64x64 latent: one tile
+   equal to the untiled decode, 3 x 3 patches in one decode call, an energy
+   gradient through it.  (b) The plain-inversion pipeline on the FFHQ LDM
+   in fp32, 50 steps, 3 images, with K1 against plain attention.
 
 Each phase prints its peak device memory.  The last three lines of output
 are the card's name and power limit, the kernels' JSON record and the
@@ -1756,6 +1770,283 @@ def phase_afhq(torch, fa, root):
     say_peak(torch, "afhq")
 
 
+# phase 12: CLIP-energy guided sampling at SD v1 512 px (tracked config 5),
+# the plain-inversion pipeline on the FFHQ LDM, the tiled first stage
+GUIDED_WEIGHT = 0.05
+# weight 0 against the plain replay, max abs diff / max|z0|: the same UNet
+# calls and steps, the shift 0 * grad exactly 0, so bit for bit is expected
+WEIGHT0_REL_BOUND = 1e-6
+# the energy's gradient along a seeded unit direction against the central
+# difference at a step of FD_STEP * |p|, fp32 with TF32 off.  The step
+# trades the fp32 energy's rounding (divided by the step) against the clamps
+# of the image to [0, 1] (pixels that cross a clamp inside the step bend the
+# difference, more of them the longer the step); the steps 10x either side
+# are printed beside the gated one
+FD_REL_BOUND = 1e-2
+FD_STEP = 1e-3
+# the FFHQ plain pipeline with K1 against plain attention (fp32, TF32 off),
+# x_T and the sampled latent, max abs diff / max|plain|: 50 inversion and 50
+# sampling steps each carry K1's ~1e-6 fp32 summation-order difference.  The
+# VQ decoder quantises the latent first, and a latent that close to a
+# boundary between two codes takes the other one, which changes its patch of
+# the image by far more than 1e-3: the codes that differ are bounded as a
+# share of the latent's positions, and the images are bounded where all
+# codes agree
+PLAIN_PIPE_REL_BOUND = 1e-3
+CODE_FLIP_BOUND = 1e-3
+# the tiled decode with one tile against the untiled one / max|image|: the
+# weights cancel in fp32 and the result rounds once to bf16
+ONE_TILE_REL_BOUND = 1e-5
+TILED_SPLIT = {"ks": (32, 32), "stride": (16, 16)}   # 3 x 3 patches of a 64x64 latent
+
+
+def guided_launches(spec, attention_route, unet_calls: int) -> dict:
+    """K1 and K2 launches of ``unet_calls`` UNet calls on ``spec``: the
+    guided chain's only launches (the energy's forward and backward run
+    none)."""
+    return {k: n * unet_calls for k, n in launches_per_call(spec, attention_route).items()}
+
+
+def directional_check(energy, grad, p, v, h: float):
+    """(<grad, v>, the central difference (E(p + hv) - E(p - hv)) / 2h,
+    their gap relative to the larger of the two)."""
+    gv = float((grad.double() * v.double()).sum())
+    fd = (float(energy(p + h * v)) - float(energy(p - h * v))) / (2.0 * h)
+    return gv, fd, abs(gv - fd) / max(abs(gv), abs(fd), 1e-30)
+
+
+def phase_guided(torch, fa, attention):
+    """Phase 12 (a-c): guided sampling on SD v1, the plain-inversion
+    pipeline on the FFHQ LDM, the tiled decode -> the launch counts of one
+    guided chain and of the FFHQ pipeline's run with the kernels."""
+    from cyclediffusion_tpu_torch.energy.clean_clip import CLIPScorer
+    from cyclediffusion_tpu_torch.energy.clip_energy import clip_energy_fn
+    from cyclediffusion_tpu_torch.models.clip import CLIPConfig
+    from cyclediffusion_tpu_torch.ops import steps
+    from cyclediffusion_tpu_torch.ops.fold import SplitInputParams
+    from cyclediffusion_tpu_torch.pipelines.factory import LATENT_MODELS
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
+    from cyclediffusion_tpu_torch.pipelines.latentdiff_plain import LatentDiffPlainPipeline
+    from cyclediffusion_tpu_torch.samplers.guided import energy_grad
+    from cyclediffusion_tpu_torch.text import HashTokenizer
+    from cyclediffusion_tpu_torch.tools import guided_probe
+
+    cudnn = torch.backends.cudnn
+    torch.backends.cuda.matmul.allow_tf32 = cudnn.allow_tf32 = False
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.cuda.reset_peak_memory_stats()
+    spec, clip = LatentCoreSpec.sd_v1(), CLIPConfig.vit_b_32()
+    t0 = time.perf_counter()
+    g = guided_probe.build(spec, clip, steps=STEPS, device="cuda")
+    torch.cuda.synchronize()
+    say(f"guided: SD v1 (seed 0) and a ViT-B/32 scorer "
+        f"({sum(p.numel() for p in g.scorer.model.parameters()):,} params, seed 1) in "
+        f"bf16, built in {time.perf_counter() - t0:.2f} s; {STEPS} steps, eta "
+        f"{guided_probe.ETA}, CFG {guided_probe.CFG_SCALE} at batch 1, weight "
+        f"{GUIDED_WEIGHT}")
+
+    # one energy gradient at the first step's pred_x0 (warm-up, then zero
+    # kernel launches in its forward and backward, then its time)
+    x, sched = g.x_T, g.sched
+    t = torch.full((1,), int(sched.timesteps[-1]), dtype=torch.int64, device="cuda")
+    p = steps.pred_x0_from_eps(x, g.model_fn(x, t), sched.alphas[-1],
+                               sched.sqrt_one_minus_alphas[-1])
+    energy_grad(g.energy_fn, x, p, t)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    grad = energy_grad(g.energy_fn, x, p, t)
+    torch.cuda.synchronize()
+    if any(fa.launch_counts.values()):
+        fail(f"guided: the energy's forward and backward launched {fa.launch_counts}")
+    if not torch.isfinite(grad).all():
+        fail("guided: non-finite energy gradient")
+    energy_ms = cuda_time_ms(lambda: energy_grad(g.energy_fn, x, p, t), reps=10, warmup=1)
+    say(f"guided: energy forward + backward (decode 64x64x4 -> 512x512x3, ViT-B/32) "
+        f"{energy_ms:.3f} ms median by CUDA events; no kernel launch; max|dE/dp| "
+        f"{float(grad.abs().max()):.3e}")
+
+    # (a) the chains, plain and guided in turns, counted
+    calls = [0]
+    model_fn = g.model_fn
+
+    def counted(*a):
+        calls[0] += 1
+        return model_fn(*a)
+
+    g.model_fn = counted
+    torch.cuda.reset_peak_memory_stats()
+    times, out, counts = {"plain": [], "guided": []}, {}, {}
+    for name in ("plain", "guided", "guided", "plain"):
+        calls[0] = 0
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z0 = g.plain() if name == "plain" else g.guided(GUIDED_WEIGHT)
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+        counts.setdefault(name, (calls[0], dict(fa.launch_counts)))
+        out[name] = z0
+    chains_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = guided_launches(spec, fa.attention_route, STEPS)
+    for name, (n, c) in counts.items():
+        if n != STEPS or any(c[k] != want.get(k, 0) for k in c):
+            fail(f"guided: the {name} chain made {n} UNet calls and launched {c}; expected "
+                 f"{STEPS} and {want}")
+    if not torch.isfinite(out["guided"]).all():
+        fail("guided: non-finite z0")
+    zero = g.guided(0.0)
+    rel0 = float((zero - out["plain"]).abs().max() / out["plain"].abs().max())
+    if not rel0 <= WEIGHT0_REL_BOUND:
+        fail(f"guided: weight 0 differs from the plain replay by {rel0} of max|z0|")
+    g.model_fn = model_fn
+    plain_s, guided_s = (sorted(times[k])[0] for k in ("plain", "guided"))
+    dz0 = float((out["guided"] - out["plain"]).abs().mean())
+    say(f"guided: launches per chain {counts['guided'][1]} = {STEPS} UNet calls x "
+        f"{launches_per_call(spec, fa.attention_route)}; weight 0 vs plain: {rel0:.3e} of "
+        f"max|z0| (bound {WEIGHT0_REL_BOUND:.0e})")
+    say(f"guided: plain {times['plain']} s/chain, guided {times['guided']} s/chain; best "
+        f"plain {plain_s:.3f} s ({1e3 * plain_s / STEPS:.2f} ms/step), guided "
+        f"{guided_s:.3f} s ({1e3 * guided_s / STEPS:.2f} ms/step), ratio "
+        f"{guided_s / plain_s:.3f}; mean|dz0| {dz0:.4e}; peak device memory of the "
+        f"chains {chains_peak:.2f} GiB")
+
+    q = torch.randn((2, 4096, 320), device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    with torch.enable_grad():
+        try:
+            fa.flash_attention_packed(q, q.detach(), q.detach(), 8, 40 ** -0.5)
+        except RuntimeError as err:
+            say(f"guided: K2 on an input that requires a gradient raises: {err}")
+        else:
+            fail("guided: K2 took an input that requires a gradient")
+
+    # (c) the tiled decode of the plain chain's z0, and a gradient through it
+    core, z = g.core, out["plain"]
+    ref = core.decode_first_stage(z)
+    batches = []
+    decode = core.first_stage.decode
+
+    def spy(h):
+        batches.append(h.shape[0])
+        return decode(h)
+
+    try:
+        core.split_input_params = SplitInputParams(ks=(64, 64), stride=(32, 32))
+        one = core.decode_first_stage(z)
+        core.split_input_params = SplitInputParams(**TILED_SPLIT)
+        core.first_stage.decode = spy
+        tiled = core.decode_first_stage(z)
+        del core.first_stage.decode
+        tiled_grad = energy_grad(g.energy_fn, x, z, t)
+        tiled_ms = cuda_time_ms(lambda: core.decode_first_stage(z), reps=5, warmup=1)
+    finally:
+        core.split_input_params = None
+        core.first_stage.__dict__.pop("decode", None)
+    untiled_ms = cuda_time_ms(lambda: core.decode_first_stage(z), reps=5, warmup=1)
+    rel1 = float((one - ref).abs().max() / ref.abs().max())
+    if not rel1 <= ONE_TILE_REL_BOUND:
+        fail(f"tiled decode: one tile differs from the untiled decode by {rel1} of max")
+    if batches != [9] or tuple(tiled.shape) != (1, 512, 512, 3) or not torch.isfinite(
+            tiled).all():
+        fail(f"tiled decode: patch batches {batches}, shape {tuple(tiled.shape)}")
+    if not (torch.isfinite(tiled_grad).all() and float(tiled_grad.abs().max()) > 0):
+        fail("tiled decode: the energy gradient through it is not finite and non-zero")
+    say(f"tiled decode: one tile vs untiled {rel1:.3e} of max (bound "
+        f"{ONE_TILE_REL_BOUND:.0e}); {TILED_SPLIT}: 9 patches in one decode call, "
+        f"{tuple(tiled.shape)} finite, max|tiled - untiled| "
+        f"{float((tiled - ref).abs().max()):.3e}; energy gradient through it max "
+        f"{float(tiled_grad.abs().max()):.3e}; decode {tiled_ms:.3f} ms tiled, "
+        f"{untiled_ms:.3f} ms untiled")
+    del g, core, z, ref, one, tiled, out, zero
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the gradient against a central difference, core and scorer in fp32
+    core32 = LatentDiffusionCore.random_init(spec, 0, "cuda", torch.float32)
+    scorer32 = CLIPScorer.random_init(1, clip, "cuda", torch.float32)
+    text = scorer32.embed_text(HashTokenizer(clip.vocab_size, clip.context_length)(
+        [guided_probe.PROMPT]))
+    efn = clip_energy_fn(core32, scorer32, text)
+    p32 = p.float()
+    grad32 = energy_grad(efn, x, p32, t)
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    v = torch.randn(p32.shape, generator=gen, device="cuda")
+    v = v / v.norm()
+    h = FD_STEP * float(p32.norm())
+    with torch.no_grad():
+        energy = lambda q: efn(x, q, t)
+        checks = {m: directional_check(energy, grad32, p32, v, m * h) for m in (10, 1, 0.1)}
+        e_p = float(energy(p32))
+    gv, fd, rel = checks[1]
+    say(f"guided fp32: E(p) {e_p:.6e}, max|dE/dp| {float(grad32.abs().max()):.3e}, "
+        f"<dE/dp, v> {gv:.6e}; central difference at h = {h:.4g} ({FD_STEP} |p|): {fd:.6e}, "
+        f"relative gap {rel:.3e} (bound {FD_REL_BOUND:.0e}); at 10h {checks[10][1]:.6e} "
+        f"({checks[10][2]:.3e}), at h/10 {checks[0.1][1]:.6e} ({checks[0.1][2]:.3e})")
+    if not rel <= FD_REL_BOUND:
+        fail(f"guided: the energy gradient misses the central difference by {rel}")
+    del core32, scorer32, efn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the plain-inversion pipeline on the FFHQ LDM, K1 against plain
+    # attention, fp32
+    spec_f = LATENT_MODELS["ffhq256"]()
+    core_f = LatentDiffusionCore.random_init(spec_f, UNPAIRED_MODELS["ffhq256"], "cuda",
+                                             torch.float32)
+    pipe = LatentDiffPlainPipeline(core_f, custom_steps=STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(82)
+    small = torch.rand((UNPAIRED_SAMPLES, 3, 16, 16), generator=gen, device="cuda")
+    images = torch.nn.functional.interpolate(small, size=(256, 256), mode="bilinear",
+                                             align_corners=False).permute(0, 2, 3, 1)
+    runs, plain_counts = {}, {}
+    decode = core_f.decode_first_stage
+    for mode in ("kernels", "plain"):
+        samples = []
+        core_f.decode_first_stage = lambda s: samples.append(s) or decode(s)
+        try:
+            with attention(mode):
+                fa.reset_launch_counts()
+                t0 = time.perf_counter()
+                zp = pipe.encode(images)
+                img = pipe.generate(zp)
+                torch.cuda.synchronize()
+                runs[mode] = (zp, samples[0], img, time.perf_counter() - t0)
+                plain_counts[mode] = dict(fa.launch_counts)
+        finally:
+            del core_f.decode_first_stage
+    want = {k: n * 2 * STEPS for k, n in launches_per_call(spec_f, fa.attention_route).items()}
+    if plain_counts["kernels"] != {**dict.fromkeys(plain_counts["kernels"], 0), **want} or any(
+            plain_counts["plain"].values()):
+        fail(f"plain pipeline: launches {plain_counts}, expected {want} with the kernels "
+             f"and none with plain attention")
+    (zk, xk, ik, sk), (zp, xp, ip, sp) = runs["kernels"], runs["plain"]
+    rel_z = float((zk - zp).abs().max() / zp.abs().max())
+    rel_x = float((xk - xp).abs().max() / xp.abs().max())
+    rel_i = float((ik - ip).abs().max() / ip.abs().max())
+    codes = [core_f.first_stage.quantize(x / spec_f.scale_factor)[1] for x in (xk, xp)]
+    flips = int((codes[0] != codes[1]).sum())
+    say(f"plain pipeline (FFHQ LDM fp32, {UNPAIRED_SAMPLES} images, {STEPS} steps, eta 0): "
+        f"x_T {tuple(zk.shape)}, image {tuple(ik.shape)}; K1 vs plain attention: x_T "
+        f"{rel_z:.3e}, sampled latent {rel_x:.3e} of max (bound {PLAIN_PIPE_REL_BOUND:.0e}); "
+        f"{flips} of {codes[0].numel()} VQ codes differ (bound {CODE_FLIP_BOUND:.0e} of "
+        f"them), image {rel_i:.3e} of max (bounded where no code differs); launches "
+        f"{plain_counts['kernels']}; encode + generate {sk:.3f} s with K1, {sp:.3f} s plain")
+    if not (rel_z <= PLAIN_PIPE_REL_BOUND and rel_x <= PLAIN_PIPE_REL_BOUND
+            and flips <= CODE_FLIP_BOUND * codes[0].numel()
+            and (flips or rel_i <= PLAIN_PIPE_REL_BOUND)):
+        fail(f"plain pipeline: K1 disagrees with plain attention: x_T {rel_z}, latent "
+             f"{rel_x}, {flips} codes, image {rel_i}")
+    if not (torch.isfinite(zk).all() and torch.isfinite(ik).all()):
+        fail("plain pipeline: non-finite x_T or image")
+    del core_f, pipe, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    say_peak(torch, "guided")
+    k1 = counts["guided"][1]
+    return {"flash_attention_bhtd": k1["flash_attention_bhtd"]
+            + plain_counts["kernels"]["flash_attention_bhtd"],
+            "flash_attention_packed": k1["flash_attention_packed"]}
+
+
 def round_trip(torch, core, pipe, images, src) -> float:
     """Phase 5: encode, then replay under the same text and scale 1 with
     deterministic cuDNN -> max|replay - x0| on the latent."""
@@ -1835,14 +2126,20 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         phase_afhq(torch, fa, root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    guided_counts = phase_guided(torch, fa, attention)
 
     # launches on the path that runs each kernel: the translate slice (K1,
     # K2), LDM text2img-large's and FFHQ -> CelebA-HQ's CLI runs (K1), the
-    # ensemble (K3), the UNet call in folded mode "1" (K4)
+    # guided chain (K1, K2) and the FFHQ plain pipeline (K1), the ensemble
+    # (K3), the UNet call in folded mode "1" (K4)
     launches = {"flash_attention_bhtd": slice_counts["flash_attention_bhtd"]
                 + ldm_counts["flash_attention_bhtd"]
-                + unpaired_counts["flash_attention_bhtd"],
-                "flash_attention_packed": slice_counts["flash_attention_packed"],
+                + unpaired_counts["flash_attention_bhtd"]
+                + guided_counts["flash_attention_bhtd"],
+                "flash_attention_packed": slice_counts["flash_attention_packed"]
+                + guided_counts["flash_attention_packed"],
                 "qout_self_attention_block": ens_counts["qout_self_attention_block"],
                 "fused_self_attention_block": k4_counts["fused_self_attention_block"]}
     kernels = [{"name": name, "route": "cuda", "source": KERNELS[name][1],

@@ -26,6 +26,8 @@ Each wrapper takes its plain PyTorch version (:func:`attention_reference`,
 on the CPU, and only there: for a CUDA tensor it launches its kernel or
 raises.  Each call of K1-K4 that launches adds one to the wrapper's entry in
 :data:`launch_counts` (:func:`linear`, a part of K3/K4, counts none).
+None of them has a backward: in grad mode each refuses an input that
+requires a gradient, on the CPU too.
 
 :func:`multi_head_attention_fused` dispatches by shape with the JAX
 package's thresholds: Tq >= 2048 with Tk >= 512 to K2, 1024 <= Tq < 2048
@@ -167,6 +169,16 @@ def _raise_on_error(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
 
 
+def _refuse_gradient(name: str, *tensors) -> None:
+    """The kernels define no backward, as the TPU kernels define no VJP: in
+    grad mode an input that requires a gradient is refused, on every device
+    (the plain version on the CPU would differentiate where the card could
+    not)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward; call it under "
+                           "torch.no_grad() or on inputs that need no gradient")
+
+
 def flash_attention_packed(q, k, v, num_heads: int, sm_scale: float):
     """Token-major flash attention: q (B,Tq,H*D), k/v (B,Tk,H*D) -> same."""
     b, tq, hd = q.shape
@@ -176,6 +188,7 @@ def flash_attention_packed(q, k, v, num_heads: int, sm_scale: float):
                          f"{tuple(k.shape)}, {tuple(v.shape)}, heads={num_heads}")
     if tq == 0 or tk == 0:
         raise ValueError("flash_attention_packed: empty query or key axis")
+    _refuse_gradient("flash_attention_packed", q, k, v)
     if q.device.type == "cpu":
         return attention_packed_reference(q, k, v, num_heads, sm_scale)
     d = hd // num_heads
@@ -204,6 +217,7 @@ def flash_attention_bhtd(q, k, v, sm_scale: float):
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if tq == 0 or tk == 0:
         raise ValueError("flash_attention_bhtd: empty query or key axis")
+    _refuse_gradient("flash_attention_bhtd", q, k, v)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, sm_scale)
     _check_kernel_inputs("flash_attention_bhtd", q, k, v, d, b * h)
@@ -315,6 +329,7 @@ def qout_self_attention_block(x, wq, k, v, wo, bo, num_heads: int):
     possibly strided views with a contiguous last dim.  All in x's dtype.
     Returns (B, Tq, C)."""
     d = _check_folded("qout_self_attention_block", x, (wq, wo, bo), (k, v), num_heads)
+    _refuse_gradient("qout_self_attention_block", x, wq, k, v, wo, bo)
     if x.device.type == "cpu":
         return qout_self_attention_reference(x, wq, k, v, wo, bo, num_heads)
     b, tq, c = x.shape
@@ -348,6 +363,7 @@ def fused_self_attention_block(x, wq, wk, wv, wo, bo, num_heads: int):
     the call counts as one launch of K4."""
     d = _check_folded("fused_self_attention_block", x, (wq, wk, wv, wo, bo), (),
                       num_heads)
+    _refuse_gradient("fused_self_attention_block", x, wq, wk, wv, wo, bo)
     if x.device.type == "cpu":
         return fused_self_attention_reference(x, wq, wk, wv, wo, bo, num_heads)
     b, t, c = x.shape
@@ -382,6 +398,7 @@ def linear(x, w, b=None):
     if x.shape[-1] != k or (b is not None and tuple(b.shape) != (n,)):
         raise ValueError(f"linear: shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"b {None if b is None else tuple(b.shape)}")
+    _refuse_gradient("linear", x, w, b)
     if x.device.type == "cpu":
         return linear_reference(x, w, b)
     tensors = (x, w) if b is None else (x, w, b)

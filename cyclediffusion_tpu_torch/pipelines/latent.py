@@ -36,6 +36,7 @@ from cyclediffusion_tpu_torch.models.text_encoders import (
 )
 from cyclediffusion_tpu_torch.models.unet_gd import GDUNet, GDUNetConfig
 from cyclediffusion_tpu_torch.ops import schedule
+from cyclediffusion_tpu_torch.ops.fold import SplitInputParams, split_first_stage_apply
 from cyclediffusion_tpu_torch.samplers import (
     ddim_decode,
     ddim_decode_cached,
@@ -163,6 +164,8 @@ class LatentDiffusionCore:
         self.device = resolve_device(device)
         self.dtype = dtype
         self.folded_attn = folded_attn
+        # tiled first-stage inference (ops/fold.py), read at each call
+        self.split_input_params: Optional[SplitInputParams] = None
         with self.device:
             self.unet = GDUNet(spec.unet, folded_attn)
             self.first_stage = (
@@ -275,26 +278,49 @@ class LatentDiffusionCore:
                               device=self.device)
         return self.cond_model(ids)
 
+    @property
+    def _vqf(self) -> int:
+        """The first stage's spatial factor, 2^(levels - 1)."""
+        return 2 ** (len(self.spec.first_stage.ch_mult) - 1)
+
+    def _split_scale(self, sip: SplitInputParams) -> int:
+        """``sip.vqf`` where given, else the model's factor."""
+        return self._vqf if sip.vqf is None else sip.vqf
+
+    def _first_stage_apply(self, fn, x, upsample: bool):
+        """``fn(x)``, or tiled over ``split_input_params`` where that is set
+        (read at each call)."""
+        sip = self.split_input_params
+        if sip is None or not sip.patch_distributed_vq:
+            return fn(x)
+        return split_first_stage_apply(fn, x, sip, scale=self._split_scale(sip),
+                                       upsample=upsample)
+
     @torch.no_grad()
     def encode_first_stage(self, image_m11, noise=None):
         """[-1,1] NHWC image -> x0 latent (fp32), times the scale factor: the
         KL posterior sampled with ``noise``, or the VQ encoder's
-        pre-quantisation latent (no noise)."""
+        pre-quantisation latent (no noise).  Tiled with
+        ``split_input_params``: a KL first stage's moments are tiled, then the
+        stitched posterior is sampled."""
         image = image_m11.to(self.dtype)
         if self.spec.fs_kind == "vq":
-            return self.first_stage.encode(image).float() * self.spec.scale_factor
+            z = self._first_stage_apply(self.first_stage.encode, image, upsample=False)
+            return z.float() * self.spec.scale_factor
         if noise is None:
             raise ValueError("the KL first stage's posterior sample needs noise")
-        moments = self.first_stage.encode_moments(image).float()
+        moments = self._first_stage_apply(self.first_stage.encode_moments, image,
+                                          upsample=False).float()
         return DiagonalGaussian(moments).sample(noise) * self.spec.scale_factor
 
-    @torch.no_grad()
     def decode_first_stage(self, z):
-        """Latent -> [-1,1] NHWC image (fp32).  The VQ decoder quantises the
-        fp32 latent, then runs in the core dtype."""
+        """Latent -> [-1,1] NHWC image (fp32), tiled with
+        ``split_input_params``.  The VQ decoder quantises the fp32 latent,
+        then runs in the core dtype.  Differentiable in ``z`` (the weights
+        are frozen, so a ``z`` that needs no gradient builds no graph)."""
         z = z / self.spec.scale_factor
-        return self.first_stage.decode(
-            z if self.spec.fs_kind == "vq" else z.to(self.dtype)).float()
+        z = z if self.spec.fs_kind == "vq" else z.to(self.dtype)
+        return self._first_stage_apply(self.first_stage.decode, z, upsample=True).float()
 
     def make_ddim_schedule(self, custom_steps: int, eta: float):
         betas = schedule.make_beta_schedule(

@@ -1,6 +1,7 @@
 """Latent-family DDIM sampler: DPM-Encoder and eps-replay decoding, exact
-and with encoder caching, and the stochastic refine (counterpart of
-``cyclediffusion_tpu.samplers.ddim``).
+and with encoder caching, the stochastic refine, plain sampling from noise,
+deterministic (eta 0) inversion and the SDEdit-style stochastic encode and
+decode (counterpart of ``cyclediffusion_tpu.samplers.ddim``).
 
 Each ``lax.scan`` of the JAX module is a Python loop here, one loop per
 chain kind shared by the exact and the cached variant (they differ only in
@@ -282,3 +283,64 @@ def ddim_refine(
     xt = steps.q_sample(x0, sched.alphas[refine_steps - 1], q_noise)
     return ddim_decode(model_fn, sched, xt, chain_eps, generator,
                        skip_steps=sched.num_steps - refine_steps, temperature=temperature)
+
+
+@torch.no_grad()
+def ddim_sample(
+    model_fn: EpsModel,
+    sched: DDIMSchedule,
+    shape,
+    generator: Optional[torch.Generator] = None,
+    *,
+    temperature: float = 1.0,
+    x_T: Optional[torch.Tensor] = None,
+    eps: Optional[torch.Tensor] = None,
+):
+    """Plain DDIM generation from noise: x_T ~ N(0, I) of ``shape`` on the
+    generator's device, then :func:`ddim_decode` with fresh noise at every
+    step.  ``x_T`` and ``eps`` (the chain's noise, time-major ``(S,) +
+    shape``) replace the draws, in that order."""
+    if x_T is None:
+        if generator is None:
+            raise ValueError("ddim_sample draws x_T: pass x_T or a generator")
+        x_T = torch.randn(tuple(shape), generator=generator, device=generator.device)
+    return ddim_decode(model_fn, sched, x_T, eps, generator, temperature=temperature)
+
+
+@torch.no_grad()
+def ddim_invert(model_fn: EpsModel, sched: DDIMSchedule, x0: torch.Tensor) -> torch.Tensor:
+    """Deterministic DDIM inversion: walk the grid upward (index 0 to S-1)
+    at eta 0, each step inverting the eta-0 step, ``x_next = sqrt(a_t)
+    x0_hat + sqrt(1 - a_t) e_t`` with ``x0_hat`` predicted at ``a_prev``.
+    Returns x_T."""
+    bsz = x0.shape[0]
+    x = x0
+    for i in range(sched.num_steps):
+        a_t, a_prev = sched.alphas[i], sched.alphas_prev[i]
+        e_t = model_fn(x, _t_vec(int(sched.timesteps[i]), bsz, x0.device))
+        x0_hat = (x - torch.sqrt(1.0 - a_prev) * e_t) / torch.sqrt(a_prev)
+        x = torch.sqrt(a_t) * x0_hat + sched.sqrt_one_minus_alphas[i] * e_t
+    return x
+
+
+def stochastic_encode(sched: DDIMSchedule, x0: torch.Tensor, t_index: int,
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SDEdit-style encode: x_t ~ q(x_t | x0) at DDIM index ``t_index``
+    (no exact reconstruction); ``noise`` replaces the draw."""
+    if noise is None:
+        noise = _randn(x0.shape, x0, generator)
+    return steps.q_sample(x0, sched.alphas[t_index], noise)
+
+
+@torch.no_grad()
+def stochastic_decode(model_fn: EpsModel, sched: DDIMSchedule, x_t: torch.Tensor,
+                      t_start: int, generator: Optional[torch.Generator] = None, *,
+                      eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Decode ``t_start`` steps down to index 0 with fresh noise: ``t_start``
+    is a step COUNT, so the chain starts at index ``t_start - 1`` (the
+    img2img recipe noises with :func:`stochastic_encode` at index ``t_enc``
+    and decodes ``t_enc`` steps, as the reference does).  ``eps``
+    (time-major, ``t_start`` entries) replaces the chain's draws."""
+    return ddim_decode(model_fn, sched, x_t, eps, generator,
+                       skip_steps=sched.num_steps - t_start)

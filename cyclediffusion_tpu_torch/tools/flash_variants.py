@@ -17,7 +17,9 @@ For each variant: ptxas's spills, and the max abs error / max|plain| of K2
 and K1 at the main-path shapes in bf16.  Then, in alternating order over
 ``ROUNDS`` rounds, the device ms per call of the kernel alone
 (``torch.profiler`` over ``REPS`` calls) for K2 (4, 4096, 320, H 8, d 40),
-K2 at the encode chain's batch 2 and K1 (4, 8, 1024, 80), beside
+K2 at the encode chain's batch 2, K1 (4, 8, 1024, 80), K1 at LDM
+text2img-large's d = 40 (4, 8, 1024, 40) and at the FFHQ LDM's d = 32 (head
+views of (3, 1024, 448), 14 heads), beside
 ``scaled_dot_product_attention`` on the same inputs (timed only), each
 line ending with the card's SM clock, power and throttle reasons.
 """
@@ -146,6 +148,8 @@ def main(names) -> None:
     k2 = [rand(4, 4096, 320) for _ in range(3)]
     k2_b2 = [rand(2, 4096, 320) for _ in range(3)]
     k1 = [rand(4, 8, 1024, 80) for _ in range(3)]
+    k1_d40 = [rand(4, 8, 1024, 40) for _ in range(3)]
+    k1_d32 = [rand(3, 1024, 448).view(3, 1024, 14, 32).transpose(1, 2) for _ in range(3)]
     cases = {
         "K2": (lambda: fa.flash_attention_packed(*k2, 8, 40 ** -0.5),
                lambda: F.scaled_dot_product_attention(*map(heads, k2))),
@@ -153,6 +157,10 @@ def main(names) -> None:
                        lambda: F.scaled_dot_product_attention(*map(heads, k2_b2))),
         "K1": (lambda: fa.flash_attention_bhtd(*k1, 80 ** -0.5),
                lambda: F.scaled_dot_product_attention(*k1)),
+        "K1 d40": (lambda: fa.flash_attention_bhtd(*k1_d40, 40 ** -0.5),
+                   lambda: F.scaled_dot_product_attention(*k1_d40)),
+        "K1 d32": (lambda: fa.flash_attention_bhtd(*k1_d32, 32 ** -0.5),
+                   lambda: F.scaled_dot_product_attention(*k1_d32)),
     }
     want2 = fa.attention_packed_reference(*k2, 8, 40 ** -0.5).float()
     want1 = fa.attention_reference(*k1, 80 ** -0.5).float()

@@ -494,3 +494,69 @@ def test_afhq_cli_files_are_what_translate_to_dog_writes(smoke, tmp_path, monkey
                    for f in fs)
     assert files == smoke.expected_cli_files(2, csv=False)
     assert "temp_gen/1.png" in files and "eval_results.csv" not in files
+
+
+@pytest.mark.parametrize("name,calls,want", [
+    ("sd_v1", 50, (250, 250)),              # the guided chain: 5 + 5 per call
+    ("ldm_ffhq256", 100, (500, 0)),         # the plain pipeline: 50 + 50 calls, K1 at d = 32
+])
+def test_guided_phase_expected_launches(smoke, name, calls, want):
+    """Phase 12's launch counts: every UNet call's K1/K2 launches, none
+    elsewhere (the energy's decoder attention and the ViT run plain)."""
+    from cyclediffusion_tpu_torch.ops.flash_attention import attention_route
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec
+
+    got = smoke.guided_launches(getattr(LatentCoreSpec, name)(), attention_route, calls)
+    assert (got["flash_attention_bhtd"], got["flash_attention_packed"]) == want
+    assert smoke.STEPS == 50 and 2 * smoke.STEPS == 100
+
+
+def test_guided_chain_makes_one_unet_call_per_step(smoke):
+    """The tiny guided chain calls its eps model once per step, as phase 12
+    counts it, and its energy sees pred_x0 at batch 1."""
+    import torch
+    from cyclediffusion_tpu_torch.models.clip import CLIPConfig
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec
+    from cyclediffusion_tpu_torch.tools import guided_probe
+
+    clip = CLIPConfig(embed_dim=16, image_resolution=16, vision_width=32, vision_layers=1,
+                      vision_heads=2, patch_size=8, vocab_size=96, context_length=16,
+                      text_width=32, text_layers=1, text_heads=2)
+    g = guided_probe.build(LatentCoreSpec.tiny("clip"), clip, steps=4, device="cpu",
+                           dtype=torch.float32)
+    calls, shapes = [0], []
+    model_fn, energy_fn = g.model_fn, g.energy_fn
+
+    def counted(x, t):
+        calls[0] += 1
+        return model_fn(x, t)
+
+    def seen(x, p, t):
+        shapes.append(tuple(p.shape))
+        return energy_fn(x, p, t)
+
+    g.model_fn, g.energy_fn = counted, seen
+    g.guided(smoke.GUIDED_WEIGHT)
+    assert calls[0] == 4 and shapes == [(1, 8, 8, 4)] * 4
+
+
+@pytest.mark.parametrize("h", [1e-1, 1e-2])
+def test_directional_check_on_a_toy_function(smoke, h):
+    """The central difference of a smooth toy energy matches its gradient
+    along a unit direction (the gap shrinks as h^2), and a gradient off by
+    5% shows as a 5% gap."""
+    import torch
+
+    gen = torch.Generator().manual_seed(0)
+    p = torch.randn(2, 4, 4, 3, generator=gen, dtype=torch.float64)   # no rounding noise
+    v = torch.randn(p.shape, generator=gen, dtype=torch.float64)
+    v = v / v.norm()
+    energy = lambda q: torch.sin(q).sum() + 0.5 * (q ** 2).sum()
+    grad = torch.cos(p) + p
+    gv, fd, rel = smoke.directional_check(energy, grad, p, v, h)
+    assert gv == pytest.approx(float((grad * v).sum()))
+    assert rel < h ** 2 and rel <= smoke.FD_REL_BOUND
+    _, _, off = smoke.directional_check(energy, 1.05 * grad, p, v, h)
+    assert off == pytest.approx(0.05 / 1.05, rel=0.05)
+    assert smoke.directional_check(lambda q: q.sum() * 0, torch.zeros(3), torch.zeros(3),
+                                   torch.ones(3), h)[2] == 0.0      # no division by zero

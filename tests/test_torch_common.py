@@ -73,7 +73,8 @@ def test_port_imports_without_jax():
     (the card's machine has neither), and with PIL, cv2 and pandas too
     (that machine does not promise them); none pulls in the JAX package.
     The fast mode's, LDM-BERT's and the pixel slice's entry points import
-    too (FID and Inception included)."""
+    too (FID and Inception included), and guided sampling's, the samplers',
+    the energies', the tiled first stage's and the plain pipeline's."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -100,7 +101,9 @@ def test_port_imports_without_jax():
         "        'pipelines.zoo', 'pipelines.ddpm_ddim', 'models.unet_ddpm',\n"
         "        'models.inception', 'convert.inception_import', 'evaluation.fid',\n"
         "        'evaluation.translate_to_dog', 'data.preprocess.afhqcat256',\n"
-        "        'data.preprocess.afhqwild256', 'tools.pixel_assets'}\n"
+        "        'data.preprocess.afhqwild256', 'tools.pixel_assets', 'samplers.guided',\n"
+        "        'energy.clip_energy', 'energy.prior_z', 'energy.factory', 'ops.fold',\n"
+        "        'pipelines.latentdiff_plain', 'tools.guided_probe'}\n"
         "from cyclediffusion_tpu_torch.samplers import dpm_encode_cached, ddim_decode_cached\n"
         "from cyclediffusion_tpu_torch.ops.cfg import cfg_model_fn_pair\n"
         "from cyclediffusion_tpu_torch.models.text_encoders import LDMBertEncoder\n"
@@ -117,6 +120,12 @@ def test_port_imports_without_jax():
         "from cyclediffusion_tpu_torch.pipelines.zoo import PIXEL_ZOO\n"
         "from cyclediffusion_tpu_torch.models.inception import InceptionV3Features\n"
         "from cyclediffusion_tpu_torch.evaluation.fid import compute_fid_kid\n"
+        "from cyclediffusion_tpu_torch.samplers import (ddim_sample, ddim_invert,\n"
+        "    stochastic_encode, stochastic_decode, energy_guided_decode)\n"
+        "from cyclediffusion_tpu_torch.energy import get_energy, parse_key, prior_z_energy\n"
+        "from cyclediffusion_tpu_torch.energy.clip_energy import clip_energy_fn\n"
+        "from cyclediffusion_tpu_torch.ops.fold import split_first_stage_apply\n"
+        "from cyclediffusion_tpu_torch.pipelines.latentdiff_plain import LatentDiffPlainPipeline\n"
         "missing = {w for w in want if 'cyclediffusion_tpu_torch.' + w not in names}\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules"
@@ -129,3 +138,35 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 50
+
+
+def tiny_latent_cores(cond_kind=None, fs_kind: str = "kl", seed: int = 3,
+                      resolution: int = 32):
+    """(JAX core, port core on the CPU) of ``LatentCoreSpec.tiny`` sharing
+    one filled parameter tree."""
+    import jax.numpy as jnp
+
+    from cyclediffusion_tpu.pipelines.latent import LatentCoreSpec as JSpec
+    from cyclediffusion_tpu.pipelines.latent import LatentDiffusionCore as JCore
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
+
+    jspec = JSpec.tiny(cond_kind=cond_kind, resolution=resolution, fs_kind=fs_kind)
+    shell = JCore(jspec, {})
+    k = jax.random.PRNGKey(0)
+    lat = jspec.image_size
+    ctx = None if cond_kind is None else jnp.zeros((1, 8, jspec.unet.context_dim))
+    img = jnp.zeros((1, resolution, resolution, 3))
+    fs_args = (img, jnp.zeros((1, lat, lat, jspec.embed_dim))) if fs_kind == "kl" else (img,)
+    shapes = {
+        "unet": jax.eval_shape(shell.unet.init, k, jnp.zeros((1, lat, lat, 4)),
+                               jnp.zeros((1,), jnp.int32), ctx),
+        "first_stage": jax.eval_shape(shell.first_stage.init, k, *fs_args),
+    }
+    if cond_kind is not None:
+        shapes["cond"] = jax.eval_shape(shell.cond_model.init, k,
+                                        jnp.zeros((1, 8), jnp.int32))
+    tree = fill_flax_tree(shapes, seed)
+    jcore = JCore(jspec, jax.tree.map(jnp.asarray, tree))
+    core = LatentDiffusionCore.from_jax_params(
+        LatentCoreSpec.tiny(cond_kind, resolution, fs_kind), tree, device="cpu")
+    return jcore, core

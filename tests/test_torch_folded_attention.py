@@ -192,7 +192,8 @@ def test_cross_attention_folds_only_long_self_attention(monkeypatch):
     calls = []
     monkeypatch.setattr(fa, "qout_self_attention_block",
                         lambda *a: calls.append(a[0].shape) or a[0])
-    mod = CrossAttention(32, 2, 16, folded_attn="qo")
+    # frozen, as the core freezes its modules: the kernels refuse a gradient
+    mod = CrossAttention(32, 2, 16, folded_attn="qo").requires_grad_(False)
     mod(torch.zeros(1, 2048, 32))
     mod(torch.zeros(1, 1024, 32))
     mod(torch.zeros(1, 2048, 32), context=torch.zeros(1, 77, 32))

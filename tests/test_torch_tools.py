@@ -98,3 +98,28 @@ def test_pixel_probe_settings_and_inputs():
         assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cudnn.deterministic
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = saved
+
+
+def test_guided_probe_at_tiny_size_on_the_cpu(capsys):
+    """The guided probe's problem and timing loop on the tiny text core and
+    a tiny CLIP in fp32 on the CPU: both chains run, alternate, and the
+    guidance moves z0; the entry point asks for the card by default."""
+    import torch
+
+    from cyclediffusion_tpu_torch.models.clip import CLIPConfig
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec
+    from cyclediffusion_tpu_torch.tools import guided_probe
+
+    clip = CLIPConfig(embed_dim=16, image_resolution=16, vision_width=32, vision_layers=1,
+                      vision_heads=2, patch_size=8, vocab_size=96, context_length=16,
+                      text_width=32, text_layers=1, text_heads=2)
+    setup = guided_probe.build(LatentCoreSpec.tiny("clip"), clip, steps=3, device="cpu",
+                               dtype=torch.float32)
+    assert setup.x_T.shape == (1, 8, 8, 4) and setup.eps.shape == (3, 1, 8, 8, 4)
+    res = guided_probe.run(setup, weight=50.0, reps=2)
+    assert res["plain_s"] > 0 and res["guided_s"] > 0 and res["mean_abs_dz0"] > 0
+    assert res["guided_ms_per_step"] == pytest.approx(1e3 * res["guided_s"] / 3)
+    assert torch.equal(setup.guided(0.0), setup.plain())
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="--device cpu"):
+            guided_probe.main([])
