@@ -81,12 +81,14 @@ Phases (each prints its results; any failure exits non-zero):
    at the published widths (the improved-DDPM ``afhq256`` UNet, 93,563,910
    params, fp32): two seeded improved-diffusion checkpoints (cat, dog)
    loaded bit for bit through the factory, a seeded pytorch-fid Inception,
-   synthetic 512 px cat and dog PNGs, ``main`` on the shipped experiment
+   the committed 512 px JPEG cats (``tests/data_torch/jpeg/``, baseline
+   4:2:0 as the AFHQ release) and synthetic dog PNGs, ``main`` on the shipped experiment
    cut to 100 encode steps of its 1000-step grid and refine 20 (99 source
    + 120 target UNet calls at batch 2, no kernel launch: its attention is
    at 256 tokens and fewer), under PyTorch's default flags as a user runs
    it (cuDNN's convolutions in TF32), ``translate_to_dog``'s PSNR / SSIM /
-   L2 / FID / KID; the card's Inception against the CPU's; an fp32 round
+   L2 / FID / KID; the cats the CLI read against the fixtures' committed
+   Pillow decode, resized; the card's Inception against the CPU's; an fp32 round
    trip with TF32 off (the replay's states against the encode chain's);
    the batch-2 UNet call eager and graph-replayed in fp32 (TF32 off and
    on) and bf16 beside its operation bound.
@@ -104,6 +106,17 @@ Phases (each prints its results; any failure exits non-zero):
    equal to the untiled decode, 3 x 3 patches in one decode call, an energy
    gradient through it.  (b) The plain-inversion pipeline on the FFHQ LDM
    in fp32, 50 steps, 3 images, with K1 against plain attention.
+13. Data and metrics (no kernel of K1-K4): every committed JPEG fixture
+   decoded on the host against Pillow's stored decode (0 values may
+   differ) and the ms per 512 px image; ``data/device_transforms``'s
+   ``preprocess_batch`` on the card against the CPU, 8 images 512 -> 256
+   and 256 -> 512 for each resize method, and its ms per batch; the seeded
+   random-feature LPIPS (fp32, TF32 off) on the card against the CPU on 8
+   pairs at 256 px, d(a, a) = 0, a small change closer than a large one,
+   its ms per batch; ``LatentCoreSpec.from_yaml`` on SD v1's inference
+   YAML (written by the phase in the reference's layout) against the
+   ``sd_v1`` preset, and ``pixel_spec_from_yml`` on an AFHQ ``.yml``
+   against the zoo.
 
 Each phase prints its peak device memory.  The last three lines of output
 are the card's name and power limit, the kernels' JSON record and the
@@ -1466,7 +1479,11 @@ AFHQ_CFG = "experiments/translate_afhqcat256_to_afhqdog256_ddim_eta01.cfg"
 AFHQ_CUTS = {("gan", "es_steps"): "100", ("gan", "refine_steps"): "20"}
 AFHQ_ADDS = {("raw_data", "eval_num"): "2"}
 AFHQ_SAMPLES = 2            # eval_num of AFHQ_CATS cats, one batch
-AFHQ_CATS, AFHQ_DOGS = 3, 4
+# the cats: committed JPEG fixtures (baseline 4:2:0, quality 75, the AFHQ
+# release's format) with Pillow's decode of each beside them
+JPEG_DIR = os.path.join("tests", "data_torch", "jpeg")
+AFHQ_CAT_JPEGS = ("cat_0", "cat_1", "cat_2")
+AFHQ_CATS, AFHQ_DOGS = len(AFHQ_CAT_JPEGS), 4
 # checkpoint key of the [gan] section -> weight seed (the cat model, the dog model)
 AFHQ_MODELS = {"source_model_path": 0, "target_model_path": 1}
 AFHQ_METRICS = ["eval_translate/psnr", "eval_translate/ssim", "eval_translate/l2",
@@ -1529,15 +1546,51 @@ def pixel_round_trip(torch, pipe, images, generator):
     return traj, float((out - x0).abs().max())
 
 
-def write_afhq_assets(torch, root, gan):
-    """Phase 11, first step: the cat and dog models as seeded full-width
-    improved-diffusion checkpoints at the config's paths under ``root``,
-    the seeded Inception state dict, and synthetic 512 px cat and dog PNGs
-    in the stargan-v2 layout -> ({checkpoint key: the written model},
-    Inception path)."""
+def expected_afhq_sources(n: int):
+    """The first ``n`` cats as the CLI should read them: the fixtures'
+    committed Pillow decode, resized 512 -> 256 by the port's host path ->
+    float32 (n, 256, 256, 3)."""
+    import numpy as np
+
+    from cyclediffusion_tpu_torch.data.preprocess.afhqcat256 import INTERPOLATION
+    from cyclediffusion_tpu_torch.data.transforms import resize, to_array
+
+    stored = np.load(os.path.join(ROOT, JPEG_DIR, "pillow_decode.npz"))
+    return np.stack([to_array(resize(stored[stem], 256, INTERPOLATION))
+                     for stem in AFHQ_CAT_JPEGS[:n]])
+
+
+def write_afhq_images(torch, root):
+    """The cats (the committed JPEG fixtures) and synthetic 512 px dog PNGs
+    in the stargan-v2 layout under ``root``."""
+    import shutil
+
     import numpy as np
 
     from cyclediffusion_tpu_torch.data.png import write_png
+
+    d = os.path.join(root, "stargan-v2", "data", "test", "cat")
+    os.makedirs(d, exist_ok=True)
+    for i, stem in enumerate(AFHQ_CAT_JPEGS):
+        shutil.copy(os.path.join(ROOT, JPEG_DIR, f"{stem}.jpg"),
+                    os.path.join(d, f"flickr_cat_{i:06d}.jpg"))
+    gen = torch.Generator().manual_seed(71)
+    d = os.path.join(root, "stargan-v2", "data", "test", "dog")
+    os.makedirs(d, exist_ok=True)
+    for i in range(AFHQ_DOGS):
+        small = torch.rand((1, 3, 16, 16), generator=gen)
+        img = torch.nn.functional.interpolate(small, size=(512, 512), mode="bilinear",
+                                              align_corners=False)[0].permute(1, 2, 0)
+        write_png(os.path.join(d, f"flickr_dog_{i:06d}.png"),
+                  (img * 255).round().to(torch.uint8).numpy().astype(np.uint8))
+
+
+def write_afhq_assets(torch, root, gan):
+    """Phase 11, first step: the cat and dog models as seeded full-width
+    improved-diffusion checkpoints at the config's paths under ``root``,
+    the seeded Inception state dict, the JPEG cats and synthetic PNG dogs
+    (:func:`write_afhq_images`) -> ({checkpoint key: the written model},
+    Inception path)."""
     from cyclediffusion_tpu_torch.pipelines import zoo
     from cyclediffusion_tpu_torch.tools import pixel_assets
 
@@ -1558,18 +1611,9 @@ def write_afhq_assets(torch, root, gan):
     inception = os.path.join(root, "pt_inception-2015-12-05.pth")
     say(f"afhq: {inception}: {pixel_assets.write_inception_checkpoint(inception, seed=2):,} "
         f"bytes (seeded pytorch-fid layout)")
-    gen = torch.Generator(device="cuda").manual_seed(71)
-    for split, n in (("cat", AFHQ_CATS), ("dog", AFHQ_DOGS)):
-        d = os.path.join(root, "stargan-v2", "data", "test", split)
-        os.makedirs(d, exist_ok=True)
-        for i in range(n):
-            small = torch.rand((1, 3, 16, 16), generator=gen, device="cuda")
-            img = torch.nn.functional.interpolate(small, size=(512, 512), mode="bilinear",
-                                                  align_corners=False)[0].permute(1, 2, 0)
-            write_png(os.path.join(d, f"flickr_{split}_{i:06d}.png"),
-                      (img * 255).round().to(torch.uint8).cpu().numpy().astype(np.uint8))
-    say(f"afhq: {AFHQ_CATS} cat and {AFHQ_DOGS} dog synthetic 512x512 PNGs under "
-        f"{os.path.join(root, 'stargan-v2')}")
+    write_afhq_images(torch, root)
+    say(f"afhq: {AFHQ_CATS} cat JPEGs ({', '.join(AFHQ_CAT_JPEGS)} of {JPEG_DIR}) and "
+        f"{AFHQ_DOGS} synthetic dog PNGs, 512x512, under {os.path.join(root, 'stargan-v2')}")
     return models, inception
 
 
@@ -1693,6 +1737,12 @@ def phase_afhq(torch, fa, root):
     if any("_feat" in k for k in results):
         fail(f"afhq: FID/KID fell back from the Inception asset: {sorted(results)}")
     orig, img = seen["images"][0]
+    want_src = expected_afhq_sources(AFHQ_SAMPLES)
+    if not np.array_equal(orig.float().cpu().numpy(), want_src):
+        fail("afhq: the cats the CLI read differ from the JPEG fixtures' Pillow decode, "
+             f"resized: max abs {np.abs(orig.float().cpu().numpy() - want_src).max()}")
+    say(f"afhq: the {AFHQ_SAMPLES} cats the CLI read from JPEG equal the fixtures' "
+        "committed Pillow decode, resized 512 -> 256, bit for bit")
     returned = img.float().cpu().numpy()
     for i in range(AFHQ_SAMPLES):
         png = read_png(os.path.join(out_dir, "temp_gen", f"{i}.png"))
@@ -2047,6 +2097,280 @@ def phase_guided(torch, fa, attention):
             "flash_attention_packed": k1["flash_attention_packed"]}
 
 
+# phase 13: data and metrics
+DT_BATCH = 8
+DT_CASES = ((512, 256), (256, 512))      # (input size, output size)
+DT_METHODS = ("bilinear", "bicubic", "lanczos3", "lanczos5", "nearest")
+# preprocess_batch on the card against the CPU, max abs on [0, 1] pixels:
+# the same fp32 weight matrices, the products in fp32 both ways (TF32 off),
+# summed in another order
+DT_BOUND = 1e-5
+LPIPS_PAIRS, LPIPS_SIZE = 8, 256
+# the random-feature LPIPS on the card against the CPU, max |card - CPU| /
+# max|CPU|: fp32 both ways (TF32 off), cuDNN's and the CPU's convolution
+# algorithms round otherwise over 13 layers
+LPIPS_REL_BOUND = 1e-4
+JPEG_REPS = 5
+
+# SD v1's inference spec in the layout of the reference's
+# configs/stable-diffusion/v1-inference.yaml
+SD_V1_YAML = """\
+model:
+  base_learning_rate: 1.0e-04
+  target: ldm.models.diffusion.ddpm.LatentDiffusion
+  params:
+    linear_start: 0.00085
+    linear_end: 0.0120
+    num_timesteps_cond: 1
+    log_every_t: 200
+    timesteps: 1000
+    first_stage_key: "jpg"
+    cond_stage_key: "txt"
+    image_size: 64
+    channels: 4
+    cond_stage_trainable: false   # a comment, as the reference has
+    conditioning_key: crossattn
+    monitor: val/loss_simple_ema
+    scale_factor: 0.18215
+    use_ema: False
+
+    scheduler_config: # 10000 warmup steps
+      target: ldm.lr_scheduler.LambdaLinearScheduler
+      params:
+        warm_up_steps: [ 10000 ]
+        cycle_lengths: [ 10000000000000 ]
+        f_start: [ 1.e-6 ]
+        f_max: [ 1. ]
+        f_min: [ 1. ]
+
+    unet_config:
+      target: ldm.modules.diffusionmodules.openaimodel.UNetModel
+      params:
+        image_size: 32 # unused
+        in_channels: 4
+        out_channels: 4
+        model_channels: 320
+        attention_resolutions: [ 4, 2, 1 ]
+        num_res_blocks: 2
+        channel_mult: [ 1, 2, 4, 4 ]
+        num_heads: 8
+        use_spatial_transformer: True
+        transformer_depth: 1
+        context_dim: 768
+        use_checkpoint: True
+        legacy: False
+
+    first_stage_config:
+      target: ldm.models.autoencoder.AutoencoderKL
+      params:
+        embed_dim: 4
+        monitor: val/rec_loss
+        ddconfig:
+          double_z: true
+          z_channels: 4
+          resolution: 256
+          in_channels: 3
+          out_ch: 3
+          ch: 128
+          ch_mult:
+          - 1
+          - 2
+          - 4
+          - 4
+          num_res_blocks: 2
+          attn_resolutions: []
+          dropout: 0.0
+        lossconfig:
+          target: torch.nn.Identity
+
+    cond_stage_config:
+      target: ldm.modules.encoders.modules.FrozenCLIPEmbedder
+"""
+# a DiffusionCLIP-style AFHQ model file
+AFHQ_YML = """\
+data:
+    dataset: "AFHQ"
+    category: "dog"
+    image_size: 256
+    channels: 3
+model:
+    type: "simple"
+    var_type: fixedsmall
+    attn_resolutions: [16, ]
+    ema: True
+diffusion:
+    beta_schedule: linear
+    beta_start: 0.0001
+    beta_end: 0.02
+    num_diffusion_timesteps: 1000
+"""
+
+
+def check_jpeg_fixtures(reps: int = JPEG_REPS):
+    """Every committed JPEG fixture decoded on the host -> ({stem: values
+    that differ from the stored Pillow decode}, ms of each 512 px decode,
+    the Pillow version that made the stored decode)."""
+    import numpy as np
+
+    from cyclediffusion_tpu_torch.data.jpeg import read_jpeg
+
+    d = os.path.join(ROOT, JPEG_DIR)
+    stored = np.load(os.path.join(d, "pillow_decode.npz"))
+    differ, ms = {}, []
+    for stem in sorted(f[:-4] for f in os.listdir(d) if f.endswith(".jpg")):
+        path = os.path.join(d, f"{stem}.jpg")
+        img = read_jpeg(path)
+        want = stored[stem]
+        differ[stem] = int((img != want).sum()) if img.shape == want.shape else -1
+        if img.shape[:2] == (512, 512):
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                read_jpeg(path)
+                ms.append(1e3 * (time.perf_counter() - t0))
+    return differ, ms, str(stored["pillow_version"])
+
+
+def dt_batch(torch, size: int, batch: int = DT_BATCH):
+    """A seeded batch of uint8 images (B, size, size, 3) on the CPU."""
+    gen = torch.Generator().manual_seed(size)
+    return torch.randint(0, 256, (batch, size, size, 3), generator=gen, dtype=torch.uint8)
+
+
+def check_device_transforms(torch, device, cases=DT_CASES, methods=DT_METHODS,
+                            batch: int = DT_BATCH) -> dict:
+    """``preprocess_batch`` on ``device`` against the CPU -> {(in size, out
+    size, method): max abs}."""
+    from cyclediffusion_tpu_torch.data.device_transforms import preprocess_batch
+
+    errs = {}
+    for size_in, size_out in cases:
+        x = dt_batch(torch, size_in, batch)
+        for method in methods:
+            want = preprocess_batch(x, size_out, method=method)
+            got = preprocess_batch(x.to(device), size_out, method=method).cpu()
+            if tuple(got.shape) != (batch, size_out, size_out, 3):
+                raise ValueError(f"preprocess_batch gave {tuple(got.shape)}")
+            errs[(size_in, size_out, method)] = float((got - want).abs().max())
+    return errs
+
+
+def lpips_pairs(torch, pairs: int, size: int):
+    """Seeded [-1, 1] images a and noise n, (pairs, size, size, 3), on the CPU."""
+    gen = torch.Generator().manual_seed(size + pairs)
+    a = torch.rand((pairs, size, size, 3), generator=gen) * 2 - 1
+    n = torch.rand((pairs, size, size, 3), generator=gen) * 2 - 1
+    return a, n
+
+
+def check_lpips(torch, device, pairs: int = LPIPS_PAIRS, size: int = LPIPS_SIZE):
+    """The seeded random-feature LPIPS on ``device`` against the same
+    module on the CPU -> (max |device - CPU| / max|CPU| of d(a, a + 0.1 n),
+    d(a, a), d(a, a + 0.01 n), d(a, a + 0.5 n) on the device, the device
+    module)."""
+    import copy
+
+    from cyclediffusion_tpu_torch.evaluation.lpips import lpips_distance, random_lpips_params
+
+    cpu = random_lpips_params(torch.Generator().manual_seed(0), device="cpu")
+    model = copy.deepcopy(cpu).to(device)
+    a, n = lpips_pairs(torch, pairs, size)
+    with torch.no_grad():
+        want = lpips_distance(cpu, a, a + 0.1 * n)
+        got = lpips_distance(model, a, a + 0.1 * n).cpu()
+        rel = float((got - want).abs().max() / want.abs().max())
+        same, small, large = (lpips_distance(model, a, a + k * n).cpu()
+                              for k in (0.0, 0.01, 0.5))
+    return rel, same, small, large, model
+
+
+def check_yaml_specs(root: str) -> list:
+    """The spec loaders on YAML the phase writes -> the fields that differ
+    (none when they pass): SD v1's inference YAML against the ``sd_v1``
+    preset (at the file's resolution, the first stage's 256; SD's wrapper
+    runs at 512), an AFHQ ``.yml`` against the zoo's ``afhqdog256``."""
+    import dataclasses
+
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec
+    from cyclediffusion_tpu_torch.pipelines.zoo import PIXEL_ZOO, pixel_spec_from_yml
+
+    bad = []
+    path = os.path.join(root, "v1-inference.yaml")
+    with open(path, "w") as f:
+        f.write(SD_V1_YAML)
+    spec = LatentCoreSpec.from_yaml(path, name="sd_v1")
+    want = dataclasses.replace(LatentCoreSpec.sd_v1(), resolution=256)
+    bad += [f"sd_v1.{f.name}" for f in dataclasses.fields(spec)
+            if getattr(spec, f.name) != getattr(want, f.name)]
+    path = os.path.join(root, "afhq.yml")
+    with open(path, "w") as f:
+        f.write(AFHQ_YML)
+    spec, want = pixel_spec_from_yml(path, name="afhqdog256"), PIXEL_ZOO["afhqdog256"]
+    bad += [f"afhq.{f.name}" for f in dataclasses.fields(spec)
+            if getattr(spec, f.name) != getattr(want, f.name)]
+    return bad
+
+
+def phase_data(torch, card: str) -> None:
+    """Phase 13: the JPEG decoder on the card's host, the device transforms
+    and the random-feature LPIPS on the card against the CPU, the YAML spec
+    loaders; their times, beside the card's name and power limit."""
+    torch.cuda.reset_peak_memory_stats()
+    say(f"data: {card}")
+    differ, ms, pillow = check_jpeg_fixtures()
+    say(f"data: JPEG, {len(differ)} fixtures decoded on the host against Pillow {pillow}'s "
+        f"stored decode: differing values {differ}")
+    if any(differ.values()):
+        fail(f"data: the JPEG decode differs from Pillow's: {differ}")
+    ms.sort()
+    say(f"data: JPEG decode of a 512x512 4:2:0 image on the host: median {ms[len(ms) // 2]:.1f} "
+        f"ms over {len(ms)} decodes (min {ms[0]:.1f}, max {ms[-1]:.1f})")
+
+    from cyclediffusion_tpu_torch.data.device_transforms import preprocess_batch
+
+    errs = check_device_transforms(torch, "cuda")
+    worst = max(errs.values())
+    say(f"data: preprocess_batch, batch {DT_BATCH}, card vs CPU max abs by (in, out, "
+        f"method): {errs} (bound {DT_BOUND:.0e})")
+    if not worst <= DT_BOUND:
+        fail(f"data: preprocess_batch on the card differs from the CPU by {worst}")
+    for size_in, size_out in DT_CASES:
+        x = dt_batch(torch, size_in).cuda()
+        times = {m: cuda_time_ms(functools.partial(preprocess_batch, x, size_out, m), reps=10)
+                 for m in DT_METHODS}
+        say(f"data: preprocess_batch {DT_BATCH} x {size_in}px uint8 -> {size_out}px on the "
+            f"card, ms per batch: " + ", ".join(f"{m} {t:.3f}" for m, t in times.items()))
+
+    rel, same, small, large, model = check_lpips(torch, "cuda")
+    say(f"data: random-feature LPIPS (seeded, fp32, TF32 off; not the published weights), "
+        f"{LPIPS_PAIRS} pairs at {LPIPS_SIZE}px: card vs CPU {rel:.3e} of max|CPU| (bound "
+        f"{LPIPS_REL_BOUND:.0e}); d(a, a) max {float(same.max()):.3e}; d(a, a + 0.01 n) "
+        f"{float(small.mean()):.4g} < d(a, a + 0.5 n) {float(large.mean()):.4g} (means)")
+    if not rel <= LPIPS_REL_BOUND:
+        fail(f"data: LPIPS on the card differs from the CPU by {rel}")
+    if bool((same != 0).any()) or not bool((small < large).all()):
+        fail(f"data: LPIPS d(a, a) = {same.tolist()}, small {small.tolist()}, "
+             f"large {large.tolist()}")
+    from cyclediffusion_tpu_torch.evaluation.lpips import lpips_distance
+    a, n = (t.cuda() for t in lpips_pairs(torch, LPIPS_PAIRS, LPIPS_SIZE))
+    b = a + 0.1 * n
+    with torch.no_grad():
+        t = cuda_time_ms(lambda: lpips_distance(model, a, b), reps=10)
+    say(f"data: LPIPS on the card, {LPIPS_PAIRS} pairs at {LPIPS_SIZE}px, fp32 (TF32 off): "
+        f"{t:.3f} ms per batch")
+
+    with tempfile.TemporaryDirectory(prefix="cd_yaml_") as root:
+        bad = check_yaml_specs(root)
+    if bad:
+        fail(f"data: the YAML spec loaders differ from the presets in {bad}")
+    say("data: from_yaml(SD v1 inference YAML) equals LatentCoreSpec.sd_v1() field by field "
+        "(at the file's resolution 256); pixel_spec_from_yml(AFHQ .yml) equals the zoo's "
+        "afhqdog256")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    say_peak(torch, "data")
+
+
 def round_trip(torch, core, pipe, images, src) -> float:
     """Phase 5: encode, then replay under the same text and scale 1 with
     deterministic cuDNN -> max|replay - x0| on the latent."""
@@ -2129,6 +2453,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     guided_counts = phase_guided(torch, fa, attention)
+    phase_data(torch, card)
 
     # launches on the path that runs each kernel: the translate slice (K1,
     # K2), LDM text2img-large's and FFHQ -> CelebA-HQ's CLI runs (K1), the

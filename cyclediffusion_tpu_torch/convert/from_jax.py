@@ -16,7 +16,9 @@ conv (the VAE's, VQ's ``quant_conv``) or a 1-tap Conv1d (``GDAttentionBlock``'s
 The ``_Kernel`` / ``_KernelBias`` holders are ordinary ``{kernel[, bias]}``
 dicts, so they land on ``Linear(bias=False)`` / ``Linear``.
 
-The CLIP scorer's tree goes the same way: ``conv1`` HWIO -> OIHW without a
+The LPIPS tower's tree goes the same way (``conv_i`` -> ``conv.i``), its
+five heads as they are (:func:`load_flax_lpips`).  The CLIP scorer's tree
+goes the same way: ``conv1`` HWIO -> OIHW without a
 bias; ``class_embedding``, ``positional_embedding``, ``proj`` and
 ``text_projection`` as raw parameters; ``in_proj`` as one
 ``Linear(w, 3w)``; ``ln_1`` / ``ln_2`` keep their names.
@@ -108,6 +110,19 @@ def flax_to_state_dict(tree: dict, module: nn.Module) -> Dict[str, torch.Tensor]
 def load_flax_params(module: nn.Module, tree: dict) -> None:
     """Load a Flax tree into ``module`` in place (cast to its dtype/device)."""
     module.load_state_dict(flax_to_state_dict(tree, module), strict=True)
+
+
+@torch.no_grad()
+def load_flax_lpips(model: nn.Module, params: dict) -> None:
+    """The JAX LPIPS params (``{"vgg": <VGG16Features tree>, "lins": [5 x
+    (C,)]}``) into the port's ``evaluation.lpips.LPIPS`` in place: the tower
+    by :func:`flax_to_state_dict` (``conv_i`` -> ``conv.i``), the heads as
+    they are."""
+    load_flax_params(model.vgg, params["vgg"])
+    if len(params["lins"]) != len(model.lins):
+        raise ValueError(f"{len(params['lins'])} LPIPS heads, expected {len(model.lins)}")
+    for head, w in zip(model.lins, params["lins"]):
+        head.copy_(torch.from_numpy(np.array(w, dtype=np.float32)))
 
 
 # OpenAI CLIP state-dict names -> the port's CLIPModel names

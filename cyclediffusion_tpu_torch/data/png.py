@@ -15,7 +15,7 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}   # PNG colour type -> samples per pixel
-_UNSUPPORTED = "ROADMAP §A queue item 3 brings the other image formats"
+_UNSUPPORTED = "ROADMAP §A queue item 8 brings GIF and the other PNG kinds"
 
 
 def _unfilter_row(ftype: int, line: bytes, prev: bytes, bpp: int) -> bytes:

@@ -2,8 +2,8 @@
 dog translation (counterpart of
 ``cyclediffusion_tpu.data.preprocess.afhqcat256``): the images under
 ``stargan-v2/data/test/cat`` (recursive, sorted), each 512x512;
-``model_kwargs = [sample_id, original_image]``.  The port reads PNG only
-(``data/transforms.py``); the AFHQ release is JPEG.
+``model_kwargs = [sample_id, original_image]``.  The release's JPEGs are
+decoded by ``data/jpeg.py`` as Pillow decodes them.
 """
 
 from __future__ import annotations

@@ -2,9 +2,10 @@
 (counterpart of ``cyclediffusion_tpu.data.transforms``, without Pillow).
 
 Images are numpy uint8 ``(H, W, 3)`` arrays between the steps.  Decoding is
-the port's PNG codec (``data/png.py``) and keeps RGB as PIL's
-``convert("RGB")`` does: grey is repeated over three channels and alpha is
-dropped.  Resizing is ``torch.nn.functional.interpolate`` in PIL's two
+the port's PNG codec (``data/png.py``) or baseline JPEG decoder
+(``data/jpeg.py``), chosen by the file's first bytes as Pillow chooses, and
+keeps RGB as PIL's ``convert("RGB")`` does: grey is repeated over three
+channels and alpha is dropped.  Resizing is ``torch.nn.functional.interpolate`` in PIL's two
 passes (horizontal, then vertical), each rounded to uint8 as PIL's 8-bit
 path rounds: bilinear, and bicubic with PIL's a = -0.5 (antialiased, so a
 downscale widens the filter as PIL's does).
@@ -19,18 +20,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cyclediffusion_tpu_torch.data.png import read_png
+from cyclediffusion_tpu_torch.data.jpeg import decode_jpeg
+from cyclediffusion_tpu_torch.data.png import decode_png
 
 _EXTS = ("jpg", "jpeg", "png", "gif")
 
 
 def load_image(path: str) -> np.ndarray:
     """An image file -> uint8 (H, W, 3) RGB (``pil_loader``'s counterpart).
-    PNG only; any other format raises."""
-    if not path.lower().endswith(".png"):
-        raise ValueError(f"{path}: only PNG images are read; JPEG (the AFHQ release) "
-                         "comes with ROADMAP §A queue item 3 (JPEG decoding)")
-    img = read_png(path)
+    PNG and baseline JPEG; GIF and any other format raise."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(b"\x89PNG"):
+        img = decode_png(data)
+    elif data.startswith(b"\xff\xd8"):
+        img = decode_jpeg(data)
+    elif data.startswith(b"GIF8"):
+        raise ValueError(f"{path}: GIF is not read yet; ROADMAP §A queue item 8 "
+                         "(GIF input)")
+    else:
+        raise ValueError(f"{path}: not a PNG or JPEG file")
     if img.shape[2] == 1:          # grey
         return np.repeat(img, 3, axis=2)
     return np.ascontiguousarray(img[:, :, :3])

@@ -16,7 +16,12 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from cyclediffusion_tpu_torch.models.nn import GroupNorm, SpatialSelfAttention, silu
+from cyclediffusion_tpu_torch.models.nn import (
+    GroupNorm,
+    SpatialSelfAttention,
+    nhwc_to_nchw,
+    silu,
+)
 from cyclediffusion_tpu_torch.models.unet_ddpm import Downsample, Upsample
 
 
@@ -196,11 +201,11 @@ class AutoencoderKL(nn.Module):
         self.post_quant_conv = nn.Conv2d(embed_dim, cfg.z_channels, 1)
 
     def encode_moments(self, x):
-        h = self.encoder(x.permute(0, 3, 1, 2))
+        h = self.encoder(nhwc_to_nchw(x))
         return self.quant_conv(h).permute(0, 2, 3, 1)
 
     def decode(self, z):
-        h = self.post_quant_conv(z.permute(0, 3, 1, 2))
+        h = self.post_quant_conv(nhwc_to_nchw(z))
         return self.decoder(h).permute(0, 2, 3, 1)
 
     def forward(self, x, noise):
@@ -251,12 +256,12 @@ class VQModel(nn.Module):
         self.post_quant_conv = nn.Conv2d(embed_dim, cfg.z_channels, 1)
 
     def encode(self, x):
-        return self.quant_conv(self.encoder(x.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+        return self.quant_conv(self.encoder(nhwc_to_nchw(x))).permute(0, 2, 3, 1)
 
     def decode(self, h, force_not_quantize: bool = False):
         if not force_not_quantize:
             h = self.quantize(h)[0].to(self.post_quant_conv.weight.dtype)
-        return self.decoder(self.post_quant_conv(h.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+        return self.decoder(self.post_quant_conv(nhwc_to_nchw(h))).permute(0, 2, 3, 1)
 
     def forward(self, x):
         return self.decode(self.encode(x))

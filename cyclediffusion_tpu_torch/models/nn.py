@@ -72,6 +72,16 @@ def fill_random_(module: nn.Module, generator: torch.Generator) -> None:
         p.copy_(z.to(p.dtype))
 
 
+def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """An NHWC input as the NCHW view the convolutions take, in one memory
+    layout (channels-last) whatever the caller's strides.  A convolution's
+    algorithm, and so its rounding, follows its input's layout, and the
+    DPM-Encoder's replay must evaluate a model as its encode chain did:
+    an x0 permuted from an NCHW output, and every encode state made from
+    it, is stored channel-major, the replay's states NHWC-contiguous."""
+    return x.contiguous().permute(0, 3, 1, 2)
+
+
 def silu(x):
     return F.silu(x)
 

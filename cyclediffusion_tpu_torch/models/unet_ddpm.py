@@ -22,6 +22,7 @@ from cyclediffusion_tpu_torch.models.nn import (
     SpatialSelfAttention,
     ddpm_timestep_embedding,
     nearest_upsample_2x,
+    nhwc_to_nchw,
 )
 
 
@@ -159,7 +160,7 @@ class DDPMUNet(nn.Module):
         temb = ddpm_timestep_embedding(t, cfg.ch).to(x.dtype)
         temb = self.temb.dense[1](F.silu(self.temb.dense[0](temb)))
 
-        hs = [self.conv_in(x.permute(0, 3, 1, 2))]
+        hs = [self.conv_in(nhwc_to_nchw(x))]
         for level in self.down:
             for i, block in enumerate(level.block):
                 h = block(hs[-1], temb)

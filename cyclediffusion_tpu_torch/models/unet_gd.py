@@ -33,6 +33,7 @@ from cyclediffusion_tpu_torch.models.nn import (
     avg_pool_2x,
     gd_timestep_embedding,
     nearest_upsample_2x,
+    nhwc_to_nchw,
 )
 from cyclediffusion_tpu_torch.models.transformer import SpatialTransformer
 
@@ -284,7 +285,7 @@ class GDUNet(nn.Module):
 
     def encode(self, x, emb, context):
         """The input and middle blocks on NHWC ``x`` -> ``(h_middle, hs)``."""
-        h = x.permute(0, 3, 1, 2)
+        h = nhwc_to_nchw(x)
         hs = []
         for layers in self.input_blocks:
             h = _apply_layers(layers, h, emb, context)

@@ -37,6 +37,7 @@ from cyclediffusion_tpu_torch.models.text_encoders import (
 from cyclediffusion_tpu_torch.models.unet_gd import GDUNet, GDUNetConfig
 from cyclediffusion_tpu_torch.ops import schedule
 from cyclediffusion_tpu_torch.ops.fold import SplitInputParams, split_first_stage_apply
+from cyclediffusion_tpu_torch.runtime import yaml_subset
 from cyclediffusion_tpu_torch.samplers import (
     ddim_decode,
     ddim_decode_cached,
@@ -110,6 +111,64 @@ class LatentCoreSpec:
     def ldm_celeba256() -> "LatentCoreSpec":
         """The CelebA-HQ LDM: the FFHQ model's architecture."""
         return dataclasses.replace(LatentCoreSpec.ldm_ffhq256(), name="ldm_celeba256")
+
+    @staticmethod
+    def from_yaml(path: str, name: Optional[str] = None) -> "LatentCoreSpec":
+        """A spec from a reference LatentDiffusion yaml (the OmegaConf files
+        under ``configs/`` and ``models/ldm/*/config.yaml``), read by
+        :mod:`runtime.yaml_subset`: the UNet, the KL or VQ first stage (by
+        its ``target``), CLIP or LDM-BERT conditioning (by the cond
+        stage's ``target``).  ``resolution`` is the first stage's, as the
+        file has it (SD's wrapper runs at 512, which its file does not
+        say)."""
+        cfg = yaml_subset.load_file(path)["model"]["params"]
+        u = cfg["unet_config"]["params"]
+        unet = GDUNetConfig(
+            in_channels=u["in_channels"],
+            model_channels=u["model_channels"],
+            out_channels=u["out_channels"],
+            num_res_blocks=u["num_res_blocks"],
+            attention_resolutions=tuple(u["attention_resolutions"]),
+            channel_mult=tuple(u["channel_mult"]),
+            num_heads=u.get("num_heads", -1),
+            num_head_channels=u.get("num_head_channels", -1),
+            use_spatial_transformer=u.get("use_spatial_transformer", False),
+            transformer_depth=u.get("transformer_depth", 1),
+            context_dim=u.get("context_dim"),
+            legacy=u.get("legacy", True),
+        )
+        fs = cfg["first_stage_config"]
+        dd = fs["params"]["ddconfig"]
+        first_stage = DDConfig(
+            ch=dd["ch"], out_ch=dd["out_ch"], ch_mult=tuple(dd["ch_mult"]),
+            num_res_blocks=dd["num_res_blocks"],
+            attn_resolutions=tuple(dd.get("attn_resolutions", ())),
+            in_channels=dd["in_channels"], resolution=dd["resolution"],
+            z_channels=dd["z_channels"], double_z=dd.get("double_z", False),
+        )
+        fs_kind = "kl" if "AutoencoderKL" in fs["target"] else "vq"
+        cond_kind = None
+        cond_cfg = None
+        cs = cfg.get("cond_stage_config")
+        if isinstance(cs, dict):
+            target = cs.get("target", "")
+            if "CLIP" in target:
+                cond_kind, cond_cfg = "clip", CLIPTextConfig.vit_l_14()
+            elif "BERT" in target:
+                p = cs.get("params", {})
+                cond_kind = "bert"
+                cond_cfg = LDMBertConfig(dim=p.get("n_embed", 1280),
+                                         depth=p.get("n_layer", 32))
+        return LatentCoreSpec(
+            name=name or "from_yaml", unet=unet, first_stage=first_stage,
+            fs_kind=fs_kind, embed_dim=fs["params"]["embed_dim"],
+            scale_factor=cfg.get("scale_factor", 1.0),
+            linear_start=cfg["linear_start"], linear_end=cfg["linear_end"],
+            num_timesteps=cfg.get("timesteps", 1000),
+            n_embed=fs["params"].get("n_embed", 8192),
+            cond_kind=cond_kind, cond_cfg=cond_cfg,
+            resolution=dd["resolution"],
+        )
 
     @staticmethod
     def tiny(cond_kind: Optional[str] = "clip", resolution: int = 32,

@@ -23,6 +23,7 @@ from cyclediffusion_tpu_torch.convert import from_torch
 from cyclediffusion_tpu_torch.models.nn import fill_random_
 from cyclediffusion_tpu_torch.models.unet_ddpm import DDPMUNet, DDPMUNetConfig
 from cyclediffusion_tpu_torch.models.unet_gd import GDUNet, GDUNetConfig
+from cyclediffusion_tpu_torch.runtime import yaml_subset
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,11 +101,39 @@ def tiny_pixel_spec(resolution: int = 16, kind: str = "improved") -> PixelModelS
 
 
 def pixel_spec_from_yml(path: str, name: Optional[str] = None) -> PixelModelSpec:
-    """A spec from an SDEdit / DiffusionCLIP-style yml: not ported, since it
-    needs ``yaml``, which the card's machine lacks."""
-    raise NotImplementedError(
-        f"pixel_spec_from_yml({path!r}) needs yaml: ROADMAP §A queue item 3 "
-        "(from_yaml / pixel_spec_from_yml)")
+    """A spec from an SDEdit / DiffusionCLIP-style yml (the files the
+    reference reads at ``ddpm_ddim_wrapper.py:96-98``), read by
+    :mod:`runtime.yaml_subset`: the CompVis DDPM for ``CelebA_HQ`` and
+    ``LSUN`` (its widths from the file), the improved-DDPM ``afhq256`` UNet
+    for ``FFHQ`` and ``AFHQ``."""
+    cfg = yaml_subset.load_file(path)
+    data, model, diff = cfg["data"], cfg["model"], cfg["diffusion"]
+    dataset = data["dataset"]
+    if dataset in ("CelebA_HQ", "LSUN"):
+        kind = "compvis"
+        unet = DDPMUNetConfig(
+            ch=model["ch"], out_ch=model["out_ch"],
+            ch_mult=tuple(model["ch_mult"]),
+            num_res_blocks=model["num_res_blocks"],
+            attn_resolutions=tuple(model["attn_resolutions"]),
+            dropout=model.get("dropout", 0.0),
+            in_channels=model["in_channels"],
+            resolution=data["image_size"],
+            resamp_with_conv=model.get("resamp_with_conv", True),
+        )
+    elif dataset in ("FFHQ", "AFHQ"):
+        kind = "improved"
+        unet = GDUNetConfig.afhq256()
+    else:
+        raise NotImplementedError(dataset)
+    return PixelModelSpec(
+        name=name or dataset.lower(), kind=kind,
+        resolution=data["image_size"], channels=data["channels"],
+        var_type=model.get("var_type", "fixedsmall"),
+        beta_start=diff["beta_start"], beta_end=diff["beta_end"],
+        num_diffusion_timesteps=diff["num_diffusion_timesteps"],
+        unet=unet,
+    )
 
 
 def build_pixel_model(spec: PixelModelSpec) -> nn.Module:

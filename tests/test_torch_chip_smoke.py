@@ -560,3 +560,61 @@ def test_directional_check_on_a_toy_function(smoke, h):
     assert off == pytest.approx(0.05 / 1.05, rel=0.05)
     assert smoke.directional_check(lambda q: q.sum() * 0, torch.zeros(3), torch.zeros(3),
                                    torch.ones(3), h)[2] == 0.0      # no division by zero
+
+
+def test_afhq_cats_are_the_jpeg_fixtures(smoke, tmp_path, monkeypatch):
+    """Phase 11's cats: the committed JPEG fixtures copied into the
+    stargan-v2 layout, read by the port's AFHQ preprocessor as the CLI
+    reads them, equal the fixtures' stored Pillow decode resized (the
+    phase's gate), and the JAX package's reading of the same files to one
+    level; the dogs are PNGs."""
+    import numpy as np
+    import torch
+
+    from cyclediffusion_tpu.data.transforms import pil_loader, resize as jresize, to_array
+    from cyclediffusion_tpu_torch.data.preprocess.afhqcat256 import load_afhq
+    from cyclediffusion_tpu_torch.data.transforms import list_image_files_recursively
+
+    smoke.write_afhq_images(torch, str(tmp_path))
+    cats = list_image_files_recursively(str(tmp_path / "stargan-v2" / "data" / "test" / "cat"))
+    dogs = list_image_files_recursively(str(tmp_path / "stargan-v2" / "data" / "test" / "dog"))
+    assert [os.path.splitext(c)[1] for c in cats] == [".jpg"] * smoke.AFHQ_CATS
+    assert [os.path.splitext(d)[1] for d in dogs] == [".png"] * smoke.AFHQ_DOGS
+    got = np.stack([load_afhq(c) for c in cats])
+    np.testing.assert_array_equal(got, smoke.expected_afhq_sources(smoke.AFHQ_CATS))
+    want = np.stack([to_array(jresize(pil_loader(c), 256, "bilinear")) for c in cats])
+    assert np.abs(got - want).max() <= 1.0 / 255 + 1e-7
+
+
+def test_phase13_checks_pass_on_the_cpu(smoke, tmp_path):
+    """Phase 13's checks run here at small sizes with the CPU on both
+    sides: the JPEG fixtures decode to Pillow's stored decode, the
+    device-transform and LPIPS comparisons run every method and gate, and
+    the YAML loaders equal the presets.  The phase's SD YAML reads as
+    ``yaml.safe_load`` reads it and as the JAX package's ``from_yaml``."""
+    import dataclasses
+
+    import torch
+    import yaml
+
+    from cyclediffusion_tpu.pipelines.latent import LatentCoreSpec as JSpec
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec
+    from cyclediffusion_tpu_torch.runtime import yaml_subset
+
+    differ, ms, pillow = smoke.check_jpeg_fixtures(reps=1)
+    assert len(differ) == 7 and not any(differ.values()) and pillow
+    assert len(ms) == len(smoke.AFHQ_CAT_JPEGS)
+    errs = smoke.check_device_transforms(torch, "cpu", cases=((48, 24), (24, 48)), batch=2)
+    assert set(m for _, _, m in errs) == set(smoke.DT_METHODS) and max(errs.values()) == 0
+    rel, same, small, large, _ = smoke.check_lpips(torch, "cpu", pairs=2, size=32)
+    assert rel == 0 and not bool(same.any()) and bool((small < large).all())
+    assert smoke.check_yaml_specs(str(tmp_path)) == []
+    for text in (smoke.SD_V1_YAML, smoke.AFHQ_YML):
+        assert repr(yaml_subset.safe_load(text)) == repr(yaml.safe_load(text))
+    path = tmp_path / "v1-inference.yaml"
+    path.write_text(smoke.SD_V1_YAML)
+    spec, jspec = LatentCoreSpec.from_yaml(str(path)), JSpec.from_yaml(str(path))
+    assert dataclasses.asdict(spec.unet) == {k: v for k, v in dataclasses.asdict(jspec.unet)
+                                             .items() if k in dataclasses.asdict(spec.unet)}
+    assert (spec.resolution, spec.scale_factor, spec.cond_kind) == (
+        jspec.resolution, jspec.scale_factor, jspec.cond_kind)

@@ -145,8 +145,13 @@ def test_unsupported_images_raise(tmp_path):
         Image.fromarray(np.zeros(shape, np.uint8), mode).save(path)
         with pytest.raises(ValueError, match="ROADMAP"):
             transforms.load_image(path)
-    with pytest.raises(ValueError, match="JPEG"):
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(str(tmp_path / "x.jpg"),
+                                                         progressive=True)
+    with pytest.raises(ValueError, match="progressive"):
         transforms.load_image(str(tmp_path / "x.jpg"))
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(str(tmp_path / "x.gif"))
+    with pytest.raises(ValueError, match="ROADMAP"):
+        transforms.load_image(str(tmp_path / "x.gif"))
     with pytest.raises(ValueError, match="not a PNG"):
         png.decode_png(b"GIF89a")
 

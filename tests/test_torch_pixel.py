@@ -262,10 +262,11 @@ def _assert_same_spec(spec, jspec):
         {}, {"dropout": 0.0, "conv_resample": True}), spec.name
 
 
-def test_full_width_zoo_matches_jax():
+def test_full_width_zoo_matches_jax(tmp_path):
     """Every zoo entry field by field, and the published parameter counts
     on the meta device against ``jax.eval_shape``: afhq256 93,563,910,
-    celeba256 113,673,219, imagenet512 558,997,638."""
+    celeba256 113,673,219, imagenet512 558,997,638; a DiffusionCLIP-style
+    AFHQ yml read by both packages gives the zoo's AFHQ entry."""
     assert zoo.PIXEL_ZOO.keys() == jzoo.PIXEL_ZOO.keys()
     for name, spec in zoo.PIXEL_ZOO.items():
         _assert_same_spec(spec, jzoo.PIXEL_ZOO[name])
@@ -283,8 +284,14 @@ def test_full_width_zoo_matches_jax():
         assert n == count == sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes)), name
     for kind in ("improved", "compvis"):
         _assert_same_spec(zoo.tiny_pixel_spec(16, kind), jzoo.tiny_pixel_spec(16, kind))
-    with pytest.raises(NotImplementedError, match="yaml"):
-        zoo.pixel_spec_from_yml("ckpts/ddpm/configs/afhq.yml")
+    yml = tmp_path / "afhq.yml"
+    yml.write_text("data:\n    dataset: \"AFHQ\"\n    image_size: 256\n    channels: 3\n"
+                   "model:\n    var_type: fixedsmall\n"
+                   "diffusion:\n    beta_start: 0.0001\n    beta_end: 0.02\n"
+                   "    num_diffusion_timesteps: 1000\n")
+    spec = zoo.pixel_spec_from_yml(str(yml), name="afhqcat256")
+    _assert_same_spec(spec, jzoo.pixel_spec_from_yml(str(yml), name="afhqcat256"))
+    _assert_same_spec(spec, jzoo.PIXEL_ZOO["afhqcat256"])
 
 
 def test_imagenet512_pipeline_raises_where_jax_fails():
@@ -603,8 +610,21 @@ def test_afhq_preprocessors_match_jax(task, split, tmp_path, monkeypatch):
     write_png(str(tmp_path / "small.png"), np.zeros((256, 256, 3), np.uint8))
     with pytest.raises(ValueError, match="512x512"):
         load_afhq(str(tmp_path / "small.png"))
-    with pytest.raises(ValueError, match="JPEG decoding"):
-        load_afhq(str(tmp_path / "cat.jpg"))
+    # the release's JPEGs: decoded as Pillow decodes them, then resized as
+    # the JAX preprocessor resizes them (to 1 level, as the PNGs above)
+    from PIL import Image
+
+    from cyclediffusion_tpu.data.transforms import pil_loader, resize as jresize, to_array
+    Image.fromarray(np.asarray(Image.open(tmp_path / "stargan-v2" / "data" / "test" / split
+                                          / f"flickr_{split}_000000.png"))).save(
+        tmp_path / "cat.jpg", quality=90)
+    want = to_array(jresize(pil_loader(str(tmp_path / "cat.jpg")), 256, "bilinear"))
+    got = load_afhq(str(tmp_path / "cat.jpg"))
+    assert got.shape == want.shape == (256, 256, 3)
+    assert np.abs(got - want).max() <= 1.0 / 255 + 1e-7
+    Image.fromarray(np.zeros((512, 512, 3), np.uint8)).save(tmp_path / "cat.gif")
+    with pytest.raises(ValueError, match="GIF"):
+        load_afhq(str(tmp_path / "cat.gif"))
 
 
 def _translate_to_dog(mod, images, out_dir, model):

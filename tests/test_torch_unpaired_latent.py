@@ -15,6 +15,7 @@ fixed-point resize, as ``test_torch_data.py``).
 """
 
 import dataclasses
+import functools
 import os
 
 import jax
@@ -38,7 +39,7 @@ from cyclediffusion_tpu_torch.convert import from_torch
 from cyclediffusion_tpu_torch.convert.from_jax import load_flax_params
 from cyclediffusion_tpu_torch.models import autoencoder as ae
 from cyclediffusion_tpu_torch.models import unet_gd as ug
-from cyclediffusion_tpu_torch.models.nn import GDAttentionBlock
+from cyclediffusion_tpu_torch.models.nn import GDAttentionBlock, fill_random_
 from cyclediffusion_tpu_torch.ops import flash_attention as fa
 from cyclediffusion_tpu_torch.ops.schedule import DDIMSchedule
 from cyclediffusion_tpu_torch.pipelines import factory
@@ -493,3 +494,74 @@ def test_tiny_unpaired_cli_writes_what_jax_writes(tmp_path):
 def test_packaged_unpaired_configs_equal_the_jax_packages(name):
     assert get_config(f"{name}.cfg").to_dict() == jget_config(f"{name}.cfg").to_dict()
 
+
+
+def _channel_major(x: torch.Tensor) -> torch.Tensor:
+    """The same NHWC values stored channel-major, as a permuted NCHW module
+    output (the VQ encoder's x0) holds them."""
+    return x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("model", ["ffhq_unet", "vq_encode", "vq_decode", "kl_moments"])
+def test_models_do_not_depend_on_the_input_memory_layout(narrow_unets, vq_models, model):
+    """A model's NHWC input may be stored channel-major (x0 from a permuted
+    first-stage output, and everything the encode chain computes from it)
+    or NHWC-contiguous (the replay's states): the output is the same bit
+    for bit, as JAX's, whose arrays have one layout.  Tolerance: none."""
+    torch.set_num_threads(4)        # the multi-threaded kernels that differ by layout
+    try:
+        with torch.no_grad():
+            if model == "ffhq_unet":
+                fn = functools.partial(narrow_unets[1], t=torch.tensor([981, 5]))
+                x = to_torch(_rand((2, 32, 32, 3), 30))
+            elif model == "kl_moments":
+                vae = ae.AutoencoderKL(ae.DDConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                                                   resolution=32, z_channels=4))
+                fill_random_(vae, torch.Generator().manual_seed(0))
+                fn, x = vae.encode_moments, to_torch(_rand((2, 32, 32, 3), 31))
+            else:
+                vq = vq_models[2]
+                fn = vq.encode if model == "vq_encode" else vq.decode
+                x = to_torch(_rand((2, 32, 32, 3) if model == "vq_encode" else (2, 8, 8, 4), 32))
+            a, b = fn(x), fn(_channel_major(x))
+        assert torch.equal(a, b), float((a - b).abs().max())
+    finally:
+        torch.set_num_threads(1)
+
+
+def test_replay_calls_the_unet_as_the_encode_chain_did():
+    """The round trip's invariant, step by step: the replay's first UNet
+    call gets x_T, the encode chain's first input, and must give the eps
+    the encode chain got there bit for bit (JAX's does), whatever layout
+    the caller's image is stored in.  Here it is channel-major (a permuted
+    NCHW batch): x0 and every encode state inherit that layout, while the
+    replay's states are NHWC-contiguous."""
+    torch.set_num_threads(4)
+    try:
+        spec = dataclasses.replace(
+            LatentCoreSpec.ldm_ffhq256(),
+            unet=dataclasses.replace(ug.GDUNetConfig.ldm_ffhq256(), model_channels=32),
+            first_stage=ae.DDConfig(ch=32, ch_mult=(1, 2, 4), num_res_blocks=1,
+                                    z_channels=3, double_z=False), resolution=128)
+        core = LatentDiffusionCore.random_init(spec, seed=3, device="cpu")
+        pipe = LatentDiffStochasticPipeline(core, custom_steps=4, eta=0.1, white_box_steps=5)
+        seen = []
+        apply_model = core.apply_model
+
+        def spy(x, t, *a):
+            out = apply_model(x, t, *a)
+            seen.append((x.clone(), out))
+            return out
+
+        core.apply_model = spy
+        img = _channel_major(to_torch(_rand((1, 128, 128, 3), 4) * 0.25 + 0.5))
+        with torch.no_grad():
+            x0 = core.encode_first_stage((img - 0.5) * 2.0)
+            z = pipe.encode(img, torch.Generator().manual_seed(5))
+            replay = pipe.sample(z)
+        (x_enc, e_enc), (x_dec, e_dec) = seen[0], seen[4]
+        assert torch.equal(x_enc, x_dec)
+        assert torch.equal(e_enc, e_dec), float((e_enc - e_dec).abs().max())
+        assert max_abs(replay, x0) < 2e-5
+    finally:
+        torch.set_num_threads(1)
