@@ -117,6 +117,23 @@ Phases (each prints its results; any failure exits non-zero):
    YAML (written by the phase in the reference's layout) against the
    ``sd_v1`` preset, and ``pixel_spec_from_yml`` on an AFHQ ``.yml``
    against the zoo.
+14. The driver across processes and devices, on the one card (each child
+   process of this script, ``--child``, bounded by a timeout): (a) phase 7's
+   cut SD experiment on 3 images at batch 1, first in one process, then in
+   two processes on ``cuda:0`` joined over gloo with a ``file://`` init
+   (ragged shards: the second wrap-pads), with rank 0's metrics against the
+   one process's (JAX's bound, 1e-4 + 1e-3 |x|), the gathered ``temp_gen``
+   images bit for bit, each process's K1/K2 launches; (b) a one-rank NCCL
+   group: an all-gather, an all-reduce and one ``Driver.train`` step through
+   its gradient all-reduce; (c) SD v1's UNet (bf16) sharded at ``n_model``
+   2, ``min_size`` 512 (JAX's 206 parameters) over two ranks on ``cuda:0``
+   against the whole call (phase 4's bound), both timed; (d) one AdamW and
+   one Adafactor step over SD v1's UNet shapes (859,520,964 fp32 parameters)
+   with seeded gradients, ms and peak memory beside the bytes bound; JAX's
+   toy regression through ``Driver.train`` on the card and the CPU; the
+   port's optimisers against optax's trajectories
+   (``tests/data_torch/flax/optax_trajectories.npz``); (e) the Flax
+   msgpack fixture read against its npz twin, bit for bit.
 
 Each phase prints its peak device memory.  The last three lines of output
 are the card's name and power limit, the kernels' JSON record and the
@@ -2371,6 +2388,451 @@ def phase_data(torch, card: str) -> None:
     say_peak(torch, "data")
 
 
+# phase 14: the driver across processes and devices.  (a) phase 7's cut SD
+# experiment on 3 images at batch 1, so that two processes get ragged shards
+PAR_CUTS = {**CLI_CUTS, ("raw_data", "range"): "[4, 7]"}
+PAR_SAMPLES = 3
+# rank 0's metrics against one process's: JAX's own multi-process bound
+# (tests/test_multihost_real.py), 1e-4 + 1e-3 |x|
+PAR_ABS, PAR_REL = 1e-4, 1e-3
+# (c) tensor parallelism: SD v1's UNet at n_model 2 over the parameters
+# JAX's rule picks at this threshold (206 of them)
+TP_MIN_SIZE, TP_SHARDED = 512, 206
+# (d) the port's optimisers on the card against optax's trajectories
+# (tests/data_torch/flax/optax_trajectories.npz, 20 float32 steps): the CPU
+# agrees to 2.4e-7; the card's float32 sqrt, pow and reductions may round
+# otherwise, and 20 steps may grow that tenfold
+OPT_TRAJ_BOUND = 2e-5
+# the toy regression of JAX's tests/test_driver_train.py, with its bounds,
+# and card vs CPU (float32, another summation order)
+TOY_LOSS_BOUND, TOY_W_BOUND, TOY_CARD_CPU_BOUND = 0.05, 0.2, 1e-4
+# (b) one Driver.train step through NCCL against the CPU's: the same float32
+# operations on 3 weights, so ulps apart
+NCCL_STEP_BOUND = 1e-6
+SD_UNET_PARAMS = 859_520_964
+CHILD_TIMEOUT = 600
+FLAX_FIXTURES = os.path.join("tests", "data_torch", "flax")
+
+
+class ToyRegression:
+    """JAX ``tests/test_driver_train.py``'s model: y = w . x, mean squared
+    error, ``w`` on ``device``."""
+
+    def __init__(self, torch, device):
+        self.trainable_params = {"w": torch.zeros(3, device=device)}
+
+    @staticmethod
+    def loss_fn(params, batch, generator):
+        return ((batch["x"] @ params["w"] - batch["y"]) ** 2).mean()
+
+
+def toy_items(n: int = 64):
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    w_true = np.array([1.0, -2.0, 0.5], np.float32)
+    xs = rng.randn(n, 3).astype(np.float32)
+    return [{"x": xs[i], "y": np.float32(xs[i] @ w_true)} for i in range(n)], w_true
+
+
+def toy_args(out_dir: str, **kw):
+    import types
+
+    args = dict(output_dir=out_dir, num_train_epochs=60, learning_rate=0.1,
+                per_device_train_batch_size=8, gradient_accumulation_steps=2, logging_steps=0,
+                save_steps=0, seed=0, max_grad_norm=1.0, weight_decay=0.0, optim="adamw")
+    args.update(kw)
+    return types.SimpleNamespace(**args)
+
+
+def run_children(kind: str, world: int, work: str, extra=()) -> list:
+    """This script's ``--child kind`` as ``world`` processes on the card (one
+    ``file://`` init under ``work``), each given ``CHILD_TIMEOUT`` seconds ->
+    each rank's report.  A failure or a timeout fails the phase."""
+    init = "file://" + os.path.join(work, f"{kind}_{world}_init")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--child", kind,
+                               str(r), str(world), init, work, *extra],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=CHILD_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"parallel: {kind} x{world} ran past {CHILD_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"parallel: {kind} rank {r} of {world} exited {p.returncode}:\n{out[-4000:]}")
+    reports = []
+    for r in range(world):
+        with open(os.path.join(work, f"{kind}_{world}_{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def child_cli(torch, rank, world, work, extra) -> dict:
+    """(a) One process of the CLI on ``cfg`` with the seeded scorer, its
+    kernel launches counted from 0 around ``main``."""
+    from cyclediffusion_tpu_torch import main as cli
+    from cyclediffusion_tpu_torch.ops import flash_attention as fa
+    from cyclediffusion_tpu_torch.runtime import context
+    from cyclediffusion_tpu_torch.text import CLIPBPETokenizer
+    from cyclediffusion_tpu_torch.tools import sd_assets
+
+    cfg, out = extra
+    fa.load_kernels()
+    context.set_directional_clip(sd_assets.seeded_scorer(
+        1, CLIPBPETokenizer(os.environ["CYCLEDIFFUSION_CLIP_BPE"]), "cuda"))
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = cli.main(["--cfg", cfg, "--output_dir", f"{out}{rank}", "--seed", "42",
+                        "--do_eval", "--per_device_eval_batch_size", "1"], device="cuda:0")
+    torch.cuda.synchronize()
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "launches": dict(fa.launch_counts), "seconds": time.perf_counter() - t0}
+
+
+def child_nccl(torch, rank, world, work, extra) -> dict:
+    """(b) A one-rank NCCL group: an all-gather, an all-reduce and one step
+    of ``Driver.train`` (its gradient all-reduce counted)."""
+    import torch.distributed as dist
+
+    from cyclediffusion_tpu_torch.runtime.driver import Driver
+
+    x = torch.arange(4.0, device="cuda") + 1
+    parts = [torch.empty_like(x)]
+    dist.all_gather(parts, x)
+    y = x.clone()
+    dist.all_reduce(y)
+    calls = [0]
+    all_reduce = dist.all_reduce
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return all_reduce(*a, **k)
+
+    dist.all_reduce = counted
+    items, _ = toy_items(8)
+    model = ToyRegression(torch, "cuda")
+    driver = Driver(toy_args(os.path.join(work, "nccl_train"), num_train_epochs=1,
+                             gradient_accumulation_steps=1), model, train_dataset=items)
+    metrics = driver.train()
+    dist.all_reduce = all_reduce
+    return {"backend": dist.get_backend(), "gathered": parts[0].tolist(), "reduced": y.tolist(),
+            "x": x.tolist(), "driver_process": [driver.process_index, driver.process_count],
+            "steps": driver.state.global_step, "train_all_reduces": calls[0],
+            "w": model.trainable_params["w"].tolist(), "train_loss": metrics["train_loss"]}
+
+
+def child_tp(torch, rank, world, work, extra) -> dict:
+    """(c) SD v1's UNet (bf16, full width, seeded) called whole, then
+    sharded at n_model 2 over the ranks and called again."""
+    from cyclediffusion_tpu_torch.ops import flash_attention as fa
+    from cyclediffusion_tpu_torch.parallel.tp import data_model_mesh, shard_params_tp
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
+
+    fa.load_kernels()
+    core = LatentDiffusionCore.random_init(LatentCoreSpec.sd_v1(), seed=0, device="cuda",
+                                           dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((4, 64, 64, 4), generator=gen, device="cuda")
+    t = torch.tensor([981, 981, 500, 500], device="cuda")
+    ctx = torch.randn((4, 77, 768), generator=gen, device="cuda")
+    call = functools.partial(core.apply_model, x, t, ctx)
+    n_whole = sum(p.numel() for p in core.unet.parameters())
+    with torch.no_grad():
+        eps = call()
+        ms_whole = cuda_time_ms(call, reps=5, warmup=1)
+        n_sharded = shard_params_tp(data_model_mesh(1, 2, "cuda"), core.unet, TP_MIN_SIZE)
+        fa.reset_launch_counts()
+        eps_tp = call()
+        torch.cuda.synchronize()
+        launches = dict(fa.launch_counts)
+        ms_tp = cuda_time_ms(call, reps=5, warmup=1)
+    return {"n_sharded": n_sharded, "params_whole": n_whole,
+            "params_local": sum(p.numel() for p in core.unet.parameters()),
+            "rel_err": float((eps_tp - eps).abs().max() / eps.abs().max()),
+            "finite": bool(torch.isfinite(eps_tp).all()), "launches": launches,
+            "ms_whole": ms_whole, "ms_tp": ms_tp,
+            "eps_tp_sum": float(eps_tp.double().sum())}
+
+
+CHILDREN = {"cli": child_cli, "nccl": child_nccl, "tp": child_tp}
+
+
+def child_main(argv) -> None:
+    """``chip_smoke.py --child <kind> <rank> <world> <init> <work> [...]``:
+    one process of phase 14 on ``cuda:0``; joins the group (gloo for
+    several ranks on the one card, NCCL for ``nccl``) and writes its report
+    as ``<work>/<kind>_<world>_<rank>.json``."""
+    kind, rank, world, init, work, extra = (argv[0], int(argv[1]), int(argv[2]), argv[3],
+                                           argv[4], argv[5:])
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from cyclediffusion_tpu_torch.parallel import init_distributed
+
+    if not torch.cuda.is_available():
+        fail("the child needs the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    if world > 1 or kind == "nccl":
+        init_distributed(init, rank=rank, world_size=world,
+                         backend="nccl" if kind == "nccl" else "gloo", timeout_s=CHILD_TIMEOUT)
+    report = CHILDREN[kind](torch, rank, world, work, extra)
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(work, f"{kind}_{world}_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()          # no rank leaves while another still talks to it
+        dist.destroy_process_group()
+
+
+def check_cli_processes(torch, root, work, card, cli_counts) -> dict:
+    """(a) -> the K1/K2 launches of the two processes together."""
+    import numpy as np
+
+    from cyclediffusion_tpu_torch.data.png import read_png
+    from cyclediffusion_tpu_torch.runtime.config import config_root
+
+    with open(os.path.join(config_root(), CLI_CFG)) as f:
+        cfg_text = cut_config(f.read(), PAR_CUTS)
+    cfg = os.path.join(root, "parallel_cli.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    # phase 7's checkpoint and the repository's text-editing images (phases
+    # 10 and 11 pointed the data root at their synthetic images)
+    os.environ["CYCLEDIFFUSION_CKPT_ROOT"] = root
+    os.environ["CYCLEDIFFUSION_DATA_ROOT"] = ROOT
+    say(f"parallel: (a) {CLI_CFG} cut to {PAR_CUTS}, {PAR_SAMPLES} images at batch 1, "
+        f"one process, then two on cuda:0 over gloo ({card})")
+    (one,) = run_children("cli", 1, work, [cfg, os.path.join(work, "one")])
+    two = run_children("cli", 2, work, [cfg, os.path.join(work, "two")])
+    per_sample = {k: cli_counts[k] // CLI_SAMPLES for k in ROUTE_KERNELS.values()}
+    shard = math.ceil(PAR_SAMPLES / 2)
+    for label, rep, n in [("one process", one, PAR_SAMPLES)] + [
+            (f"rank {r} of 2", rep, shard) for r, rep in enumerate(two)]:
+        want = {k: per_sample[k] * n for k in per_sample}
+        got = {k: rep["launches"][k] for k in per_sample}
+        say(f"parallel: (a) {label}: {n} samples, K1/K2 launches {got} (expected {want}), "
+            f"eval_runtime {rep['metrics']['eval_runtime']} s, the whole CLI call "
+            f"{rep['seconds']:.2f} s, peak device memory {rep['peak_gib']:.2f} GiB ({card})")
+        if got != want:
+            fail(f"parallel: (a) {label} launched {got}, expected {want}")
+    drop = {"eval_runtime", "eval_samples_per_second", "eval_steps_per_second"}
+    want, got = one["metrics"], two[0]["metrics"]
+    keys = {k for k in want if k not in drop}
+    if keys != {k for k in got if k not in drop}:
+        fail(f"parallel: (a) rank 0's metric keys {sorted(got)} differ from {sorted(want)}")
+    worst = max(abs(want[k] - got[k]) / (PAR_ABS + PAR_REL * abs(want[k])) for k in keys)
+    shown = ", ".join(f"{k}: {got[k]:.6g}" for k in METRIC_KEYS)
+    say(f"parallel: (a) rank 0's metrics {{{shown}}}; worst |two - one| / (1e-4 + 1e-3 "
+        f"|one|) = {worst:.3g} (bound 1)")
+    if not worst <= 1:
+        fail(f"parallel: (a) rank 0's metrics {got} differ from one process's {want}")
+    for i in range(PAR_SAMPLES):
+        a = read_png(os.path.join(work, "one0", "temp_gen", f"{i}.png"))
+        b = read_png(os.path.join(work, "two0", "temp_gen", f"{i}.png"))
+        if not np.array_equal(a, b):
+            fail(f"parallel: (a) gathered temp_gen/{i}.png differs from one process's by "
+                 f"{int(np.abs(a.astype(int) - b).max())} levels")
+    if os.path.exists(os.path.join(work, "two1", "eval_results.json")):
+        fail("parallel: (a) rank 1 wrote eval_results.json")
+    say(f"parallel: (a) the {PAR_SAMPLES} gathered temp_gen images equal one process's, bit "
+        "for bit; rank 1 wrote no results")
+    return {k: sum(rep["launches"][k] for rep in two) for k in ROUTE_KERNELS.values()}
+
+
+def check_nccl(torch, work, card) -> None:
+    """(b)"""
+    (rep,) = run_children("nccl", 1, work)
+    items, _ = toy_items(8)
+    model = ToyRegression(torch, "cpu")
+    from cyclediffusion_tpu_torch.runtime.driver import Driver
+
+    Driver(toy_args(os.path.join(work, "nccl_cpu"), num_train_epochs=1,
+                    gradient_accumulation_steps=1), model, train_dataset=items).train()
+    err = max(abs(a - b) for a, b in zip(rep["w"], model.trainable_params["w"].tolist()))
+    say(f"parallel: (b) one-rank {rep['backend']} group: all_gather {rep['gathered']}, "
+        f"all_reduce {rep['reduced']} of {rep['x']}; Driver.train as process "
+        f"{rep['driver_process']}: {rep['steps']} step, {rep['train_all_reduces']} gradient "
+        f"all-reduce(s), w {rep['w']} vs the CPU's step {err:.3g} apart (bound "
+        f"{NCCL_STEP_BOUND:.0e}) ({card})")
+    if (rep["backend"] != "nccl" or rep["gathered"] != rep["x"] or rep["reduced"] != rep["x"]
+            or rep["driver_process"] != [0, 1] or rep["steps"] != 1
+            or rep["train_all_reduces"] < 1 or not err <= NCCL_STEP_BOUND):
+        fail(f"parallel: (b) NCCL at one rank: {rep}")
+
+
+def check_tensor_parallel(torch, work, card) -> None:
+    """(c)"""
+    reps = run_children("tp", 2, work)
+    want = {"flash_attention_bhtd": 5, "flash_attention_packed": 5,
+            "qout_self_attention_block": 0, "fused_self_attention_block": 0}
+    for r, rep in enumerate(reps):
+        say(f"parallel: (c) rank {r} of 2: {rep['n_sharded']} parameters sharded "
+            f"(expected {TP_SHARDED}), {rep['params_local']:,} of {rep['params_whole']:,} "
+            f"weights held; eps off the unsharded call by {rep['rel_err']:.3e} of max|eps| "
+            f"(bound {UNET_REL_BOUND:.0e}); launches {rep['launches']}; batch-4 UNet call "
+            f"{rep['ms_whole']:.2f} ms whole, {rep['ms_tp']:.2f} ms sharded with gloo "
+            f"all-gathers through the host; peak {rep['peak_gib']:.2f} GiB ({card})")
+        if (rep["n_sharded"] != TP_SHARDED or not rep["finite"]
+                or not rep["rel_err"] <= UNET_REL_BOUND or rep["launches"] != want):
+            fail(f"parallel: (c) rank {r}: {rep}")
+    if reps[0]["eps_tp_sum"] != reps[1]["eps_tp_sum"]:
+        fail("parallel: (c) the ranks' gathered eps differ")
+
+
+def check_optimisers(torch, work, card) -> None:
+    """(d)"""
+    import numpy as np
+
+    from cyclediffusion_tpu_torch.models.unet_gd import GDUNet, GDUNetConfig
+    from cyclediffusion_tpu_torch.runtime import optim
+    from cyclediffusion_tpu_torch.runtime.driver import Driver
+
+    with torch.device("meta"):
+        shapes = [tuple(p.shape) for p in GDUNet(GDUNetConfig.sd_v1()).parameters()]
+    n = sum(math.prod(s) for s in shapes)
+    if n != SD_UNET_PARAMS:
+        fail(f"parallel: (d) SD v1's UNet has {n} parameters, expected {SD_UNET_PARAMS}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, moved in (("adamw", 7), ("adafactor", 3)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = [0.02 * torch.randn(s, generator=gen, device="cuda") for s in shapes]
+        for p in params:
+            p.grad = torch.randn(p.shape, generator=gen, device="cuda")
+        opt = optim.build_optimizer(params, name, optim.constant_schedule(1e-4), 0.01)
+
+        def step():
+            optim.clip_by_global_norm_([p.grad for p in params], 1.0)
+            opt.step()
+
+        ms = cuda_time_ms(step, reps=3, warmup=1)
+        finite = all(bool(torch.isfinite(p).all()) for p in params)
+        bound = 1e3 * moved * 4 * n / PEAK_BYTES
+        say(f"parallel: (d) {name} + clip_by_global_norm over SD v1's UNet shapes "
+            f"({len(shapes)} tensors, {n:,} fp32 parameters): {ms:.2f} ms per step (bound "
+            f"{bound:.2f} ms: {moved} x 4 bytes per parameter at {PEAK_BYTES / 1e12} TB/s), "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+        if not finite:
+            fail(f"parallel: (d) {name} made non-finite parameters")
+        del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    items, w_true = toy_items()
+    ws = {}
+    for device in ("cuda", "cpu"):
+        model = ToyRegression(torch, device)
+        driver = Driver(toy_args(os.path.join(work, f"toy_{device}")), model,
+                        train_dataset=items)
+        t0 = time.perf_counter()
+        m = driver.train()
+        ws[device] = model.trainable_params["w"].cpu().numpy()
+        say(f"parallel: (d) the toy regression through Driver.train on {device}: "
+            f"{driver.state.global_step} steps in "
+            f"{time.perf_counter() - t0:.2f} s, train_loss {m['train_loss']:.3g} (bound "
+            f"{TOY_LOSS_BOUND}), w {ws[device].tolist()} ({card})")
+        if (not m["train_loss"] < TOY_LOSS_BOUND
+                or not np.abs(ws[device] - w_true).max() <= TOY_W_BOUND):
+            fail(f"parallel: (d) the toy regression on {device} did not fit: {m}")
+    err = float(np.abs(ws["cuda"] - ws["cpu"]).max())
+    say(f"parallel: (d) toy w, card vs CPU: {err:.3g} (bound {TOY_CARD_CPU_BOUND:.0e})")
+    if not err <= TOY_CARD_CPU_BOUND:
+        fail(f"parallel: (d) the toy's w on the card is {err} off the CPU's")
+
+    traj = np.load(os.path.join(ROOT, FLAX_FIXTURES, "optax_trajectories.npz"))
+    names = sorted(k.split("/")[1] for k in traj.files if k.startswith("adamw/"))
+    shapes = {k: traj[f"adamw/{k}"].shape for k in names}
+    rng = np.random.default_rng(int(traj["seed"]))
+    params0 = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: (3 * rng.standard_normal(s)).astype(np.float32) for k, s in shapes.items()}
+             for _ in range(int(traj["steps"]))]
+    if not np.array_equal(grads[0]["vector"], traj["grad0_vector"]):
+        fail("parallel: (d) numpy drew other gradients than the fixture's")
+    lr, warmup, steps = float(traj["lr"]), int(traj["warmup"]), int(traj["steps"])
+    for name in ("adamw", "adafactor"):
+        params = {k: torch.tensor(v, device="cuda") for k, v in params0.items()}
+        opt = optim.build_optimizer(list(params.values()), name,
+                                    optim.build_schedule(lr, warmup, steps, "linear"),
+                                    float(traj["weight_decay"]))
+        for g in grads:
+            for k, p in params.items():
+                p.grad = torch.tensor(g[k], device="cuda")
+            optim.clip_by_global_norm_([p.grad for p in params.values()], float(traj["clip"]))
+            opt.step()
+        err = max(float(np.abs(params[k].cpu().numpy() - traj[f"{name}/{k}"]).max())
+                  for k in names)
+        say(f"parallel: (d) {name} on the card, {steps} steps of optax's problem ({names}): "
+            f"max |port - optax| {err:.3e} (bound {OPT_TRAJ_BOUND:.0e})")
+        if not err <= OPT_TRAJ_BOUND:
+            fail(f"parallel: (d) {name} left optax's trajectory by {err}")
+
+
+def check_msgpack(card) -> None:
+    """(e)"""
+    import numpy as np
+    import torch
+
+    from cyclediffusion_tpu_torch.convert import flax_msgpack
+
+    t0 = time.perf_counter()
+    tree = flax_msgpack.read(os.path.join(ROOT, FLAX_FIXTURES, "tree.msgpack"))
+    secs = time.perf_counter() - t0
+    twin = np.load(os.path.join(ROOT, FLAX_FIXTURES, "tree.npz"))
+    leaves = {}
+
+    def walk(t, prefix=""):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                leaves[prefix + k] = v
+
+    walk(tree)
+    bad = []
+    for key in twin.files:
+        leaf = leaves.get(key.removesuffix(".bf16bits"))
+        if key.endswith(".bf16bits"):
+            leaf = leaf.view(torch.int16).numpy().view(np.uint16) \
+                if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16 else None
+        arr = np.asarray(leaf)
+        if leaf is None or arr.dtype != twin[key].dtype or not np.array_equal(arr, twin[key]):
+            bad.append(key)
+    if bad or len(leaves) != len(twin.files):
+        fail(f"parallel: (e) the Flax fixture differs from its npz twin at {bad} "
+             f"({len(leaves)} leaves, {len(twin.files)} in the twin)")
+    dtypes = sorted({str(v.dtype) if isinstance(v, torch.Tensor) else str(np.asarray(v).dtype)
+                     for v in leaves.values()})
+    say(f"parallel: (e) {FLAX_FIXTURES}/tree.msgpack read in {1e3 * secs:.1f} ms: "
+        f"{len(leaves)} leaves ({dtypes}) equal to the npz twin bit for bit ({card})")
+
+
+def phase_parallel(torch, root, card, cli_counts) -> dict:
+    """Phase 14 -> the K1/K2 launches of (a)'s two processes."""
+    work = os.path.join(root, "parallel")
+    os.makedirs(work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = check_cli_processes(torch, root, work, card, cli_counts)
+    check_nccl(torch, work, card)
+    check_tensor_parallel(torch, work, card)
+    check_optimisers(torch, work, card)
+    check_msgpack(card)
+    return counts
+
+
 def round_trip(torch, core, pipe, images, src) -> float:
     """Phase 5: encode, then replay under the same text and scale 1 with
     deterministic cuDNN -> max|replay - x0| on the latent."""
@@ -2387,6 +2849,9 @@ def round_trip(torch, core, pipe, images, src) -> float:
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--child"]:
+        child_main(sys.argv[2:])
+        return
     if not os.path.isdir(os.path.join(ROOT, "cyclediffusion_tpu_torch")):
         fail("run from a checkout of the repository: cyclediffusion_tpu_torch/ not found")
     sys.path.insert(0, ROOT)
@@ -2435,7 +2900,8 @@ def main() -> None:
         ens_counts = phase_ensemble(torch, fa, Args, TextUnsupervisedTranslation,
                                     num_recovered_eps)
         torch.cuda.empty_cache()
-        phase_cli(torch, fa, ref_core, root, num_recovered_eps, CLI_CFG, (80,), "cli")
+        cli_counts, _ = phase_cli(torch, fa, ref_core, root, num_recovered_eps, CLI_CFG, (80,),
+                                  "cli")
         phase_fast(torch, fa, ref_core, StochasticTextPipeline, HashTokenizer,
                    num_recovered_eps)
         phase_cli(torch, fa, ref_core, root, num_recovered_eps, FAST_CLI_CFG, (80,),
@@ -2450,21 +2916,25 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         phase_afhq(torch, fa, root)
-    gc.collect()
-    torch.cuda.empty_cache()
-    guided_counts = phase_guided(torch, fa, attention)
-    phase_data(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        guided_counts = phase_guided(torch, fa, attention)
+        phase_data(torch, card)
+        parallel_counts = phase_parallel(torch, root, card, cli_counts)
 
     # launches on the path that runs each kernel: the translate slice (K1,
     # K2), LDM text2img-large's and FFHQ -> CelebA-HQ's CLI runs (K1), the
-    # guided chain (K1, K2) and the FFHQ plain pipeline (K1), the ensemble
-    # (K3), the UNet call in folded mode "1" (K4)
+    # guided chain (K1, K2) and the FFHQ plain pipeline (K1), the SD CLI in
+    # two processes (K1, K2), the ensemble (K3), the UNet call in folded
+    # mode "1" (K4)
     launches = {"flash_attention_bhtd": slice_counts["flash_attention_bhtd"]
                 + ldm_counts["flash_attention_bhtd"]
                 + unpaired_counts["flash_attention_bhtd"]
-                + guided_counts["flash_attention_bhtd"],
+                + guided_counts["flash_attention_bhtd"]
+                + parallel_counts["flash_attention_bhtd"],
                 "flash_attention_packed": slice_counts["flash_attention_packed"]
-                + guided_counts["flash_attention_packed"],
+                + guided_counts["flash_attention_packed"]
+                + parallel_counts["flash_attention_packed"],
                 "qout_self_attention_block": ens_counts["qout_self_attention_block"],
                 "fused_self_attention_block": k4_counts["fused_self_attention_block"]}
     kernels = [{"name": name, "route": "cuda", "source": KERNELS[name][1],

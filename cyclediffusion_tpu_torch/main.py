@@ -10,9 +10,18 @@ goes under ``--output_dir``: ``eval_results.json``, ``all_results.json``,
 ``eval_results.csv``, ``temp_gen/*.png`` and ``visualization/*.png``.
 
 The command line runs on the card and raises without one; Python callers
-may pass ``main(argv, device="cpu")``.  Launch flags of the reference
-(``--local_rank``, ``--ddp_find_unused_parameters``, ...) are accepted and
-ignored.  Assets: ``CYCLEDIFFUSION_CKPT_ROOT`` (``ckpts/`` lives under it),
+may pass ``main(argv, device="cpu")``.  On N GPUs, one process each:
+
+    torchrun --nproc_per_node N -m cyclediffusion_tpu_torch.main --cfg ...
+
+Under torchrun (``WORLD_SIZE > 1``) each process joins the process group
+(``parallel.init_distributed``) and runs on ``cuda:LOCAL_RANK``; the
+evaluation split is sharded over the processes and gathered back in
+dataset order, and rank 0 alone writes metrics and images; ``main`` leaves
+the group it joined when it returns.  A caller that has joined a group
+already keeps it and its ``device``.  Launch flags of
+the reference (``--local_rank``, ``--ddp_find_unused_parameters``, ...) are
+accepted and ignored.  Assets: ``CYCLEDIFFUSION_CKPT_ROOT`` (``ckpts/`` lives under it),
 ``CYCLEDIFFUSION_CLIP_BPE``, ``CYCLEDIFFUSION_CLIP_CKPT``,
 ``CYCLEDIFFUSION_DATA_ROOT`` (``data/`` lives under it).
 """
@@ -26,6 +35,7 @@ import random
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 logger = logging.getLogger(__name__)
 
@@ -82,8 +92,25 @@ def get_dataset_splits(args):
                                          name2dataset_splits=name2dataset_splits)
 
 
-def main(argv=None, *, device="cuda"):
+def process_device(device) -> torch.device:
+    """``device`` checked (a CUDA device must exist); with several processes
+    (torchrun's ``WORLD_SIZE > 1``, or a group already joined) the process
+    group is joined and an unqualified ``"cuda"`` becomes
+    ``cuda:LOCAL_RANK``, the current device."""
     from cyclediffusion_tpu_torch.models.nn import resolve_device
+    from cyclediffusion_tpu_torch.parallel import init_distributed
+
+    device = resolve_device(device)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or dist.is_initialized():
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        init_distributed()
+    return device
+
+
+def main(argv=None, *, device="cuda"):
     from cyclediffusion_tpu_torch.runtime.config import get_config
     from cyclediffusion_tpu_torch.runtime.driver import Driver
     from cyclediffusion_tpu_torch.runtime.registry import (
@@ -92,7 +119,8 @@ def main(argv=None, *, device="cuda"):
         get_visualizer,
     )
 
-    device = resolve_device(device)
+    joins = not dist.is_initialized()
+    device = process_device(device)
     training_args = parse_training_args(argv)
     set_seed(training_args.seed)
     args = get_config(training_args.cfg)
@@ -107,7 +135,8 @@ def main(argv=None, *, device="cuda"):
     driver = Driver(args=training_args, model=model, compute_metrics=evaluator.evaluate,
                     train_dataset=dataset_splits["train"], eval_dataset=dataset_splits["dev"],
                     visualizer=visualizer)
-    logger.info("Driver built on %s.", device)
+    logger.info("Driver built on %s (process %d/%d).", device, driver.process_index,
+                driver.process_count)
 
     if training_args.resume_from_checkpoint:
         driver.load_model(training_args.resume_from_checkpoint)
@@ -131,6 +160,11 @@ def main(argv=None, *, device="cuda"):
         metrics["predict_samples"] = len(dataset_splits["test"])
         driver.log_metrics("predict", metrics)
         driver.save_metrics("predict", metrics)
+    if joins and dist.is_initialized():
+        # no rank leaves while another still talks to it (a rank that exits
+        # with the group's threads alive aborts)
+        dist.barrier()
+        dist.destroy_process_group()
     return metrics
 
 

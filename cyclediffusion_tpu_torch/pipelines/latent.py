@@ -261,11 +261,15 @@ class LatentDiffusionCore:
         """Weights from the JAX core's parameter tree (numpy leaves):
         ``{"unet": ..., "first_stage": ...[, "cond": ...]}``."""
         core = cls(spec, device, dtype, folded_attn)
-        load_flax_params(core.unet, params["unet"])
-        load_flax_params(core.first_stage, params["first_stage"])
-        if core.cond_model is not None:
-            load_flax_params(core.cond_model, params["cond"])
+        core.load_jax_params(params)
         return core
+
+    def load_jax_params(self, params: dict) -> None:
+        """The JAX core's parameter tree into this core's modules in place."""
+        load_flax_params(self.unet, params["unet"])
+        load_flax_params(self.first_stage, params["first_stage"])
+        if self.cond_model is not None:
+            load_flax_params(self.cond_model, params["cond"])
 
     @classmethod
     @torch.no_grad()

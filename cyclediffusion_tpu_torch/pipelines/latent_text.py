@@ -20,6 +20,17 @@ result: every candidate's noise is drawn in candidate order before the
 chunks are cut.  The VAE posterior is sampled once per image and shared by
 all chains.
 
+``mesh`` (a ``DeviceMesh`` with a ``"data"`` dimension,
+``parallel.data_mesh``) splits the candidate axis over its ranks, as JAX's
+``mesh`` shards it over devices: each encode and decode launch is rounded
+up to the mesh's extent (the last candidate repeated), each rank runs its
+contiguous block of the launch and decodes its own rows, and an all-gather
+makes x_T, the eps and the decoded images whole on every rank, so the
+ranking is the same on each.  Every rank must call with the same sample:
+each draws the whole launch's noise from the sample's generator in the
+unsplit order and keeps its rows, so the stream does not depend on the
+rank.
+
 ``fast_key_every > 1`` is the encoder-caching fast mode on both chains
 (``samplers.dpm_encode_cached`` / ``ddim_decode_cached`` through
 ``ops.cfg.cfg_model_fn_pair``): the UNet's encoder half runs at every
@@ -34,6 +45,7 @@ import torch
 
 from cyclediffusion_tpu_torch.energy.clean_clip import DirectionalCLIP, normalize
 from cyclediffusion_tpu_torch.ops.cfg import cfg_model_fn, cfg_model_fn_pair
+from cyclediffusion_tpu_torch.parallel.mesh import all_gather_cat, batch_sharding, mesh_extent
 from cyclediffusion_tpu_torch.pipelines.latent import LatentDiffusionCore
 from cyclediffusion_tpu_torch.samplers import (
     ddim_decode,
@@ -68,6 +80,7 @@ class StochasticTextPipeline:
         decoder_unconditional_guidance_scales: Sequence[float],
         n_trials: int,
         candidate_chunk: Optional[int] = None,
+        mesh=None,
         fast_key_every: Optional[int] = None,
     ):
         if eta <= 0:
@@ -86,8 +99,33 @@ class StochasticTextPipeline:
         self.dec_scales = list(decoder_unconditional_guidance_scales)
         self.n_trials = n_trials
         self.fast_key_every = fast_key_every
+        self.mesh = mesh
         self.sched = core.make_ddim_schedule(custom_steps, eta)
         self.resolution = core.spec.resolution
+
+    # ---- mesh plumbing ---------------------------------------------------- #
+
+    @property
+    def _data_extent(self) -> int:
+        return 1 if self.mesh is None else mesh_extent(self.mesh, "data")
+
+    def _pad_launch(self, sub: list) -> list:
+        """A launch's candidates rounded up to the data extent by repeating
+        the last one."""
+        want = -(-len(sub) // self._data_extent) * self._data_extent
+        return sub + sub[-1:] * (want - len(sub))
+
+    def _my_rows(self, padded: list) -> list:
+        """This rank's contiguous block of a padded launch (all of it off-mesh)."""
+        if self.mesh is None:
+            return padded
+        return padded[batch_sharding(self.mesh, len(padded))]
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's block of a launch's candidate-leading result, whole."""
+        if self.mesh is None:
+            return t
+        return all_gather_cat(t, self.mesh.get_group("data"))
 
     # ---- conditioning --------------------------------------------------- #
 
@@ -204,9 +242,11 @@ class StochasticTextPipeline:
         for skip in sorted(set(self.skip_steps)):
             idxs = [i for i, (_, _, sk) in enumerate(combos) if sk == skip]
             for sub in _chunks(idxs, self.candidate_chunk):
+                mine = self._my_rows(self._pad_launch(sub))
                 xT, eps = self._encode_chains(
-                    x0, c_ctx, uc_ctx, [combos[i][1] for i in sub],
-                    [noises[i] for i in sub], skip)
+                    x0, c_ctx, uc_ctx, [combos[i][1] for i in mine],
+                    [noises[i] for i in mine], skip)
+                xT, eps = self._gather(xT), self._gather(eps)
                 for j, i in enumerate(sub):
                     results[i] = (xT[j], eps[j])
 
@@ -255,14 +295,15 @@ class StochasticTextPipeline:
                         full = torch.cat([eps, tail])
                     work.append((xT, full, ds, i * D + d))
             for sub in _chunks(work, self.candidate_chunk):
+                mine = self._my_rows(self._pad_launch(sub))
                 samples = self._decode_chains(
-                    torch.stack([w[0] for w in sub]), torch.stack([w[1] for w in sub]),
-                    c_ctx, uc_ctx, [w[2] for w in sub], generator, skip)
+                    torch.stack([w[0] for w in mine]), torch.stack([w[1] for w in mine]),
+                    c_ctx, uc_ctx, [w[2] for w in mine], generator, skip)
                 flat = samples.reshape((-1,) + samples.shape[2:])
                 decoded = torch.cat([
                     self.core.decode_first_stage(flat[i:i + _VAE_BATCH])
                     for i in range(0, flat.shape[0], _VAE_BATCH)])
-                decoded = decoded.reshape(samples.shape[:2] + decoded.shape[1:])
+                decoded = self._gather(decoded.reshape(samples.shape[:2] + decoded.shape[1:]))
                 for j, w in enumerate(sub):
                     imgs[w[3]] = (decoded[j] + 1.0) / 2.0
         return [im for im in imgs if im is not None]

@@ -1,22 +1,29 @@
-"""Evaluation driver with the reference Trainer's surface (counterpart of
-``cyclediffusion_tpu.runtime.driver``).
+"""Evaluation and training driver with the reference Trainer's surface
+(counterpart of ``cyclediffusion_tpu.runtime.driver``).
 
 * :class:`EvalLoader`: a contiguous shard per process, then fixed-size
   batches (the last one ragged); array entries are stacked into numpy
   batches, everything else listed.
 * :func:`gather_sharded_outputs`: every eval output gathered across
-  processes, in dataset order.  The port runs one process; a multi-process
-  gather takes an injected ``allgather`` (ROADMAP §A queue item 5 brings
-  the real one).
+  processes, in dataset order, by an all-gather over the process group's
+  gloo side on host arrays (or an injected ``allgather``).
 * :class:`Driver`: ``evaluate`` / ``predict`` (the task model's outputs
-  come back to numpy float32), the visualizer, ``log`` with the optional
-  wandb run, ``log_metrics`` / ``save_metrics`` with the combined
-  ``all_results.json``, and checkpoints: ``model_params.pt`` (each
-  wrapper core's ``state_dict()``, ``torch.save``), ``training_args.json``,
+  come back to numpy float32; rank 0 alone computes metrics, visualises and
+  saves), the visualizer, ``log`` with the optional wandb run,
+  ``log_metrics`` / ``save_metrics`` with the combined
+  ``all_results.json``, checkpoints (``model_params.pt``: each wrapper's
+  module ``state_dict()`` with ``torch.save``; the JAX driver's
+  ``model_params.msgpack`` is read too), ``training_args.json``,
   ``trainer_state.json``, the numpy RNG state, ``save_total_limit``
   rotation that keeps the best checkpoint.
-* ``train`` is the reference experiments' no-op (``num_train_epochs 0``, no
-  trainable parameters); an optimiser loop is ROADMAP §A queue item 6.
+* ``train``: the JAX driver's optimiser loop (``runtime.optim``) for a
+  model with ``trainable_params`` and ``loss_fn``, the reference
+  experiments' no-op otherwise.
+
+One process drives one GPU: the process group (``parallel.init_distributed``)
+gives the process's index and count, and there is no further split of a
+batch over devices inside a process (JAX's ``_shard_batch``), since a
+process's shard of the split is its device's.
 """
 
 from __future__ import annotations
@@ -32,6 +39,12 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from cyclediffusion_tpu_torch.convert import flax_msgpack
+from cyclediffusion_tpu_torch.convert.from_jax import load_flax_params
+from cyclediffusion_tpu_torch.parallel.mesh import all_gather_cat, process_position
+from cyclediffusion_tpu_torch.runtime import optim
 
 logger = logging.getLogger(__name__)
 
@@ -88,15 +101,25 @@ def _pad_leading(a: np.ndarray, width: int) -> np.ndarray:
     return np.concatenate([a, pad], axis=0)
 
 
+def _host_allgather(a: np.ndarray) -> np.ndarray:
+    """Every process's ``a`` (equal shapes) stacked in rank order, over the
+    process group (host tensors take its gloo side)."""
+    return all_gather_cat(torch.from_numpy(np.ascontiguousarray(a))[None]).numpy()
+
+
 def gather_sharded_outputs(arrays, n: int, process_count: int, allgather=None):
     """Each value's leading axis is this process's contiguous shard: pad to
-    ``ceil(n / process_count)``, gather process-major with ``allgather``,
-    flatten and truncate to ``n``, preserving dataset order."""
+    ``ceil(n / process_count)``, gather process-major with ``allgather``
+    (default: an all-gather over the process group), flatten and truncate
+    to ``n``, preserving dataset order.  Several processes without a group
+    or an ``allgather`` raise."""
     if process_count <= 1:
         return {k: _pad_leading(np.asarray(v), n) for k, v in arrays.items()}
     if allgather is None:
-        raise NotImplementedError("gathering eval outputs across processes is not ported "
-                                  "yet: ROADMAP §A queue item 5 (multi-device)")
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(f"gathering over {process_count} processes needs a process "
+                               "group (parallel.init_distributed) or an allgather")
+        allgather = _host_allgather
     per = math.ceil(n / process_count)
     out = {}
     for k, v in arrays.items():
@@ -138,6 +161,36 @@ class TrainerState:
         return st
 
 
+def _wrapper_module(wrapper):
+    """The module that holds a wrapper's weights: a latent pipeline's core,
+    a pixel pipeline's UNet."""
+    return wrapper.core if hasattr(wrapper, "core") else wrapper.model
+
+
+def _numpy_tree(tree):
+    """A Flax tree read from msgpack with its bfloat16 tensors as float32
+    numpy (exact)."""
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.float().numpy() if isinstance(tree, torch.Tensor) else tree
+
+
+def _to_tensor(leaf, device) -> torch.Tensor:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.to(device)
+    return torch.as_tensor(np.array(leaf), device=device)
+
+
+def _load_jax_params(module, tree: dict) -> None:
+    """A JAX wrapper's saved parameters into the module that holds the port's
+    (``_wrapper_module``): a latent core maps its own ``{"unet",
+    "first_stage"[, "cond"]}``; any other module is the tree's Flax module."""
+    if hasattr(module, "load_jax_params"):
+        module.load_jax_params(tree)
+    else:
+        load_flax_params(module, tree)
+
+
 def _dump_json(obj, path) -> None:
     with open(path, "w") as f:
         json.dump(obj, f, indent=4, sort_keys=True, default=float)
@@ -155,8 +208,7 @@ class Driver:
         self.eval_dataset = eval_dataset
         self.visualizer = visualizer
         self.state = TrainerState()
-        self.process_index = 0
-        self.process_count = 1
+        self.process_index, self.process_count = process_position()
         os.makedirs(args.output_dir, exist_ok=True)
 
     # ---- logging / metrics ------------------------------------------------ #
@@ -259,14 +311,14 @@ class Driver:
         for attr in _WRAPPERS:
             wrapper = getattr(self.model, attr, None)
             if wrapper is not None:
-                params[attr] = wrapper.core.state_dict()
+                params[attr] = _wrapper_module(wrapper).state_dict()
         trainable = getattr(self.model, "trainable_params", None)
         if trainable is not None:
             params["trainable_params"] = trainable
         return params
 
     def save_model(self, output_dir: Optional[str] = None) -> None:
-        """Each wrapper core's weights (and any ``trainable_params``) into
+        """Each wrapper's weights (and any ``trainable_params``) into
         ``model_params.pt``, the scalar arguments into ``training_args.json``."""
         if not self.is_world_process_zero():
             return
@@ -278,13 +330,35 @@ class Driver:
                        if isinstance(v, (int, float, str, bool, type(None)))}, f, indent=2)
 
     def load_model(self, checkpoint_dir: str) -> None:
-        restored = torch.load(os.path.join(checkpoint_dir, "model_params.pt"),
-                              map_location="cpu", weights_only=True)
-        for attr, params in restored.items():
+        """The port's ``model_params.pt``, or else the JAX driver's
+        ``model_params.msgpack`` (each wrapper's Flax tree through
+        ``convert.from_jax``)."""
+        pt = os.path.join(checkpoint_dir, "model_params.pt")
+        if os.path.exists(pt):
+            restored = torch.load(pt, map_location="cpu", weights_only=True)
+            for attr, params in restored.items():
+                if attr == "trainable_params":
+                    self._restore_trainable(params)
+                else:
+                    _wrapper_module(getattr(self.model, attr)).load_state_dict(params)
+            return
+        path = os.path.join(checkpoint_dir, "model_params.msgpack")
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"{checkpoint_dir} holds neither model_params.pt nor "
+                                    "model_params.msgpack")
+        for attr, tree in flax_msgpack.read(path).items():
             if attr == "trainable_params":
-                self.model.trainable_params = params
+                self._restore_trainable(tree)
             else:
-                getattr(self.model, attr).core.load_state_dict(params)
+                _load_jax_params(_wrapper_module(getattr(self.model, attr)),
+                                 _numpy_tree(tree))
+
+    def _restore_trainable(self, tree: dict) -> None:
+        """Restored ``trainable_params`` as tensors, each on the device of the
+        model's own (the CPU for a name it lacks)."""
+        old = getattr(self.model, "trainable_params", None) or {}
+        self.model.trainable_params = {k: _to_tensor(v, getattr(old.get(k), "device", "cpu"))
+                                       for k, v in tree.items()}
 
     def _save_checkpoint(self, metrics: Optional[dict] = None) -> None:
         ckpt_dir = os.path.join(self.args.output_dir,
@@ -372,9 +446,52 @@ class Driver:
 
     # ---- training --------------------------------------------------------- #
 
+    def _build_optimizer(self, params: List[torch.Tensor]):
+        """-> (the global-norm clip, the optimiser): AdamW (default) or
+        Adafactor on the learning-rate schedule, as the JAX driver builds
+        them with optax."""
+        a = self.args
+        lr = float(getattr(a, "learning_rate", 5e-5))
+        schedule = optim.build_schedule(lr, int(getattr(a, "warmup_steps", 0)),
+                                        int(getattr(a, "max_steps", 0)),
+                                        getattr(a, "lr_scheduler_type", "constant"))
+        return (float(getattr(a, "max_grad_norm", 1.0)),
+                optim.build_optimizer(params, getattr(a, "optim", "adamw"), schedule,
+                                      float(getattr(a, "weight_decay", 0.0))))
+
+    def _allreduce_mean(self, tensors: List[torch.Tensor]) -> None:
+        """The mean across processes in place (DDP's gradient averaging, JAX's
+        ``process_allgather(g).mean(0)``): an all-reduce on the tensors'
+        backend, whenever a group is joined (one rank included)."""
+        if not (dist.is_available() and dist.is_initialized()):
+            if self.process_count > 1:
+                raise RuntimeError(f"{self.process_count} processes and no process group")
+            return
+        for t in tensors:
+            dist.all_reduce(t)
+            t.div_(self.process_count)
+
+    def _train_batch(self, items: list, device) -> dict:
+        """Items stacked as the JAX driver stacks them; arrays become tensors
+        on ``device``."""
+        return {k: (torch.as_tensor(np.stack([it[k] for it in items]), device=device)
+                    if isinstance(items[0][k], (np.ndarray, np.generic))
+                    else [it[k] for it in items])
+                for k in items[0]}
+
     def train(self, resume_from_checkpoint: Optional[str] = None):
-        """The reference experiments' training: none.  With trainable
-        parameters, a loss and epochs to run, raises (ROADMAP §A item 6)."""
+        """The JAX driver's training loop for a model with
+        ``trainable_params`` (a dict of tensors) and
+        ``loss_fn(params, batch, generator) -> loss``: a seeded permutation
+        per epoch, the rank-strided shard ``order[rank::count]``, gradients
+        summed over ``gradient_accumulation_steps`` micro-batches then
+        divided, averaged across processes, clipped by global norm and
+        applied; the accumulation resets at each epoch.  ``logging_steps``,
+        ``save_steps`` (with ``evaluate`` when ``metric_for_best_model`` is
+        set), ``load_best_model_at_end``.  The generator (seeded with
+        ``seed``) stands where JAX splits a key per micro-batch.  Without
+        trainable parameters, a loss, epochs or data: the reference
+        experiments' logged no-op."""
         if resume_from_checkpoint:
             self.load_model(resume_from_checkpoint)
             state_path = os.path.join(resume_from_checkpoint, "trainer_state.json")
@@ -394,5 +511,68 @@ class Driver:
             metrics = speed_metrics("train", start, num_samples=0, num_steps=0)
             self.log(dict(metrics))
             return metrics
-        raise NotImplementedError("the driver's optimiser loop is not ported yet: "
-                                  "ROADMAP §A queue item 6")
+
+        batch_size = int(getattr(self.args, "per_device_train_batch_size", 1))
+        accum = int(getattr(self.args, "gradient_accumulation_steps", 1))
+        logging_steps = int(getattr(self.args, "logging_steps", 10))
+        save_steps = int(getattr(self.args, "save_steps", 0))
+        seed = int(getattr(self.args, "seed", 0))
+
+        params = {k: torch.as_tensor(v).detach().clone().requires_grad_(True)
+                  for k, v in trainable.items()}
+        plist = list(params.values())
+        device = plist[0].device
+        max_norm, opt = self._build_optimizer(plist)
+        rng = np.random.RandomState(seed)
+        generator = torch.Generator(device=device).manual_seed(seed)
+
+        def publish():
+            self.model.trainable_params = {k: p.detach().clone() for k, p in params.items()}
+
+        steps, loss, shard = 0, None, []
+        for epoch in range(epochs):
+            # a ragged tail of micro-batches must not leak into the next epoch
+            for p in plist:
+                p.grad = None
+            order = rng.permutation(n_train)
+            shard = order[self.process_index::self.process_count]
+            for i in range(0, len(shard) - batch_size + 1, batch_size):
+                items = [self.train_dataset[int(j)] for j in shard[i:i + batch_size]]
+                loss = loss_fn(params, self._train_batch(items, device), generator)
+                loss.backward()           # sums the micro-batches' gradients
+                if (i // batch_size + 1) % accum:
+                    continue
+                grads = [p.grad for p in plist]
+                with torch.no_grad():
+                    for g in grads:
+                        g.div_(accum)
+                self._allreduce_mean(grads)
+                optim.clip_by_global_norm_(grads, max_norm)
+                opt.step()
+                for p in plist:
+                    p.grad = None
+                steps += 1
+                self.state.global_step = steps
+                if logging_steps and steps % logging_steps == 0:
+                    self.log({"loss": float(loss.detach()), "epoch": epoch})
+                if save_steps and steps % save_steps == 0:
+                    publish()
+                    metrics = (self.evaluate()
+                               if getattr(self.args, "metric_for_best_model", None) else None)
+                    self._save_checkpoint(metrics)
+            self.state.epoch = float(epoch + 1)
+
+        publish()
+        if getattr(self.args, "load_best_model_at_end", False) \
+                and self.state.best_model_checkpoint:
+            logger.info("Loading best model from %s (score: %s)",
+                        self.state.best_model_checkpoint, self.state.best_metric)
+            self.load_model(self.state.best_model_checkpoint)
+        metrics = speed_metrics("train", start, num_samples=n_train * epochs, num_steps=steps)
+        if loss is not None:
+            metrics["train_loss"] = float(loss.detach())
+        else:
+            logger.warning("No optimizer step ran: per-process shard (%d examples) is smaller "
+                           "than per_device_train_batch_size=%d.", len(shard), batch_size)
+        self.log(dict(metrics))
+        return metrics

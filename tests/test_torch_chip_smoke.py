@@ -618,3 +618,23 @@ def test_phase13_checks_pass_on_the_cpu(smoke, tmp_path):
                                              .items() if k in dataclasses.asdict(spec.unet)}
     assert (spec.resolution, spec.scale_factor, spec.cond_kind) == (
         jspec.resolution, jspec.scale_factor, jspec.cond_kind)
+
+
+def test_phase_14_cuts_three_images(smoke):
+    """Phase 14 runs phase 7's cuts on 3 images (``range [4, 7]``), so that
+    two processes get ragged shards."""
+    from cyclediffusion_tpu_torch.runtime.config import config_root
+
+    with open(os.path.join(config_root(), smoke.CLI_CFG)) as f:
+        text = smoke.cut_config(f.read(), smoke.PAR_CUTS)
+    assert "range = [4, 7]" in text and "candidate_chunk = 4" in text
+    assert smoke.PAR_SAMPLES == 3
+
+
+def test_phase_14_children_refuse_without_gpu(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, SMOKE, "--child", "nccl", "0", "1",
+                           "file://" + str(tmp_path / "init"), str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "FAIL" in proc.stdout
+    assert '"ok"' not in proc.stdout and not list(tmp_path.glob("*.json"))

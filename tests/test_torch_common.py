@@ -74,12 +74,14 @@ def test_port_imports_without_jax():
     (that machine does not promise them); none pulls in the JAX package.
     The fast mode's, LDM-BERT's and the pixel slice's entry points import
     too (FID and Inception included), and guided sampling's, the samplers',
-    the energies', the tiled first stage's and the plain pipeline's."""
+    the energies', the tiled first stage's and the plain pipeline's, and the
+    process group, tensor parallelism, the optimisers and the Flax msgpack
+    reader (the card's machine has no ``msgpack`` either)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
-        "for blocked in ('PIL', 'cv2', 'pandas'):\n"
+        "for blocked in ('PIL', 'cv2', 'pandas', 'msgpack', 'optax'):\n"
         "    sys.modules[blocked] = None\n"
         "import cyclediffusion_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
@@ -103,7 +105,8 @@ def test_port_imports_without_jax():
         "        'evaluation.translate_to_dog', 'data.preprocess.afhqcat256',\n"
         "        'data.preprocess.afhqwild256', 'tools.pixel_assets', 'samplers.guided',\n"
         "        'energy.clip_energy', 'energy.prior_z', 'energy.factory', 'ops.fold',\n"
-        "        'pipelines.latentdiff_plain', 'tools.guided_probe'}\n"
+        "        'pipelines.latentdiff_plain', 'tools.guided_probe', 'parallel',\n"
+        "        'parallel.mesh', 'parallel.tp', 'runtime.optim', 'convert.flax_msgpack'}\n"
         "from cyclediffusion_tpu_torch.samplers import dpm_encode_cached, ddim_decode_cached\n"
         "from cyclediffusion_tpu_torch.ops.cfg import cfg_model_fn_pair\n"
         "from cyclediffusion_tpu_torch.models.text_encoders import LDMBertEncoder\n"
@@ -126,10 +129,15 @@ def test_port_imports_without_jax():
         "from cyclediffusion_tpu_torch.energy.clip_energy import clip_energy_fn\n"
         "from cyclediffusion_tpu_torch.ops.fold import split_first_stage_apply\n"
         "from cyclediffusion_tpu_torch.pipelines.latentdiff_plain import LatentDiffPlainPipeline\n"
+        "from cyclediffusion_tpu_torch.parallel import init_distributed, data_mesh\n"
+        "from cyclediffusion_tpu_torch.parallel.tp import shard_params_tp, tp_param_specs\n"
+        "from cyclediffusion_tpu_torch.runtime.optim import AdamW, Adafactor\n"
+        "from cyclediffusion_tpu_torch.convert.flax_msgpack import from_bytes\n"
         "missing = {w for w in want if 'cyclediffusion_tpu_torch.' + w not in names}\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules"
-        " if m.split('.')[0] in ('jax', 'flax', 'cyclediffusion_tpu', 'PIL', 'cv2', 'pandas')"
+        " if m.split('.')[0] in ('jax', 'flax', 'cyclediffusion_tpu', 'PIL', 'cv2', 'pandas',"
+        " 'msgpack', 'optax')"
         " and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
@@ -170,3 +178,59 @@ def tiny_latent_cores(cond_kind=None, fs_kind: str = "kl", seed: int = 3,
     core = LatentDiffusionCore.from_jax_params(
         LatentCoreSpec.tiny(cond_kind, resolution, fs_kind), tree, device="cpu")
     return jcore, core
+
+
+# the start of every rank's program under run_ranks: argv is (rank, world
+# size, file:// init method, work dir); the rank joins one gloo group and
+# fails within a minute if another rank does not come
+RANK_PREAMBLE = """
+import json, os, sys
+rank, world, init, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from cyclediffusion_tpu_torch.parallel import init_distributed
+init_distributed(init, rank=rank, world_size=world, backend="gloo", timeout_s=60)
+"""
+# and its end: no rank leaves the group while another may still talk to it
+# (a process that exits with gloo's threads alive aborts)
+RANK_POSTAMBLE = """
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
+"""
+
+
+def start_ranks(code: str, world: int, work) -> list:
+    """Start ``RANK_PREAMBLE + code + RANK_POSTAMBLE`` as ``world``
+    processes on the CPU, joined by a ``file://`` init in ``work`` -> the
+    processes (see :func:`wait_ranks`)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
+    init = "file://" + os.path.join(str(work), "process_group_init")
+    program = RANK_PREAMBLE + code + RANK_POSTAMBLE
+    return [subprocess.Popen([sys.executable, "-c", program, str(r), str(world), init, str(work)],
+                             cwd=REPO, env=env, text=True, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT)
+            for r in range(world)]
+
+
+def wait_ranks(procs: list, timeout: float = 180) -> list:
+    """Wait for every process at most ``timeout`` seconds, killing any left
+    past it -> their outputs; each must have exited 0."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} of {len(procs)} failed:\n{out[-3000:]}"
+    return outs
+
+
+def run_ranks(code: str, world: int, work, timeout: float = 180) -> list:
+    """:func:`start_ranks`, then :func:`wait_ranks`."""
+    return wait_ranks(start_ranks(code, world, work), timeout)
