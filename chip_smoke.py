@@ -134,6 +134,22 @@ Phases (each prints its results; any failure exits non-zero):
    port's optimisers against optax's trajectories
    (``tests/data_torch/flax/optax_trajectories.npz``); (e) the Flax
    msgpack fixture read against its npz twin, bit for bit.
+15. Inputs: every image file the JAX package's loader reads, and the JAX
+   driver's checkpoint.  (a) Every committed image fixture
+   (``tests/data_torch/images/``: palette, grey + alpha, 1/2/4/16-bit and
+   Adam7 PNGs, GIFs, progressive, CMYK and YCCK JPEGs; and the baseline
+   JPEGs of ``tests/data_torch/jpeg/``) decoded on the card's host by
+   ``load_image`` against Pillow's stored decode (0 values may differ),
+   and the median host ms per 512 px image of each kind.  (b) Phase 7's cut
+   SD experiment on a data root whose ``data/translate-text.json`` names
+   six of them (a palette PNG, a 16-bit RGB PNG, an Adam7 PNG, a GIF, a
+   progressive and a CMYK JPEG) at batch 2: each ``original_image`` the
+   task model receives equals the 512 px preprocess of Pillow's stored
+   decode bit for bit, K1 and K2 launch as in phase 7 (250 each per
+   sample), the run leaves its files.  (c) SD v1's seeded bf16 core written
+   by ``Driver.save_model`` as ``model_params.msgpack`` and read back by
+   ``Driver.load_model`` into another core bit for bit; the file's bytes
+   and the write and read seconds on the host.
 
 Each phase prints its peak device memory.  The last three lines of output
 are the card's name and power limit, the kernels' JSON record and the
@@ -2833,6 +2849,236 @@ def phase_parallel(torch, root, card, cli_counts) -> dict:
     return counts
 
 
+# phase 15: every image file the JAX loader reads, and the JAX driver's
+# msgpack checkpoint
+IMAGE_DIR = os.path.join("tests", "data_torch", "images")
+IMAGE_REPS = 5
+# kind -> the 512 px fixture whose host decode is timed
+IMAGE_TIMED = {"palette PNG": "p8_512.png", "Paeth RGB PNG": "paeth_rgb_512.png",
+               "Adam7 PNG": "adam7_rgb_512.png", "GIF": "gif_512.gif",
+               "progressive JPEG": "prog_512.jpg", "CMYK JPEG": "cmyk_512.jpg"}
+# (b): one fixture of each new kind, in the order of the data file
+INPUT_FILES = ("p4_trns.png", "rgb16.png", "adam7_rgb8.png", "interlaced.gif",
+               "prog_420.jpg", "cmyk.jpg")
+INPUT_CUTS = {**CLI_CUTS, ("raw_data", "range"): f"[0, {len(INPUT_FILES)}]"}
+INPUT_RESOLUTION = 512
+
+
+def check_image_fixtures(reps: int = IMAGE_REPS):
+    """Every committed image fixture through ``load_image`` on the host ->
+    ({file: values that differ from Pillow's stored decode, -1 for another
+    shape}, {kind: ms of each 512 px decode}, the Pillow version of the
+    stored decode)."""
+    import numpy as np
+
+    from cyclediffusion_tpu_torch.data.transforms import load_image
+
+    d = os.path.join(ROOT, IMAGE_DIR)
+    stored = np.load(os.path.join(d, "pillow_rgb.npz"))
+    differ = {}
+    for name in sorted(f for f in os.listdir(d) if not f.endswith(".npz")):
+        img, want = load_image(os.path.join(d, name)), stored[name]
+        differ[name] = int((img != want).sum()) if img.shape == want.shape else -1
+    ms = {}
+    for kind, name in IMAGE_TIMED.items():
+        ms[kind] = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            load_image(os.path.join(d, name))
+            ms[kind].append(1e3 * (time.perf_counter() - t0))
+    return differ, ms, str(stored["pillow_version"])
+
+
+def write_input_root(root: str) -> str:
+    """A data root under ``root`` holding :data:`INPUT_FILES` and a
+    ``data/translate-text.json`` that names them -> its path."""
+    import shutil
+
+    data_root = os.path.join(root, "inputs")
+    os.makedirs(os.path.join(data_root, "data", "images"))
+    rows = []
+    for i, name in enumerate(INPUT_FILES):
+        shutil.copy(os.path.join(ROOT, IMAGE_DIR, name),
+                    os.path.join(data_root, "data", "images", name))
+        rows.append({"encode_text": f"a photo of a cat {i}",
+                     "decode_text": f"a watercolour painting of a cat {i}",
+                     "img_path": f"./data/images/{name}"})
+    with open(os.path.join(data_root, "data", "translate-text.json"), "w") as f:
+        json.dump(rows, f, indent=4)
+    return data_root
+
+
+def expected_inputs() -> list:
+    """The ``original_image`` of each of :data:`INPUT_FILES`: the SD task's
+    preprocess (crop, 512 px bilinear, [0, 1]) of Pillow's stored decode."""
+    import numpy as np
+
+    from cyclediffusion_tpu_torch.data.transforms import center_crop_long_edge, resize, to_array
+
+    stored = np.load(os.path.join(ROOT, IMAGE_DIR, "pillow_rgb.npz"))
+    return [to_array(resize(center_crop_long_edge(stored[name]), INPUT_RESOLUTION))
+            for name in INPUT_FILES]
+
+
+def checkpoint_round_trip(torch, core, other, out_dir: str):
+    """``core`` saved by ``Driver.save_model``, loaded by
+    ``Driver.load_model`` into ``other`` -> (the file's bytes, write s,
+    read s, the state-dict keys that differ)."""
+    import types
+
+    from cyclediffusion_tpu_torch.runtime.driver import Driver
+
+    def driver(c):
+        return Driver(types.SimpleNamespace(output_dir=out_dir),
+                      types.SimpleNamespace(gan_wrapper=types.SimpleNamespace(core=c)))
+
+    t0 = time.perf_counter()
+    driver(core).save_model()
+    write_s = time.perf_counter() - t0
+    path = os.path.join(out_dir, "model_params.msgpack")
+    t0 = time.perf_counter()
+    driver(other).load_model(out_dir)
+    if other.device.type == "cuda":
+        torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    want, got = core.state_dict(), other.state_dict()
+    differ = sorted(k for k in want if k not in got or got[k].dtype != want[k].dtype
+                    or not torch.equal(got[k], want[k]))
+    return os.path.getsize(path), write_s, read_s, differ
+
+
+def phase_inputs(torch, fa, root, card, num_recovered_eps) -> dict:
+    """Phase 15 -> the K1/K2 launches of (b)'s CLI run."""
+    import numpy as np
+
+    from cyclediffusion_tpu_torch import main as cli
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
+    from cyclediffusion_tpu_torch.runtime import context
+    from cyclediffusion_tpu_torch.runtime.config import config_root
+    from cyclediffusion_tpu_torch.tasks.text_unsupervised_translation import (
+        TextUnsupervisedTranslation,
+    )
+    from cyclediffusion_tpu_torch.text import CLIPBPETokenizer
+    from cyclediffusion_tpu_torch.tools import sd_assets
+
+    torch.cuda.reset_peak_memory_stats()
+    say(f"inputs: {card}")
+    # (a)
+    differ, ms, pillow = check_image_fixtures()
+    jpeg_differ, _, jpeg_pillow = check_jpeg_fixtures(reps=0)
+    say(f"inputs: (a) {len(differ)} image fixtures decoded by load_image on the host against "
+        f"Pillow {pillow}'s stored convert('RGB'): differing values {differ}; the "
+        f"{len(jpeg_differ)} baseline JPEG fixtures against Pillow {jpeg_pillow}'s: "
+        f"{jpeg_differ}")
+    if any(differ.values()) or any(jpeg_differ.values()):
+        fail(f"inputs: (a) a decode differs from Pillow's: {differ} {jpeg_differ}")
+    for kind, times in ms.items():
+        times.sort()
+        say(f"inputs: (a) {kind} ({IMAGE_TIMED[kind]}, 512x512) host decode: median "
+            f"{times[len(times) // 2]:.1f} ms over {len(times)} (min {times[0]:.1f}, max "
+            f"{times[-1]:.1f}) ({card})")
+
+    # (b)
+    data_root = write_input_root(root)
+    with open(os.path.join(config_root(), CLI_CFG)) as f:
+        cfg_text = cut_config(f.read(), INPUT_CUTS)
+    cfg = os.path.join(root, "inputs.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    out_dir = os.path.join(root, "inputs_cli")
+    os.environ["CYCLEDIFFUSION_CKPT_ROOT"] = root
+    os.environ["CYCLEDIFFUSION_DATA_ROOT"] = data_root
+    context.reset()
+    context.set_directional_clip(sd_assets.seeded_scorer(
+        1, CLIPBPETokenizer(os.environ["CYCLEDIFFUSION_CLIP_BPE"]), "cuda"))
+    n = len(INPUT_FILES)
+    say(f"inputs: (b) {CLI_CFG} cut to {INPUT_CUTS} on {n} images {list(INPUT_FILES)} at "
+        "batch 2")
+    seen = {"images": {}, "pipe": None}
+    forward = TextUnsupervisedTranslation.forward
+
+    def spy_forward(self, sample_id, original_image, encode_text, decode_text):
+        for sid, im in zip(np.asarray(sample_id).reshape(-1), original_image):
+            seen["images"][int(sid)] = np.array(im, np.float32)
+        seen["pipe"] = self.gan_wrapper
+        return forward(self, sample_id, original_image, encode_text, decode_text)
+
+    TextUnsupervisedTranslation.forward = spy_forward
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        metrics = cli.main(["--cfg", cfg, "--output_dir", out_dir, "--seed", "42",
+                            "--do_eval", "--per_device_eval_batch_size", "2"])
+        torch.cuda.synchronize()
+    finally:
+        TextUnsupervisedTranslation.forward = forward
+    secs = time.perf_counter() - t0
+    counts = dict(fa.launch_counts)
+    context.reset()
+    want_images = expected_inputs()
+    if sorted(seen["images"]) != list(range(n)):
+        fail(f"inputs: (b) the task model received samples {sorted(seen['images'])}")
+    bad = [INPUT_FILES[i] for i in range(n)
+           if seen["images"][i].shape != want_images[i].shape
+           or not np.array_equal(seen["images"][i], want_images[i])]
+    if bad:
+        fail(f"inputs: (b) the original_image of {bad} is not the preprocess of Pillow's "
+             "decode")
+    say(f"inputs: (b) each original_image the task model received ({n}, "
+        f"{want_images[0].shape}) equals to_array(resize(center_crop_long_edge(Pillow's "
+        "stored decode), 512)) bit for bit")
+    pipe = seen["pipe"]
+    per_sample = {name: sum(calls * launches_per_call(
+        pipe.core.spec, fa.attention_route, reuse=kind == "reuse")[name]
+        for kind, calls in expected_calls_by_kind(pipe, num_recovered_eps).items())
+        for name in ROUTE_KERNELS.values()}
+    want = {k: v * n for k, v in per_sample.items()}
+    got = {k: counts[k] for k in want}
+    say(f"inputs: (b) K1/K2 launches {got} (expected {want}: {per_sample} per sample)")
+    if got != want or counts["qout_self_attention_block"] or counts["fused_self_attention_block"]:
+        fail(f"inputs: (b) the CLI launched {counts}, expected {want} and no K3/K4")
+    files = sorted(os.path.relpath(os.path.join(d, f), out_dir)
+                   for d, _, fs in os.walk(out_dir) for f in fs)
+    missing = sorted(set(expected_cli_files(n)) - set(files))
+    with open(os.path.join(out_dir, "eval_results.json")) as f:
+        results = json.load(f)
+    nonfinite = [k for k in METRIC_KEYS
+                 if not isinstance(results.get(k), float) or not math.isfinite(results[k])]
+    if missing or nonfinite or results.get("eval_samples") != n or \
+            metrics.get("eval_samples") != n:
+        fail(f"inputs: (b) missing files {missing}, non-finite metrics {nonfinite}: {results}")
+    say(f"inputs: (b) the CLI wrote {len(files)} files ({len(expected_cli_files(n))} expected "
+        f"present); metrics {{{', '.join(f'{k}: {results[k]:.6g}' for k in METRIC_KEYS)}}}")
+    say(f"inputs: (b) eval_runtime {results['eval_runtime']} s, eval_samples_per_second "
+        f"{results['eval_samples_per_second']}; the whole CLI call {secs:.2f} s ({card})")
+
+    # (c)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = LatentCoreSpec.sd_v1()
+    cores = [LatentDiffusionCore.random_init(spec, seed, "cuda", dtype=torch.bfloat16)
+             for seed in (0, 1)]
+    n_params = sum(v.numel() for v in cores[0].state_dict().values())
+    n_unet = sum(p.numel() for p in cores[0].unet.parameters())
+    nbytes, write_s, read_s, differ_keys = checkpoint_round_trip(
+        torch, cores[0], cores[1], os.path.join(root, "inputs_ckpt"))
+    if differ_keys:
+        fail(f"inputs: (c) {len(differ_keys)} weights differ after the msgpack round trip: "
+             f"{differ_keys[:4]}")
+    if n_unet != SD_UNET_PARAMS:
+        fail(f"inputs: (c) the SD v1 UNet has {n_unet:,} parameters")
+    say(f"inputs: (c) SD v1's seeded bf16 core ({n_params:,} weights, the UNet's "
+        f"{n_unet:,}) through Driver.save_model -> model_params.msgpack ({nbytes:,} bytes, "
+        f"written in {write_s:.2f} s) -> Driver.load_model into another core ({read_s:.2f} s): "
+        f"equal bit for bit ({card})")
+    del cores
+    gc.collect()
+    torch.cuda.empty_cache()
+    say_peak(torch, "inputs")
+    return counts
+
+
 def round_trip(torch, core, pipe, images, src) -> float:
     """Phase 5: encode, then replay under the same text and scale 1 with
     deterministic cuDNN -> max|replay - x0| on the latent."""
@@ -2921,20 +3167,23 @@ def main() -> None:
         guided_counts = phase_guided(torch, fa, attention)
         phase_data(torch, card)
         parallel_counts = phase_parallel(torch, root, card, cli_counts)
+        input_counts = phase_inputs(torch, fa, root, card, num_recovered_eps)
 
     # launches on the path that runs each kernel: the translate slice (K1,
     # K2), LDM text2img-large's and FFHQ -> CelebA-HQ's CLI runs (K1), the
     # guided chain (K1, K2) and the FFHQ plain pipeline (K1), the SD CLI in
-    # two processes (K1, K2), the ensemble (K3), the UNet call in folded
-    # mode "1" (K4)
+    # two processes (K1, K2), the SD CLI on the new input kinds (K1, K2),
+    # the ensemble (K3), the UNet call in folded mode "1" (K4)
     launches = {"flash_attention_bhtd": slice_counts["flash_attention_bhtd"]
                 + ldm_counts["flash_attention_bhtd"]
                 + unpaired_counts["flash_attention_bhtd"]
                 + guided_counts["flash_attention_bhtd"]
-                + parallel_counts["flash_attention_bhtd"],
+                + parallel_counts["flash_attention_bhtd"]
+                + input_counts["flash_attention_bhtd"],
                 "flash_attention_packed": slice_counts["flash_attention_packed"]
                 + guided_counts["flash_attention_packed"]
-                + parallel_counts["flash_attention_packed"],
+                + parallel_counts["flash_attention_packed"]
+                + input_counts["flash_attention_packed"],
                 "qout_self_attention_block": ens_counts["qout_self_attention_block"],
                 "fused_self_attention_block": k4_counts["fused_self_attention_block"]}
     kernels = [{"name": name, "route": "cuda", "source": KERNELS[name][1],

@@ -1,6 +1,7 @@
-"""A reader for Flax's msgpack checkpoints (``flax.serialization.to_bytes``,
-the JAX driver's ``model_params.msgpack``) that needs no ``msgpack``
-package: the card's machine has none.
+"""A reader and a writer for Flax's msgpack checkpoints
+(``flax.serialization.to_bytes`` / ``msgpack_restore``, the JAX driver's
+``model_params.msgpack``) that need no ``msgpack`` package: the card's
+machine has none.
 
 It reads the msgpack subset that Flax writes — maps, arrays, str, bin,
 ints, floats, nil, bool and ext — and Flax's ext types: ``ndarray`` (1, a
@@ -14,10 +15,21 @@ Leaves come back as numpy arrays and scalars, except ``bfloat16``, which
 has no numpy dtype: its buffer is read as uint16 and returned as a
 ``torch.bfloat16`` tensor.  Lists and tuples of the saved tree arrive as
 Flax stores them, as dicts keyed by position.
+
+The writer (:func:`write`, :func:`to_bytes`) gives the bytes
+``flax.serialization.to_bytes`` gives for the same tree: msgpack-python's
+encodings (the smallest int format, float64, ``strict_types``: a numpy
+scalar is Flax's ``npscalar`` ext, not a float), Flax's ``ndarray`` ext
+for numpy arrays and torch tensors (a ``torch.bfloat16`` tensor as
+``bfloat16`` with its bits), arrays above ``MAX_CHUNK_SIZE`` bytes split
+as Flax splits them.  :func:`write` streams to the file: an array's bytes
+go out from its own buffer, so a model is never held as one ``bytes``.
 """
 
 from __future__ import annotations
 
+import io
+import math
 import struct
 
 import numpy as np
@@ -25,6 +37,7 @@ import torch
 
 EXT_NDARRAY, EXT_COMPLEX, EXT_NPSCALAR = 1, 2, 3
 CHUNKED = "__msgpack_chunked_array__"
+MAX_CHUNK_SIZE = 2 ** 30        # flax.serialization's: bytes above which an array is split
 
 # fixed-width codes: code -> (struct format, size)
 _SCALARS = {0xca: (">f", 4), 0xcb: (">d", 8), 0xcc: (">B", 1), 0xcd: (">H", 2),
@@ -157,3 +170,135 @@ def from_bytes(data) -> object:
 def read(path: str) -> object:
     with open(path, "rb") as f:
         return from_bytes(f.read())
+
+
+# ---- the writer ------------------------------------------------------------ #
+
+def _sized(n: int, small: int, fixed: int, codes) -> bytes:
+    """The header of a str / bin / array / map / ext of length ``n``:
+    ``fixed | n`` below ``small`` (if the type has a fixed form), else the
+    8-, 16- or 32-bit length form of ``codes``."""
+    if fixed is not None and n < small:
+        return bytes([fixed | n])
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack: a length of {n} does not fit")
+
+
+def _int(v: int) -> bytes:
+    if 0 <= v < 0x80 or -32 <= v < 0:
+        return struct.pack(">b" if v < 0 else ">B", v)
+    for lo, hi, code, fmt in ((0, 0xFF, 0xCC, ">B"), (0, 0xFFFF, 0xCD, ">H"),
+                              (0, 0xFFFFFFFF, 0xCE, ">I"), (0, 2 ** 64 - 1, 0xCF, ">Q"),
+                              (-0x80, -1, 0xD0, ">b"), (-0x8000, -1, 0xD1, ">h"),
+                              (-2 ** 31, -1, 0xD2, ">i"), (-2 ** 63, -1, 0xD3, ">q")):
+        if lo <= v <= hi:
+            return bytes([code]) + struct.pack(fmt, v)
+    raise ValueError(f"msgpack: the int {v} does not fit in 64 bits")
+
+
+def _str(v: str) -> bytes:
+    b = v.encode("utf-8")
+    return _sized(len(b), 32, 0xA0, (0xD9, 0xDA, 0xDB)) + b
+
+
+def _bin_header(n: int) -> bytes:
+    return _sized(n, 0, None, (0xC4, 0xC5, 0xC6))
+
+
+def _ext_header(n: int, code: int) -> bytes:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}.get(n)
+    head = bytes([fixed]) if fixed else _sized(n, 0, None, (0xC7, 0xC8, 0xC9))
+    return head + struct.pack(">b", code)
+
+
+def _as_array(leaf):
+    """A numpy array or a torch tensor -> (its C-order numpy array, the
+    dtype name Flax writes); a bfloat16 tensor as its uint16 bits."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        return t.numpy(), str(t.numpy().dtype)
+    arr = np.asarray(leaf, order="C")    # ascontiguousarray would make a 0-d array 1-d
+    if arr.dtype.hasobject or arr.dtype.names:
+        raise ValueError(f"msgpack: an array of dtype {arr.dtype} cannot be written")
+    return arr, arr.dtype.name
+
+
+def _write_ndarray(out, leaf, code: int = EXT_NDARRAY) -> None:
+    """Flax's ndarray ext: a msgpack ``(shape, dtype name, buffer)``; the
+    buffer goes out from the array's memory."""
+    arr, name = _as_array(leaf)
+    shape = arr.shape
+    head = (_sized(3, 16, 0x90, (None, 0xDC, 0xDD))
+            + _sized(len(shape), 16, 0x90, (None, 0xDC, 0xDD))
+            + b"".join(_int(int(d)) for d in shape) + _str(name) + _bin_header(arr.nbytes))
+    out.write(_ext_header(len(head) + arr.nbytes, code) + head)
+    if arr.nbytes:
+        out.write(memoryview(arr.reshape(-1)).cast("B"))
+
+
+def _itemsize(leaf) -> int:
+    return leaf.element_size() if isinstance(leaf, torch.Tensor) else leaf.dtype.itemsize
+
+
+def _chunked(leaf) -> dict:
+    """flax.serialization's ``_chunk``: the flat array in pieces of
+    ``MAX_CHUNK_SIZE / itemsize`` elements."""
+    step = max(1, int(MAX_CHUNK_SIZE / _itemsize(leaf)))
+    flat = leaf.reshape(-1)
+    chunks = [flat[i:i + step] for i in range(0, flat.shape[0], step)]
+    return {CHUNKED: True, "shape": {str(i): int(d) for i, d in enumerate(leaf.shape)},
+            "chunks": {str(i): c for i, c in enumerate(chunks)}}
+
+
+def _pack(out, obj) -> None:
+    if obj is None:
+        out.write(b"\xc0")
+    elif obj is True or obj is False:
+        out.write(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, (np.ndarray, torch.Tensor)):
+        _write_ndarray(out, obj)
+    elif isinstance(obj, np.generic):
+        _write_ndarray(out, np.asarray(obj), EXT_NPSCALAR)
+    elif type(obj) is int:
+        out.write(_int(obj))
+    elif type(obj) is float:
+        out.write(b"\xcb" + struct.pack(">d", obj))
+    elif type(obj) is complex:
+        body = b"\x92" + b"".join(b"\xcb" + struct.pack(">d", v) for v in (obj.real, obj.imag))
+        out.write(_ext_header(len(body), EXT_COMPLEX) + body)
+    elif type(obj) is str:
+        out.write(_str(obj))
+    elif type(obj) is bytes:
+        out.write(_bin_header(len(obj)) + obj)
+    elif type(obj) is dict:
+        out.write(_sized(len(obj), 16, 0x80, (None, 0xDE, 0xDF)))
+        for k, v in obj.items():
+            _pack(out, k)
+            if (isinstance(v, (np.ndarray, torch.Tensor))
+                    and math.prod(v.shape) * _itemsize(v) > MAX_CHUNK_SIZE):
+                v = _chunked(v)
+            _pack(out, v)
+    elif type(obj) in (list, tuple):
+        raise ValueError("msgpack: Flax stores a list or tuple as a dict keyed by "
+                         "position; pass it so")
+    else:
+        raise ValueError(f"msgpack: cannot write a {type(obj).__name__}")
+
+
+def to_bytes(tree) -> bytes:
+    """``flax.serialization.to_bytes`` of a tree of dicts (keys str) with
+    array, scalar, str, bytes, bool and None leaves."""
+    out = io.BytesIO()
+    _pack(out, tree)
+    return out.getvalue()
+
+
+def write(path: str, tree) -> int:
+    """:func:`to_bytes` of ``tree`` streamed into ``path`` -> its bytes."""
+    with open(path, "wb") as f:
+        _pack(f, tree)
+        return f.tell()

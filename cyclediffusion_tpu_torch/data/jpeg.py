@@ -1,9 +1,12 @@
-"""A baseline JPEG decoder in numpy (the port has no Pillow).
+"""A JPEG decoder in numpy (the port has no Pillow).
 
 ``decode_jpeg`` gives what Pillow's ``Image.open(...)`` gives with its
 libjpeg-turbo: uint8 ``(H, W, 3)`` for a colour file, ``(H, W, 1)`` for a
-grey one, equal value for value.  Three steps are where an almost-right
-decoder drifts by one level, and each is libjpeg's own arithmetic here:
+grey one, ``(H, W, 4)`` for a CMYK or YCCK one (Pillow's ``CMYK`` mode,
+whose ``CMYK;I`` unpacker inverts the stored values, Adobe's convention),
+equal value for value; :func:`cmyk_to_rgb` is Pillow's ``convert("RGB")``
+of the last.  Three steps are where an almost-right decoder drifts by one
+level, and each is libjpeg's own arithmetic here:
 
 * the ISLOW integer IDCT (``jidctint.c``: 13-bit constants, 2 extra bits
   between the passes, the post-IDCT range-limit table that wraps modulo
@@ -14,21 +17,27 @@ decoder drifts by one level, and each is libjpeg's own arithmetic here:
   replicated, and other integer ratios repeat samples;
 * the fixed-point YCbCr -> RGB of ``jdcolor.c`` (16 fraction bits).
 
-Scope: baseline and extended sequential DCT (SOF0, SOF1) with 8-bit
-samples and Huffman coding; 1 or 3 components (YCbCr, or RGB where an
-Adobe marker or the component ids say so); any integer sampling ratios
+Scope: baseline, extended sequential and progressive DCT (SOF0, SOF1,
+SOF2) with 8-bit samples and Huffman coding; 1, 3 or 4 components (YCbCr,
+or RGB where an Adobe marker or the component ids say so; CMYK, or YCCK
+where an Adobe marker's transform is not 0, converted to CMYK as
+``jdcolor.c``'s ``ycck_cmyk_convert`` does); any integer sampling ratios
 (4:4:4, 4:2:2, 4:2:0, 4:4:0); restart intervals, byte stuffing, sizes off
-the MCU grid; interleaved or one-component scans.  Progressive (SOF2),
-lossless and hierarchical frames, arithmetic coding, 12-bit samples and
-4-component (CMYK / YCCK) files raise a ``ValueError`` that names what
-the file is.  EXIF orientation is not applied, as Pillow's ``open`` does
-not apply it.
+the MCU grid; interleaved or one-component scans.  A progressive file's
+scans (DC first and refinement, AC first with end-of-band runs, AC
+refinement) fill the same coefficient arrays a sequential one fills, so
+the reconstruction is shared.  libjpeg smooths the blocks of a
+progressive file whose first AC coefficients were not all refined to
+their last bit (``jdcoefct.c``'s ``smoothing_ok``); such a file is
+refused.  Lossless and hierarchical frames, arithmetic coding and 12-bit
+samples raise a ``ValueError`` that names what the file is.  EXIF
+orientation is not applied, as Pillow's ``open`` does not apply it.
 
 The Huffman decode is the only serial part: one Python step per coded
-coefficient, through 16-bit lookahead tables that carry the code, the
-zero run and the coefficient's value bits together.  Dequantisation, the
-IDCT, upsampling and colour conversion run as integer numpy over all
-blocks at once.
+coefficient (and per correction bit of a progressive refinement scan),
+through 16-bit lookahead tables that carry the code, the zero run and the
+coefficient's value bits together.  Dequantisation, the IDCT, upsampling
+and colour conversion run as integer numpy over all blocks at once.
 """
 
 from __future__ import annotations
@@ -45,7 +54,7 @@ NATURAL_ORDER = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
 _SOF_NAMES = {
-    0xC2: "progressive DCT (SOF2)", 0xC3: "lossless (SOF3)",
+    0xC3: "lossless (SOF3)",
     0xC5: "differential sequential DCT (SOF5, hierarchical)",
     0xC6: "differential progressive DCT (SOF6, hierarchical)",
     0xC7: "differential lossless (SOF7, hierarchical)",
@@ -198,6 +207,147 @@ def _decode_segment(win, nbits, blocks, dc_luts, ac_luts, coef_idx, coef_val):
         raise ValueError("JPEG: corrupt or truncated data (the scan read past its end)")
 
 
+def _value(win, p, s):
+    """The ``s`` value bits at bit ``p`` as a signed coefficient."""
+    extra = (win[p >> 3] >> (32 - s - (p & 7))) & ((1 << s) - 1)
+    return extra if extra >= (1 << (s - 1)) else extra - (1 << s) + 1
+
+
+def _dc_first(win, blocks, luts, coef, al, ss, se):
+    """A progressive DC first scan (jdphuff.c's ``decode_mcu_DC_first``):
+    each block's DC difference, the sum scaled by ``2**al``."""
+    pred = [0] * len(luts)
+    p = 0
+    for si, base in blocks:
+        e = luts[si][(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+        n = e & 31
+        if not n:
+            raise ValueError("JPEG: corrupt data (invalid DC Huffman code)")
+        p += n
+        if e & 32:
+            s = (e >> 6) & 15
+            diff = _value(win, p, s)
+            p += s
+        else:
+            diff = e >> 14
+        pred[si] += diff
+        coef[base] = pred[si] << al
+    return p
+
+
+def _dc_refine(win, blocks, luts, coef, al, ss, se):
+    """A progressive DC refinement scan: one bit per block."""
+    p1 = 1 << al
+    for p, (_, base) in enumerate(blocks):
+        if (win[p >> 3] >> (31 - (p & 7))) & 1:
+            coef[base] |= p1
+    return len(blocks)
+
+
+def _ac_first(win, blocks, luts, coef, al, ss, se):
+    """A progressive AC first scan of one component's band ``[ss, se]``
+    (``decode_mcu_AC_first``), end-of-band runs included."""
+    lut = luts[0]
+    p = eobrun = 0
+    for _, base in blocks:
+        if eobrun:
+            eobrun -= 1
+            continue
+        k = ss
+        while k <= se:
+            e = lut[(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+            n = e & 31
+            if not n:
+                raise ValueError("JPEG: corrupt data (invalid AC Huffman code)")
+            p += n
+            sym = (e >> 6) & 255
+            r, s = sym >> 4, sym & 15
+            if s:
+                if e & 32:
+                    value = _value(win, p, s)
+                    p += s
+                else:
+                    value = e >> 14
+                k += r
+                if k > se:
+                    raise ValueError("JPEG: corrupt data (a zero run past the band's end)")
+                coef[base + k] = value << al
+                k += 1
+            elif r == 15:
+                k += 16
+            else:
+                eobrun = 1 << r
+                if r:
+                    eobrun += (win[p >> 3] >> (32 - r - (p & 7))) & ((1 << r) - 1)
+                    p += r
+                eobrun -= 1
+                break
+    return p
+
+
+def _ac_refine(win, blocks, luts, coef, al, ss, se):
+    """A progressive AC refinement scan of one component's band
+    (``decode_mcu_AC_refine``): each new coefficient is +-2**al, and every
+    coefficient already nonzero in the band takes one correction bit."""
+    lut = luts[0]
+    p1, m1 = 1 << al, -1 << al
+    p = eobrun = 0
+    for _, base in blocks:
+        k = ss
+        if not eobrun:
+            while k <= se:
+                e = lut[(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+                n = e & 31
+                if not n:
+                    raise ValueError("JPEG: corrupt data (invalid AC Huffman code)")
+                p += n
+                sym = (e >> 6) & 255
+                r, s = sym >> 4, sym & 15
+                if s:
+                    if s != 1:
+                        raise ValueError("JPEG: corrupt data (a refinement coefficient of "
+                                         f"{s} bits)")
+                    if e & 32:
+                        bit = (win[p >> 3] >> (31 - (p & 7))) & 1
+                        p += 1
+                    else:
+                        bit = (e >> 14) > 0
+                    s = p1 if bit else m1
+                elif r != 15:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += (win[p >> 3] >> (32 - r - (p & 7))) & ((1 << r) - 1)
+                        p += r
+                    break
+                while k <= se:      # correct the nonzero ones, pass r zero ones
+                    c = coef[base + k]
+                    if c:
+                        if (win[p >> 3] >> (31 - (p & 7))) & 1 and not c & p1:
+                            coef[base + k] = c + (p1 if c >= 0 else m1)
+                        p += 1
+                    else:
+                        if not r:
+                            break
+                        r -= 1
+                    k += 1
+                if s:
+                    if k > se:
+                        raise ValueError("JPEG: corrupt data (a new coefficient past the "
+                                         "band's end)")
+                    coef[base + k] = s
+                k += 1
+        if eobrun:
+            while k <= se:
+                c = coef[base + k]
+                if c:
+                    if (win[p >> 3] >> (31 - (p & 7))) & 1 and not c & p1:
+                        coef[base + k] = c + (p1 if c >= 0 else m1)
+                    p += 1
+                k += 1
+            eobrun -= 1
+    return p
+
+
 def _idct_1d(x0, x1, x2, x3, x4, x5, x6, x7):
     """jidctint.c's 1-D ISLOW butterfly on int64 arrays -> its 8 outputs
     before the descale (out[0..7])."""
@@ -311,6 +461,16 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
 
 
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """Pillow's ``convert("RGB")`` of a ``CMYK`` image (``Convert.c``'s
+    ``cmyk2rgb``): ``nk - nk * c / 255`` per channel with ``nk = 255 - k``,
+    the product rounded by its MULDIV255."""
+    x = cmyk.astype(np.int32)
+    nk = 255 - x[..., 3:]
+    t = x[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -325,10 +485,14 @@ class _Component:
 class _Frame:
     """The frame header and the coefficients decoded so far: one flat
     array over every component's MCU-padded block grid, component after
-    component, filled from (index, value) lists."""
+    component, filled from (index, value) lists (sequential) or held as a
+    list that each scan updates (progressive, with each component's
+    ``coef_bits``: the bit each zigzag position was last coded to, -1 for
+    none, as libjpeg keeps them)."""
 
-    def __init__(self, height, width, comps):
+    def __init__(self, height, width, comps, progressive=False):
         self.height, self.width, self.comps = height, width, comps
+        self.progressive = progressive
         self.hmax, self.vmax = max(c.h for c in comps), max(c.v for c in comps)
         self.mcux = _cdiv(width, 8 * self.hmax)
         self.mcuy = _cdiv(height, 8 * self.vmax)
@@ -338,6 +502,10 @@ class _Frame:
             offset += self.mcux * c.h * self.mcuy * c.v * 64
         self.size = offset
         self.idx, self.val = [], []
+        if progressive:
+            self.coef = [0] * offset
+            for c in comps:
+                c.coef_bits = [-1] * 64
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
@@ -376,21 +544,20 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                              "sequential Huffman JPEG is decoded")
         if marker == 0xCC:
             raise ValueError("unsupported JPEG: arithmetic coding (DAC marker)")
-        if marker in (0xC0, 0xC1):          # SOF0 baseline, SOF1 extended sequential
+        if marker in (0xC0, 0xC1, 0xC2):    # SOF0 baseline, SOF1 extended, SOF2 progressive
             precision, height, width, nf = seg[0], _u16(seg, 1), _u16(seg, 3), seg[5]
             if precision != 8:
                 raise ValueError(f"unsupported JPEG: {precision}-bit samples (8-bit only)")
             if height == 0:
                 raise ValueError("unsupported JPEG: height given by a DNL marker")
-            if nf == 4:
-                raise ValueError("unsupported JPEG: 4 components (CMYK / YCCK)")
-            if nf not in (1, 3):
-                raise ValueError(f"unsupported JPEG: {nf} components")
+            if nf not in (1, 3, 4):
+                raise ValueError(f"unsupported JPEG: {nf} components (1 grey, 3 YCbCr or "
+                                 "RGB, 4 CMYK or YCCK are read)")
             comps = [_Component(seg[6 + 3 * i], seg[7 + 3 * i] >> 4, seg[7 + 3 * i] & 15,
                                 seg[8 + 3 * i]) for i in range(nf)]
             if any(not (1 <= c.h <= 4 and 1 <= c.v <= 4) for c in comps):
                 raise ValueError("JPEG: bad sampling factors")
-            frame = _Frame(height, width, comps)
+            frame = _Frame(height, width, comps, progressive=marker == 0xC2)
         elif marker == 0xC4:                # DHT
             i = 0
             while i < len(seg):
@@ -426,13 +593,24 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         pos += length
     if frame is None:
         raise ValueError("JPEG: no frame header")
+    if frame.progressive:
+        _check_no_smoothing(frame)
     return _reconstruct(frame, jfif, adobe_transform)
 
 
 def _decode_scan(data, pos, seg, frame, qt, dc_tabs, ac_tabs, restart) -> int:
-    """One scan: Huffman-decode its blocks into ``frame``'s coefficient
-    lists -> the position of the marker after it."""
+    """One scan: Huffman-decode its blocks into ``frame``'s coefficients
+    -> the position of the marker after it."""
     ns = seg[0]
+    ss, se, ah, al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
+    if not frame.progressive and (ss, se) != (0, 63):
+        raise ValueError("JPEG: corrupt data (spectral selection in a sequential scan)")
+    if frame.progressive:
+        if (ss == 0) != (se == 0) or se > 63 or ss > se or al > 13 or (ss and ns != 1):
+            raise ValueError(f"JPEG: corrupt progressive scan (Ss {ss}, Se {se}, Al {al}, "
+                             f"{ns} components)")
+        kind = (_dc_refine if ah else _dc_first) if ss == 0 else (
+            _ac_refine if ah else _ac_first)
     by_id = {c.id: c for c in frame.comps}
     scomps, dcs, acs = [], [], []
     for i in range(ns):
@@ -440,17 +618,19 @@ def _decode_scan(data, pos, seg, frame, qt, dc_tabs, ac_tabs, restart) -> int:
         if c is None:
             raise ValueError("JPEG: a scan names an unknown component")
         td, ta = seg[2 + 2 * i] >> 4, seg[2 + 2 * i] & 15
-        if td not in dc_tabs or ta not in ac_tabs:
+        dc_used = not frame.progressive or (ss == 0 and not ah)
+        ac_used = not frame.progressive or ss > 0
+        if (dc_used and td not in dc_tabs) or (ac_used and ta not in ac_tabs):
             raise ValueError("JPEG: a scan uses an undefined Huffman table")
         if c.quant is None:
             if c.tq not in qt:
                 raise ValueError("JPEG: a component uses an undefined quantisation table")
             c.quant = qt[c.tq]
         scomps.append(c)
-        dcs.append(dc_tabs[td])
-        acs.append(ac_tabs[ta])
-    if (seg[1 + 2 * ns], seg[2 + 2 * ns]) != (0, 63):
-        raise ValueError("unsupported JPEG: spectral selection (a progressive scan)")
+        dcs.append(dc_tabs.get(td))
+        acs.append(ac_tabs.get(ta))
+        if frame.progressive:
+            c.coef_bits[ss:se + 1] = [al] * (se + 1 - ss)
     if ns == 1:             # one component: its own block grid, one block per MCU
         c = scomps[0]
         bw = _cdiv(_cdiv(frame.width * c.h, frame.hmax), 8)
@@ -469,20 +649,42 @@ def _decode_scan(data, pos, seg, frame, qt, dc_tabs, ac_tabs, restart) -> int:
         raise ValueError(f"JPEG: {len(segments)} restart intervals, expected {n_intervals}")
     for k in range(n_intervals):
         blocks = [b for mcu in mcus[k * per:(k + 1) * per] for b in mcu]
+        win, nbits = _windows(segments[k]), 8 * len(segments[k])
         try:
-            _decode_segment(_windows(segments[k]), 8 * len(segments[k]), blocks, dcs, acs,
-                            frame.idx, frame.val)
+            if frame.progressive:
+                if kind(win, blocks, acs if ss else dcs, frame.coef, al, ss, se) > nbits + 64:
+                    raise IndexError
+            else:
+                _decode_segment(win, nbits, blocks, dcs, acs, frame.idx, frame.val)
         except IndexError:      # the bit reader ran past the padded data
             raise ValueError("JPEG: corrupt or truncated data (the scan read past its "
                              "end)") from None
     return end
 
 
+def _check_no_smoothing(frame: _Frame) -> None:
+    """libjpeg-turbo smooths a progressive file's blocks when every
+    component's DC is known, no quantiser of the DC or the first nine AC
+    coefficients is 0, and some of those AC coefficients were not refined
+    to bit 0 (``jdcoefct.c``'s ``smoothing_ok``); that reconstruction is
+    not ported, so such a file is refused."""
+    for c in frame.comps:
+        if c.quant is None or c.coef_bits[0] < 0 or not c.quant[:10].all():
+            return
+    if any(b != 0 for c in frame.comps for b in c.coef_bits[1:10]):
+        raise ValueError("unsupported JPEG: a progressive file whose first AC coefficients "
+                         "are not refined to their last bit (libjpeg would smooth its "
+                         "blocks: an incomplete or truncated progression)")
+
+
 def _reconstruct(frame: _Frame, jfif: bool, adobe_transform) -> np.ndarray:
     """The frame's coefficients -> dequantised, IDCT'd, upsampled and
     colour-converted uint8 pixels."""
-    coef = np.zeros(frame.size, np.int64)
-    coef[np.asarray(frame.idx, np.int64)] = np.asarray(frame.val, np.int64)
+    if frame.progressive:
+        coef = np.asarray(frame.coef, np.int64)
+    else:
+        coef = np.zeros(frame.size, np.int64)
+        coef[np.asarray(frame.idx, np.int64)] = np.asarray(frame.val, np.int64)
     planes = []
     for c in frame.comps:
         if c.quant is None:
@@ -501,6 +703,12 @@ def _reconstruct(frame: _Frame, jfif: bool, adobe_transform) -> np.ndarray:
                       [:frame.height, :frame.width])
     if len(planes) == 1:
         return planes[0].astype(np.uint8)[:, :, None]
+    if len(planes) == 4:    # libjpeg's CMYK out, inverted by Pillow's CMYK;I
+        if adobe_transform:     # YCCK -> CMYK: C = 255 - R, ..., so Pillow's C = R
+            cmy = ycc_to_rgb(*planes[:3])
+        else:
+            cmy = 255 - np.stack(planes[:3], axis=-1)
+        return np.concatenate([cmy, 255 - planes[3][..., None]], axis=-1).astype(np.uint8)
     if jfif:
         rgb = False
     elif adobe_transform is not None:

@@ -21,6 +21,7 @@ from torch import nn
 
 from cyclediffusion_tpu_torch.convert import from_torch
 from cyclediffusion_tpu_torch.convert.from_jax import load_flax_params
+from cyclediffusion_tpu_torch.convert.to_jax import module_to_flax
 from cyclediffusion_tpu_torch.models.autoencoder import (
     AutoencoderKL,
     DDConfig,
@@ -270,6 +271,15 @@ class LatentDiffusionCore:
         load_flax_params(self.first_stage, params["first_stage"])
         if self.cond_model is not None:
             load_flax_params(self.cond_model, params["cond"])
+
+    def jax_params(self) -> dict:
+        """This core's weights as the JAX core's parameter tree (on the host,
+        in the core's dtype): :meth:`load_jax_params`' inverse."""
+        params = {"unet": module_to_flax(self.unet),
+                  "first_stage": module_to_flax(self.first_stage)}
+        if self.cond_model is not None:
+            params["cond"] = module_to_flax(self.cond_model)
+        return params
 
     @classmethod
     @torch.no_grad()

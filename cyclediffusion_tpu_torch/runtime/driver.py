@@ -11,9 +11,10 @@
   come back to numpy float32; rank 0 alone computes metrics, visualises and
   saves), the visualizer, ``log`` with the optional wandb run,
   ``log_metrics`` / ``save_metrics`` with the combined
-  ``all_results.json``, checkpoints (``model_params.pt``: each wrapper's
-  module ``state_dict()`` with ``torch.save``; the JAX driver's
-  ``model_params.msgpack`` is read too), ``training_args.json``,
+  ``all_results.json``, checkpoints (``model_params.msgpack`` as the JAX
+  driver writes it: each wrapper's weights as the JAX wrapper's Flax tree,
+  ``convert.to_jax``, and any ``trainable_params``, in Flax's msgpack;
+  the port's earlier ``model_params.pt`` is still read), ``training_args.json``,
   ``trainer_state.json``, the numpy RNG state, ``save_total_limit``
   rotation that keeps the best checkpoint.
 * ``train``: the JAX driver's optimiser loop (``runtime.optim``) for a
@@ -43,6 +44,7 @@ import torch.distributed as dist
 
 from cyclediffusion_tpu_torch.convert import flax_msgpack
 from cyclediffusion_tpu_torch.convert.from_jax import load_flax_params
+from cyclediffusion_tpu_torch.convert.to_jax import module_to_flax
 from cyclediffusion_tpu_torch.parallel.mesh import all_gather_cat, process_position
 from cyclediffusion_tpu_torch.runtime import optim
 
@@ -181,6 +183,15 @@ def _to_tensor(leaf, device) -> torch.Tensor:
     return torch.as_tensor(np.array(leaf), device=device)
 
 
+def _jax_params(module) -> dict:
+    """The JAX wrapper's parameter tree of the module that holds the port's
+    weights: a latent core's ``{"unet", "first_stage"[, "cond"]}``, else
+    the module's own Flax variables."""
+    if hasattr(module, "jax_params"):
+        return module.jax_params()
+    return module_to_flax(module)
+
+
 def _load_jax_params(module, tree: dict) -> None:
     """A JAX wrapper's saved parameters into the module that holds the port's
     (``_wrapper_module``): a latent core maps its own ``{"unet",
@@ -307,11 +318,13 @@ class Driver:
             shutil.rmtree(victim, ignore_errors=True)
 
     def _gather_model_params(self) -> dict:
+        """The tree the JAX driver saves: each wrapper's JAX parameter tree,
+        and the tree being optimised (``trainable_params``), if any."""
         params = {}
         for attr in _WRAPPERS:
             wrapper = getattr(self.model, attr, None)
             if wrapper is not None:
-                params[attr] = _wrapper_module(wrapper).state_dict()
+                params[attr] = _jax_params(_wrapper_module(wrapper))
         trainable = getattr(self.model, "trainable_params", None)
         if trainable is not None:
             params["trainable_params"] = trainable
@@ -319,22 +332,26 @@ class Driver:
 
     def save_model(self, output_dir: Optional[str] = None) -> None:
         """Each wrapper's weights (and any ``trainable_params``) into
-        ``model_params.pt``, the scalar arguments into ``training_args.json``."""
+        ``model_params.msgpack``, as the JAX driver writes it (streamed, in
+        the modules' dtypes), the scalar arguments into
+        ``training_args.json``."""
         if not self.is_world_process_zero():
             return
         output_dir = output_dir or self.args.output_dir
         os.makedirs(output_dir, exist_ok=True)
-        torch.save(self._gather_model_params(), os.path.join(output_dir, "model_params.pt"))
+        flax_msgpack.write(os.path.join(output_dir, "model_params.msgpack"),
+                           self._gather_model_params())
         with open(os.path.join(output_dir, "training_args.json"), "w") as f:
             json.dump({k: v for k, v in vars(self.args).items()
                        if isinstance(v, (int, float, str, bool, type(None)))}, f, indent=2)
 
     def load_model(self, checkpoint_dir: str) -> None:
-        """The port's ``model_params.pt``, or else the JAX driver's
-        ``model_params.msgpack`` (each wrapper's Flax tree through
-        ``convert.from_jax``)."""
+        """``model_params.msgpack`` (written by either driver: each wrapper's
+        Flax tree through ``convert.from_jax``), or else an earlier port
+        checkpoint's ``model_params.pt``."""
+        path = os.path.join(checkpoint_dir, "model_params.msgpack")
         pt = os.path.join(checkpoint_dir, "model_params.pt")
-        if os.path.exists(pt):
+        if not os.path.exists(path) and os.path.exists(pt):
             restored = torch.load(pt, map_location="cpu", weights_only=True)
             for attr, params in restored.items():
                 if attr == "trainable_params":
@@ -342,10 +359,9 @@ class Driver:
                 else:
                     _wrapper_module(getattr(self.model, attr)).load_state_dict(params)
             return
-        path = os.path.join(checkpoint_dir, "model_params.msgpack")
         if not os.path.exists(path):
-            raise FileNotFoundError(f"{checkpoint_dir} holds neither model_params.pt nor "
-                                    "model_params.msgpack")
+            raise FileNotFoundError(f"{checkpoint_dir} holds neither model_params.msgpack nor "
+                                    "model_params.pt")
         for attr, tree in flax_msgpack.read(path).items():
             if attr == "trainable_params":
                 self._restore_trainable(tree)

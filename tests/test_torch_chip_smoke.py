@@ -638,3 +638,53 @@ def test_phase_14_children_refuse_without_gpu(tmp_path):
                           cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and "FAIL" in proc.stdout
     assert '"ok"' not in proc.stdout and not list(tmp_path.glob("*.json"))
+
+
+def test_phase_15_fixture_checks_pass_on_the_cpu(smoke):
+    """Phase 15 (a) here: every image fixture decodes to Pillow's stored
+    decode, and each timed kind names a 512 px fixture."""
+    import numpy as np
+
+    differ, ms, pillow = smoke.check_image_fixtures(reps=1)
+    assert len(differ) >= 40 and not any(differ.values()) and pillow
+    assert set(ms) == set(smoke.IMAGE_TIMED) and all(len(t) == 1 for t in ms.values())
+    stored = np.load(os.path.join(REPO, smoke.IMAGE_DIR, "pillow_rgb.npz"))
+    assert all(stored[name].shape == (512, 512, 3) for name in smoke.IMAGE_TIMED.values())
+    assert {os.path.splitext(f)[1] for f in smoke.INPUT_FILES} == {".png", ".gif", ".jpg"}
+
+
+def test_phase_15_inputs_are_what_the_preprocessor_gives(smoke, tmp_path, monkeypatch):
+    """Phase 15 (b)'s data root, read by the SD task's preprocessor with the
+    phase's cut config: one item per input file, each ``original_image``
+    bit for bit the phase's expectation from the stored decode."""
+    import numpy as np
+
+    from cyclediffusion_tpu_torch.runtime.config import Args, config_root, get_config
+    from cyclediffusion_tpu_torch.runtime.registry import get_preprocessor
+
+    with open(os.path.join(config_root(), smoke.CLI_CFG)) as f:
+        text = smoke.cut_config(f.read(), smoke.INPUT_CUTS)
+    assert f"range = [0, {len(smoke.INPUT_FILES)}]" in text
+    monkeypatch.setenv("CYCLEDIFFUSION_DATA_ROOT", smoke.write_input_root(str(tmp_path)))
+    task = get_config("tasks/translate_text512.cfg")
+    meta = Args(raw_data=Args(range=[0, len(smoke.INPUT_FILES)], upsample_temp=1))
+    pre = get_preprocessor(task.preprocess.preprocess_program)(task, meta)
+    dev = pre.preprocess({"train": [], "validation": [], "test": []}, cache_root="unused")["dev"]
+    want = smoke.expected_inputs()
+    assert len(dev) == len(want) == len(smoke.INPUT_FILES)
+    for i in range(len(dev)):
+        np.testing.assert_array_equal(dev[i]["original_image"], want[i])
+
+
+def test_phase_15_checkpoint_round_trip_on_a_tiny_core(smoke, tmp_path):
+    """Phase 15 (c) at the tiny size on the CPU, in bf16 as on the card."""
+    import torch
+
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
+
+    cores = [LatentDiffusionCore.random_init(LatentCoreSpec.tiny("clip"), seed, "cpu",
+                                             dtype=torch.bfloat16) for seed in (0, 1)]
+    nbytes, write_s, read_s, differ = smoke.checkpoint_round_trip(torch, *cores, str(tmp_path))
+    n = sum(v.numel() for v in cores[0].state_dict().values())
+    assert differ == [] and 2 * n < nbytes < 2 * n + 200_000
+    assert write_s > 0 and read_s > 0

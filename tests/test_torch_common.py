@@ -75,8 +75,9 @@ def test_port_imports_without_jax():
     The fast mode's, LDM-BERT's and the pixel slice's entry points import
     too (FID and Inception included), and guided sampling's, the samplers',
     the energies', the tiled first stage's and the plain pipeline's, and the
-    process group, tensor parallelism, the optimisers and the Flax msgpack
-    reader (the card's machine has no ``msgpack`` either)."""
+    process group, tensor parallelism, the optimisers, the Flax msgpack
+    reader and writer (the card's machine has no ``msgpack`` either), the
+    GIF decoder and the inverse Flax converter."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -106,7 +107,8 @@ def test_port_imports_without_jax():
         "        'data.preprocess.afhqwild256', 'tools.pixel_assets', 'samplers.guided',\n"
         "        'energy.clip_energy', 'energy.prior_z', 'energy.factory', 'ops.fold',\n"
         "        'pipelines.latentdiff_plain', 'tools.guided_probe', 'parallel',\n"
-        "        'parallel.mesh', 'parallel.tp', 'runtime.optim', 'convert.flax_msgpack'}\n"
+        "        'parallel.mesh', 'parallel.tp', 'runtime.optim', 'convert.flax_msgpack',\n"
+        "        'data.gif', 'data.jpeg', 'convert.to_jax'}\n"
         "from cyclediffusion_tpu_torch.samplers import dpm_encode_cached, ddim_decode_cached\n"
         "from cyclediffusion_tpu_torch.ops.cfg import cfg_model_fn_pair\n"
         "from cyclediffusion_tpu_torch.models.text_encoders import LDMBertEncoder\n"

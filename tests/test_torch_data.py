@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from cyclediffusion_tpu.data import transforms as jtransforms
 from cyclediffusion_tpu.data.preprocess import to_model as jto_model
 from cyclediffusion_tpu.runtime.config import Args as JArgs
 from cyclediffusion_tpu.runtime.config import get_config as jget_config
@@ -140,18 +141,32 @@ def test_png_round_trip_and_pil_reads_ours():
 
 
 def test_unsupported_images_raise(tmp_path):
-    for mode, shape in (("P", (4, 4)), ("LA", (4, 4, 2))):
-        path = str(tmp_path / f"{mode}.png")
-        Image.fromarray(np.zeros(shape, np.uint8), mode).save(path)
-        with pytest.raises(ValueError, match="ROADMAP"):
-            transforms.load_image(path)
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(str(tmp_path / "x.jpg"),
-                                                         progressive=True)
+    """What the loaders still refuse raises a ``ValueError`` naming it: a
+    PNG of a bit depth its colour type does not allow (Pillow has no mode
+    for it either), a progressive JPEG whose progression stops before the
+    last refinement (libjpeg would smooth its blocks), a GIF without an
+    image, a file of another format."""
+    import struct
+    import zlib
+
+    header = struct.pack(">IIBBBBB", 4, 4, 4, 6, 0, 0, 0)
+    (tmp_path / "x.png").write_bytes(b"\x89PNG\r\n\x1a\n" + struct.pack(">I", 13) + b"IHDR"
+                                     + header + struct.pack(">I", zlib.crc32(b"IHDR" + header)))
+    with pytest.raises(ValueError, match="bit depth 4 with colour type 6"):
+        transforms.load_image(str(tmp_path / "x.png"))
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(buf, "JPEG", progressive=True)
+    data = buf.getvalue()
+    (tmp_path / "x.jpg").write_bytes(data[:data.index(b"\xff\xda", data.index(b"\xff\xda") + 2)]
+                                     + b"\xff\xd9")
     with pytest.raises(ValueError, match="progressive"):
         transforms.load_image(str(tmp_path / "x.jpg"))
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(str(tmp_path / "x.gif"))
-    with pytest.raises(ValueError, match="ROADMAP"):
+    (tmp_path / "x.gif").write_bytes(b"GIF89a\x04\x00\x04\x00\x00\x00\x00;")
+    with pytest.raises(ValueError, match="no image"):
         transforms.load_image(str(tmp_path / "x.gif"))
+    (tmp_path / "x.bmp").write_bytes(b"BM" + bytes(30))
+    with pytest.raises(ValueError, match="not a PNG, GIF or JPEG"):
+        transforms.load_image(str(tmp_path / "x.bmp"))
     with pytest.raises(ValueError, match="not a PNG"):
         png.decode_png(b"GIF89a")
 
@@ -169,6 +184,25 @@ def test_resize_matches_pil(size, interp):
     got = transforms.resize(crop, size, interp).astype(int)
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 1
+
+
+@pytest.mark.parametrize("interp", ["nearest", "lanczos"])
+@pytest.mark.parametrize("size", [512, 236, 100, 37, 1])
+def test_resize_nearest_and_lanczos_match_jax(size, interp):
+    """The JAX ``resize`` (PIL's NEAREST / LANCZOS) on the same uint8 image,
+    up- and downscales of a non-square crop and of a whole image; the port
+    computes PIL's own fixed-point arithmetic, so the tolerance is 0."""
+    img = transforms.load_image(os.path.join(REPO, "data", "prompt2prompt", "trees.png"))
+    for src in (img[7:190, 20:], img):
+        got = transforms.resize(src, size, interp)
+        want = np.asarray(jtransforms.resize(Image.fromarray(src), size, interp))
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+def test_resize_refuses_an_unknown_method():
+    with pytest.raises(ValueError, match="lanczos or nearest"):
+        transforms.resize(np.zeros((4, 4, 3), np.uint8), 2, "hamming")
 
 
 def test_crop_and_short_edge_resize_shapes():

@@ -113,7 +113,7 @@ def test_save_load_roundtrip(tmp_path):
     model = _FakeModel(3.0)
     driver = Driver(_args(tmp_path), model)
     driver.save_model()
-    assert os.path.exists(os.path.join(tmp_path, "model_params.pt"))
+    assert os.path.exists(os.path.join(tmp_path, "model_params.msgpack"))
     with open(os.path.join(tmp_path, "training_args.json")) as f:
         assert json.load(f)["save_total_limit"] == 2
     torch.nn.init.zeros_(model.gan_wrapper.core.weight)
@@ -271,8 +271,9 @@ def test_trace_if_enabled_writes_a_torch_profiler_trace(tmp_path, monkeypatch):
 
 
 def test_save_load_with_a_latent_core(tmp_path):
-    """``model_params.pt`` holds each wrapper core's ``state_dict()``; a
-    resumed driver puts every weight of the tiny core back bit for bit."""
+    """``model_params.msgpack`` holds each wrapper core's JAX parameter
+    tree; a resumed driver puts every weight of the tiny core back bit for
+    bit."""
     from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
 
     spec = LatentCoreSpec.tiny()
@@ -287,3 +288,16 @@ def test_save_load_with_a_latent_core(tmp_path):
     assert want.keys() == got.keys()
     assert len(want) == sum(len(m.state_dict()) for m in core.modules())
     assert all(torch.equal(want[k], got[k]) for k in want)
+
+
+def test_load_model_reads_an_earlier_port_checkpoint(tmp_path):
+    """A directory holding only an earlier port checkpoint's
+    ``model_params.pt`` (each wrapper module's ``state_dict()``) still
+    loads."""
+    model = _FakeModel(3.0)
+    torch.save({"gan_wrapper": model.gan_wrapper.core.state_dict()},
+               os.path.join(tmp_path, "model_params.pt"))
+    torch.nn.init.zeros_(model.gan_wrapper.core.weight)
+    Driver(_args(tmp_path), model).load_model(str(tmp_path))
+    torch.testing.assert_close(model.gan_wrapper.core.weight, torch.full((4, 4), 3.0),
+                               rtol=0, atol=0)

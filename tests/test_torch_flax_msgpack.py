@@ -1,6 +1,6 @@
-"""The port's Flax msgpack reader (``convert.flax_msgpack``) against
-``flax.serialization``, and the port's ``Driver`` reading the JAX
-driver's ``model_params.msgpack``.
+"""The port's Flax msgpack reader and writer (``convert.flax_msgpack``)
+against ``flax.serialization``, the port's ``Driver`` reading the JAX
+driver's ``model_params.msgpack``, and the JAX package reading the port's.
 
 * Trees written by ``flax.serialization.to_bytes`` — float32, bfloat16,
   float16, int32, uint8 and bool arrays, numpy and Python scalars, a
@@ -17,6 +17,19 @@ driver's ``model_params.msgpack``.
   conditioning on the same input (1e-4, the tiny models' port-vs-JAX bound
   in ``test_torch_models.py``), and ``trainable_params`` come back as
   tensors, bit for bit.
+* The writer gives ``flax.serialization.to_bytes``'s bytes for the same
+  trees (torch tensors, a bfloat16 one by its bits, for arrays), chunked
+  arrays included.
+* ``Driver.save_model`` writes ``model_params.msgpack`` for a tiny
+  SD-like core (CLIP text), an LDM-BERT core, a VQ core and both pixel
+  UNet families, each loaded into the port from a seeded JAX tree by
+  ``from_jax``: ``msgpack_restore`` and ``from_bytes`` with the JAX tree
+  as template give every leaf's dtype, shape and values bit for bit, and
+  the JAX ``Driver.load_model`` restores it (``trainable_params`` too); a
+  bfloat16 core goes through with its bits.  ``convert.to_jax``'s layout
+  of each full-width model (SD v1, LDM text2img-large's LDM-BERT, the FFHQ
+  LDM, the AFHQ and CelebA-HQ pixel UNets, built on the ``meta`` device)
+  equals ``jax.eval_shape``'s tree path for path, shape for shape.
 """
 
 import os
@@ -29,16 +42,25 @@ import numpy as np
 import pytest
 import torch
 
+from cyclediffusion_tpu.models import text_encoders as jte
+from cyclediffusion_tpu.pipelines import zoo as jzoo
+from cyclediffusion_tpu.pipelines.latent import LatentCoreSpec as JSpec
+from cyclediffusion_tpu.pipelines.latent import LatentDiffusionCore as JCore
 from cyclediffusion_tpu.runtime import context as jcontext
 from cyclediffusion_tpu.runtime.driver import Driver as JDriver
 from cyclediffusion_tpu_torch.convert import flax_msgpack
+from cyclediffusion_tpu_torch.convert.from_jax import load_flax_params
+from cyclediffusion_tpu_torch.convert.to_jax import flax_layout
+from cyclediffusion_tpu_torch.models import text_encoders as te
+from cyclediffusion_tpu_torch.pipelines import zoo
+from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
 from cyclediffusion_tpu_torch.runtime import context
 from cyclediffusion_tpu_torch.runtime.config import get_config
 from cyclediffusion_tpu_torch.runtime.driver import Driver
 from cyclediffusion_tpu_torch.tasks.text_unsupervised_translation import (
     TextUnsupervisedTranslation,
 )
-from test_torch_common import REPO, max_abs, tiny_latent_cores
+from test_torch_common import REPO, fill_flax_tree, max_abs, tiny_latent_cores
 
 FIXTURES = os.path.join(REPO, "tests", "data_torch", "flax")
 CFG = "experiments/tiny_text_translation.cfg"
@@ -203,3 +225,183 @@ def test_jax_arrays_restore_through_flax_too():
     gives numpy back (what ``_assert_same`` compares against)."""
     data = fser.to_bytes({"a": jax.numpy.ones(2)})
     assert isinstance(fser.msgpack_restore(data)["a"], np.ndarray)
+
+
+# ---- the writer ------------------------------------------------------------- #
+
+def _port_leaves(tree):
+    """A Flax state dict with the port's leaves: numpy arrays, a bfloat16
+    array as a ``torch.bfloat16`` tensor of its bits (numpy scalars stay)."""
+    if isinstance(tree, dict):
+        return {k: _port_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, jax.Array):
+        tree = np.asarray(tree)
+    if isinstance(tree, np.ndarray) and tree.dtype.name == "bfloat16":
+        return torch.from_numpy(tree.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+    return tree
+
+
+@pytest.mark.parametrize("name", sorted(_trees()))
+def test_writes_what_flax_writes(name):
+    tree = _trees()[name]
+    want = fser.to_bytes(tree)
+    got = flax_msgpack.to_bytes(_port_leaves(fser.to_state_dict(tree)))
+    assert got == want
+    _assert_same(flax_msgpack.from_bytes(got), fser.msgpack_restore(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_writes_chunked_arrays_as_flax(monkeypatch, tmp_path, dtype):
+    """An array above ``MAX_CHUNK_SIZE`` bytes (lowered to 64 in both
+    packages) is split into Flax's chunks; :func:`write` streams the same
+    bytes to a file."""
+    monkeypatch.setattr(fser, "MAX_CHUNK_SIZE", 64)
+    monkeypatch.setattr(flax_msgpack, "MAX_CHUNK_SIZE", 64)
+    arr = np.arange(3 * 50, dtype=np.float32).reshape(3, 50)
+    tree = {"big": jnp.asarray(arr, dtype), "small": np.ones(2, np.float32),
+            "edge": np.ones(16, np.float32)}
+    want = fser.to_bytes(tree)
+    port = _port_leaves(fser.to_state_dict(tree))
+    assert flax_msgpack.unpackb(flax_msgpack.to_bytes(port))["big"][flax_msgpack.CHUNKED]
+    assert flax_msgpack.to_bytes(port) == want
+    assert flax_msgpack.write(str(tmp_path / "t.msgpack"), port) == len(want)
+    assert (tmp_path / "t.msgpack").read_bytes() == want
+
+
+def test_writer_refuses_what_flax_would_not_store():
+    with pytest.raises(ValueError, match="dict keyed by position"):
+        flax_msgpack.to_bytes({"a": [1, 2]})
+    with pytest.raises(ValueError, match="cannot write"):
+        flax_msgpack.to_bytes({"a": object()})
+
+
+# ---- the port's checkpoints in the JAX package ------------------------------- #
+
+def _assert_tree_bits(got, want, path="") -> None:
+    """Every leaf of ``want`` (the JAX tree) in ``got`` (a restore of the
+    port's file): the same keys, dtype, shape and bits."""
+    if isinstance(want, dict) or hasattr(want, "items"):
+        assert set(got) == set(want), (path, sorted(set(got) ^ set(want))[:4])
+        for k in want:
+            _assert_tree_bits(got[k], want[k], f"{path}/{k}")
+        return
+    want, got = np.asarray(want), np.asarray(got)
+    assert got.dtype == want.dtype and got.shape == want.shape, (path, got.dtype, got.shape)
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8), err_msg=path)
+
+
+def _restore_in_jax(tmp_path, jmodel, want: dict) -> None:
+    """The port's ``model_params.msgpack`` under ``tmp_path``: restored by
+    ``msgpack_restore``, by ``from_bytes`` with ``want`` (the JAX tree) as
+    template, and by the JAX ``Driver`` into ``jmodel`` (other weights)."""
+    data = (tmp_path / "model_params.msgpack").read_bytes()
+    _assert_tree_bits(fser.msgpack_restore(data), want)
+    _assert_tree_bits(fser.from_bytes(jax.tree.map(np.zeros_like, want), data), want)
+    JDriver(types.SimpleNamespace(output_dir=str(tmp_path / "jax")), jmodel).load_model(
+        str(tmp_path))
+    wrapper = jmodel.gan_wrapper
+    _assert_tree_bits({"gan_wrapper": wrapper.params if hasattr(wrapper, "params")
+                       else wrapper.core.params,
+                       "trainable_params": jmodel.trainable_params}, want)
+
+
+@pytest.mark.parametrize("cond_kind,fs_kind", [("clip", "kl"), ("bert", "kl"), (None, "vq")])
+def test_port_checkpoint_of_a_latent_core_restores_in_jax(tmp_path, cond_kind, fs_kind):
+    jcore, core = tiny_latent_cores(cond_kind=cond_kind, fs_kind=fs_kind, seed=5)
+    w = np.random.default_rng(1).standard_normal((3, 4)).astype(np.float32)
+    model = types.SimpleNamespace(gan_wrapper=types.SimpleNamespace(core=core),
+                                  trainable_params={"w": torch.from_numpy(w)})
+    Driver(types.SimpleNamespace(output_dir=str(tmp_path)), model).save_model()
+    want = {"gan_wrapper": jax.tree.map(np.asarray, jcore.params), "trainable_params": {"w": w}}
+    zeros = jax.tree.map(jnp.zeros_like, jcore.params)
+    jmodel = types.SimpleNamespace(
+        gan_wrapper=types.SimpleNamespace(core=JCore(jcore.spec, zeros)),
+        trainable_params={"w": jnp.zeros((3, 4))})
+    _restore_in_jax(tmp_path, jmodel, want)
+
+
+@pytest.mark.parametrize("kind", ["improved", "compvis"])
+def test_port_checkpoint_of_a_pixel_unet_restores_in_jax(tmp_path, kind):
+    jmod = jzoo.build_pixel_model(jzoo.tiny_pixel_spec(16, kind))
+    tree = jax.tree.map(lambda a: np.asarray(jnp.asarray(a)), fill_flax_tree(
+        jax.eval_shape(jmod.init, jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)),
+                       jnp.zeros((1,), jnp.int32)), 4))       # float32, as JAX holds it
+    unet = zoo.build_pixel_model(zoo.tiny_pixel_spec(16, kind))
+    load_flax_params(unet, tree)
+    model = types.SimpleNamespace(gan_wrapper=types.SimpleNamespace(model=unet),
+                                  trainable_params={"w": torch.ones(2)})
+    Driver(types.SimpleNamespace(output_dir=str(tmp_path)), model).save_model()
+    want = {"gan_wrapper": jax.tree.map(np.asarray, tree),
+            "trainable_params": {"w": np.ones(2, np.float32)}}
+    jmodel = types.SimpleNamespace(
+        gan_wrapper=types.SimpleNamespace(params=jax.tree.map(jnp.zeros_like, tree)),
+        trainable_params={"w": jnp.zeros(2)})
+    _restore_in_jax(tmp_path, jmodel, want)
+
+
+def test_bfloat16_core_round_trips_bit_for_bit(tmp_path):
+    """A bfloat16 core (the card's SD dtype) is written with its bits: JAX
+    restores bfloat16 leaves equal to the port's weights, and the port's
+    ``load_model`` puts them back into another bfloat16 core exactly."""
+    spec = LatentCoreSpec.tiny("clip")
+    cores = [LatentDiffusionCore.random_init(spec, seed, "cpu", dtype=torch.bfloat16)
+             for seed in (1, 2)]
+    Driver(types.SimpleNamespace(output_dir=str(tmp_path)),
+           types.SimpleNamespace(gan_wrapper=types.SimpleNamespace(core=cores[0]))).save_model()
+    restored = fser.msgpack_restore((tmp_path / "model_params.msgpack").read_bytes())
+    kernel = restored["gan_wrapper"]["unet"]["params"]["time_embed_0"]["kernel"]
+    assert kernel.dtype.name == "bfloat16"
+    weight = cores[0].unet.time_embed[0].weight.t().contiguous()
+    np.testing.assert_array_equal(kernel.view(np.uint16),
+                                  weight.view(torch.int16).numpy().view(np.uint16))
+    Driver(types.SimpleNamespace(output_dir=str(tmp_path / "port")),
+           types.SimpleNamespace(gan_wrapper=types.SimpleNamespace(core=cores[1]))).load_model(
+        str(tmp_path))
+    want, got = cores[0].state_dict(), cores[1].state_dict()
+    assert want.keys() == got.keys()
+    assert all(got[k].dtype == torch.bfloat16 and torch.equal(want[k], got[k]) for k in want)
+
+
+def _jax_shapes(module, *args) -> dict:
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args)["params"]
+    return {tuple(getattr(k, "key", str(k)) for k in path): tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_leaves_with_path(shapes)}
+
+
+def _full_width(name):
+    """(port modules built on the meta device, JAX modules with their init
+    arguments) of one full-width model, by part."""
+    z = jnp.zeros
+    if name in ("sd_v1", "ldm_ffhq256"):
+        spec, jspec = getattr(LatentCoreSpec, name)(), getattr(JSpec, name)()
+        core, jcore = LatentDiffusionCore(spec, "meta"), JCore(jspec, {})
+        lat, ch = jspec.image_size, jspec.channels
+        img = z((1, jspec.resolution, jspec.resolution, 3))
+        ctx = None if jspec.cond_kind is None else z((1, 8, jspec.unet.context_dim))
+        fs_args = (img, z((1, lat, lat, jspec.embed_dim))) if jspec.fs_kind == "kl" else (img,)
+        parts = {"unet": (core.unet, jcore.unet, (z((1, lat, lat, ch)), z((1,), jnp.int32), ctx)),
+                 "first_stage": (core.first_stage, jcore.first_stage, fs_args)}
+        if jspec.cond_kind is not None:
+            parts["cond"] = (core.cond_model, jcore.cond_model, (z((1, 8), jnp.int32),))
+        return parts
+    if name == "ldm_bert":
+        cfg = LatentCoreSpec.ldm_text2img_large().cond_cfg
+        with torch.device("meta"):
+            bert = te.LDMBertEncoder(cfg)
+        jbert = jte.LDMBertEncoder(JSpec.ldm_text2img_large().cond_cfg)
+        return {"cond": (bert, jbert, (z((1, 77), jnp.int32),))}
+    spec = zoo.PIXEL_ZOO[name]
+    with torch.device("meta"):
+        unet = zoo.build_pixel_model(spec)
+    r = spec.resolution
+    return {"unet": (unet, jzoo.build_pixel_model(jzoo.PIXEL_ZOO[name]),
+                     (z((1, r, r, 3)), z((1,), jnp.int32)))}
+
+
+@pytest.mark.parametrize("name", ["sd_v1", "ldm_bert", "ldm_ffhq256", "afhqdog256", "celeba256"])
+def test_full_width_layouts_equal_jax(name):
+    """Where the Flax module boundaries fall comes from the port's module
+    tree, not its dotted names; at full width every path and shape must
+    be JAX's."""
+    for part, (module, jmodule, args) in _full_width(name).items():
+        assert flax_layout(module) == _jax_shapes(jmodule, *args), (name, part)

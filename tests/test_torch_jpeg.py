@@ -1,8 +1,9 @@
-"""The port's baseline JPEG decoder (``data/jpeg.py``) against Pillow's
+"""The port's JPEG decoder (``data/jpeg.py``) against Pillow's
 libjpeg-turbo: 0 values differ, in every mode it reads, at qualities 50,
-75 and 95; the committed fixtures that ``chip_smoke.py`` decodes on the
-card's host against the decode stored beside them; the port's
-``load_image`` against the JAX package's loader; the files it refuses.
+75 and 95, baseline and progressive, CMYK and YCCK; the committed fixtures
+that ``chip_smoke.py`` decodes on the card's host against the decode
+stored beside them; the port's ``load_image`` against the JAX package's
+loader; the files it refuses.
 
 Pillow writes baseline 4:2:0, 4:4:4, 4:2:2, greyscale and restart-marker
 files.  The layouts it cannot write (4:4:0, one scan per component, RGB
@@ -257,6 +258,76 @@ def test_decode_equals_pillow(mode, quality):
         assert int((got != want).sum()) == 0, (mode, quality, h, w)
 
 
+PROGRESSIVE = {   # name -> (channels, Pillow save options)
+    "4:2:0": (3, dict(subsampling=2)),
+    "4:4:4": (3, dict(subsampling=0)),
+    "4:2:2": (3, dict(subsampling=1)),
+    "grey": (1, {}),
+    "restart": (3, dict(subsampling=2, restart_marker_blocks=1)),
+}
+
+
+@pytest.mark.parametrize("quality", QUALITIES)
+@pytest.mark.parametrize("mode", list(PROGRESSIVE))
+def test_progressive_decode_equals_pillow(mode, quality):
+    """libjpeg's progression (DC first and refinement scans, AC spectral
+    bands with end-of-band runs, AC refinement scans), 0 values apart, at
+    the sizes of the baseline test."""
+    channels, opts = PROGRESSIVE[mode]
+    for i, (h, w) in enumerate(SIZES):
+        data = pillow_jpeg(smooth(20 * quality + i, h, w, channels), quality=quality,
+                           progressive=True, **opts)
+        assert b"\xff\xc2" in data
+        got = jpeg.decode_jpeg(data)
+        assert got.shape == (h, w, channels)
+        np.testing.assert_array_equal(got, pillow_decode(data))
+
+
+def _cmyk_jpeg(img: np.ndarray, quality: int, transform: int = 0) -> bytes:
+    """Pillow's CMYK JPEG (stored inverted, an Adobe marker with transform
+    0); transform 2 makes libjpeg read the same data as YCCK."""
+    buf = io.BytesIO()
+    Image.fromarray(img, "CMYK").save(buf, "JPEG", quality=quality)
+    data = buf.getvalue()
+    i = data.index(b"\xff\xee") + 4 + 11
+    return data[:i] + bytes([transform]) + data[i + 1:]
+
+
+@pytest.mark.parametrize("quality", QUALITIES)
+@pytest.mark.parametrize("transform", [0, 2], ids=["cmyk", "ycck"])
+def test_four_component_decode_equals_pillow(transform, quality):
+    """``decode_jpeg`` is Pillow's CMYK mode value for value, and
+    ``load_image`` its ``convert("RGB")`` (``pil_loader``), 0 apart."""
+    for i, (h, w) in enumerate(SIZES):
+        data = _cmyk_jpeg(smooth(30 * quality + i, h, w, 4), quality, transform)
+        got = jpeg.decode_jpeg(data)
+        assert got.shape == (h, w, 4)
+        np.testing.assert_array_equal(got, pillow_decode(data))
+        with Image.open(io.BytesIO(data)) as im:
+            np.testing.assert_array_equal(jpeg.cmyk_to_rgb(got), np.asarray(im.convert("RGB")))
+
+
+def test_cmyk_to_rgb_is_pillows_formula():
+    """(C, M, Y, K) = (200, 0, 0, 100) gives R = 33, not 255 - min(255, C + K)."""
+    cmyk = np.random.default_rng(5).integers(0, 256, (64, 64, 4)).astype(np.uint8)
+    cmyk[0, 0] = (200, 0, 0, 100)
+    got = jpeg.cmyk_to_rgb(cmyk)
+    assert tuple(got[0, 0]) == (33, 155, 155)
+    np.testing.assert_array_equal(got, np.asarray(Image.fromarray(cmyk, "CMYK").convert("RGB")))
+
+
+@pytest.mark.parametrize("kind", ["progressive", "cmyk", "ycck"])
+def test_progressive_and_cmyk_files_match_the_jax_loader(tmp_path, kind):
+    path = str(tmp_path / "img.jpg")
+    img = smooth(9, 45, 61, 4 if kind != "progressive" else 3)
+    with open(path, "wb") as f:
+        f.write(pillow_jpeg(img, quality=85, progressive=True) if kind == "progressive"
+                else _cmyk_jpeg(img, 85, 2 if kind == "ycck" else 0))
+    got = transforms.load_image(path)
+    assert got.shape == (45, 61, 3)
+    np.testing.assert_array_equal(got, np.asarray(pil_loader(path)))
+
+
 @pytest.mark.parametrize("subsampling", [0, 1, 2])
 def test_decode_equals_pillow_at_512(subsampling):
     """A 512 px image of the AFHQ release's size, every Pillow sampling."""
@@ -309,6 +380,12 @@ def _patched(data: bytes, offset_from_sof: int, value: int, sof=b"\xff\xc0") -> 
     return data[:i + offset_from_sof] + bytes([value]) + data[i + offset_from_sof + 1:]
 
 
+def _progression_cut(data: bytes, scans: int) -> bytes:
+    """A progressive file cut after its first ``scans`` scans (EOI added)."""
+    starts = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    return data[:starts[scans]] + b"\xff\xd9"
+
+
 @pytest.mark.parametrize("kind,match", [
     ("progressive", "progressive"),
     ("cmyk", "CMYK"),
@@ -321,22 +398,20 @@ def _patched(data: bytes, offset_from_sof: int, value: int, sof=b"\xff\xc0") -> 
 def test_unsupported_files_raise_naming_what_they_are(tmp_path, kind, match):
     img = smooth(5, 24, 24)
     base = pillow_jpeg(img, quality=75)
-    if kind == "progressive":
-        data = pillow_jpeg(img, quality=75, progressive=True)
-    elif kind == "cmyk":
+    if kind == "progressive":       # refinement-incomplete: libjpeg would smooth it
+        data = _progression_cut(pillow_jpeg(img, quality=75, progressive=True), 4)
+    elif kind == "cmyk":            # two components: Pillow has no mode for it
         buf = io.BytesIO()
         Image.fromarray(img).convert("CMYK").save(buf, "JPEG")
-        data = buf.getvalue()
+        data = _patched(buf.getvalue(), 9, 2)
     elif kind == "arithmetic":
         data = _patched(base, 1, 0xC9)
     elif kind == "12-bit":
         data = _patched(base, 4, 12)
     elif kind == "lossless":
         data = _patched(base, 1, 0xC3)
-    elif kind == "gif":
-        buf = io.BytesIO()
-        Image.fromarray(img).save(buf, "GIF")
-        data = buf.getvalue()
+    elif kind == "gif":             # a GIF without an image
+        data = b"GIF89a\x18\x00\x18\x00\x00\x00\x00;"
     else:
         data = base[:len(base) // 2]
     path = str(tmp_path / ("x.gif" if kind == "gif" else "x.jpg"))

@@ -622,9 +622,13 @@ def test_afhq_preprocessors_match_jax(task, split, tmp_path, monkeypatch):
     got = load_afhq(str(tmp_path / "cat.jpg"))
     assert got.shape == want.shape == (256, 256, 3)
     assert np.abs(got - want).max() <= 1.0 / 255 + 1e-7
-    Image.fromarray(np.zeros((512, 512, 3), np.uint8)).save(tmp_path / "cat.gif")
-    with pytest.raises(ValueError, match="GIF"):
-        load_afhq(str(tmp_path / "cat.gif"))
+    # a GIF in the folder (the loader lists them): its first frame, as the
+    # JAX loader reads it
+    Image.open(tmp_path / "cat.jpg").quantize(64).save(tmp_path / "cat.gif")
+    want = to_array(jresize(pil_loader(str(tmp_path / "cat.gif")), 256, "bilinear"))
+    got = load_afhq(str(tmp_path / "cat.gif"))
+    assert got.shape == want.shape == (256, 256, 3)
+    assert np.abs(got - want).max() <= 1.0 / 255 + 1e-7
 
 
 def _translate_to_dog(mod, images, out_dir, model):
