@@ -151,6 +151,24 @@ Phases (each prints its results; any failure exits non-zero):
    ``Driver.load_model`` into another core bit for bit; the file's bytes
    and the write and read seconds on the host.
 
+Graphs: on the card every pipeline's UNet call replays a CUDA graph
+captured at its first call (``runtime.graphs``), the kernels inside, so
+the phases above run their chains graphed.  Phases 4 (the SD translate), 6
+(the ensemble in chunks of 3, a padded tail), 8 (fast mode's key and reuse
+calls), 9 (LDM text2img-large), 10 (the FFHQ LDM's encode, replay and
+refine), 11 (the AFHQ pixel chains, TF32 convolutions) and 12 (the guided
+chain's UNet calls, and the plain-inversion pipeline) each run a cut chain
+of their path (10 steps) at full width graphed, eager, graphed, from the
+same inputs and noise, and fail unless every UNet call of the last run was
+a replay and the graphed results equal the eager ones bit for bit (the
+guided chain at weight 0.05 within 1e-4 of max|z0|: its energy's backward
+adds with atomics, so two eager chains differ too; at weight 0, bit for
+bit); each prints host ms per UNet call graphed and eager, each graph's
+replay ms, the card's busy share (the replays' device time over the
+chain's host time), capture seconds and peak memory.  UNet calls that
+compare a kernel with plain attention, and the probes that time one call,
+use the eager entry points (``apply_model_eager``, ``_model_fn_eager``).
+
 Each phase prints its peak device memory.  The last three lines of output
 are the card's name and power limit, the kernels' JSON record and the
 result ``{"ok": true, "device": {...}}``.
@@ -227,9 +245,21 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
+# the device memory peak since the last reset_peak, kept across the resets
+# that graphed_chain makes to read each of its runs' own peak
+_PEAK_HELD = [0]
+
+
+def reset_peak(torch) -> None:
+    """Start a new peak of device memory."""
+    _PEAK_HELD[0] = 0
+    torch.cuda.reset_peak_memory_stats()
+
+
 def say_peak(torch, phase: str) -> None:
-    """The phase's peak device memory (since its last reset)."""
-    say(f"{phase}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    """The phase's peak device memory (since its last reset_peak)."""
+    peak = max(_PEAK_HELD[0], torch.cuda.max_memory_allocated())
+    say(f"{phase}: peak device memory {peak / 2**30:.2f} GiB")
 
 
 def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -249,6 +279,116 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
+
+
+def flat_tensors(out) -> list:
+    """A chain's result (a tensor, or nested lists and tuples of them) as a
+    flat list."""
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in flat_tensors(o)]
+    return [out]
+
+
+def rel_diff(torch, got: list, want: list) -> float:
+    """max |got - want| / max |want| over paired tensors."""
+    num = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    return num / max(float(b.abs().max()) for b in want)
+
+
+def graphed_chain(torch, label, target, names, run, calls, rel_bound=None) -> dict:
+    """A chain whose UNet calls replay CUDA graphs against the same chain
+    eager.  ``target`` (a core or a pixel pipeline) has the graphed model
+    entry points ``names`` (``apply_model``, ``apply_model_cached``,
+    ``_model_fn``), each with its ``*_eager`` twin that the eager run puts in
+    its place; ``run()`` builds the chain's model functions from them and
+    runs it on the same inputs and noise each time -> its result; ``calls``
+    is its UNet calls.  Runs graphed (a signature's first call warms up and
+    captures: set-up), eager, graphed again; fails unless the results are
+    equal bit for bit (the replay runs the eager call's kernels on the same
+    inputs, and the step arithmetic between calls is the same eager code)
+    or, with ``rel_bound``, within it of max|eager| (a chain that another
+    eager run does not repeat bit for bit: its spread is printed), and
+    every UNet call of the second graphed run was a replay.  Busy share:
+    the replays' device time (each graph's replay timed alone by CUDA
+    events) over the chain's host time."""
+    from cyclediffusion_tpu_torch.runtime.graphs import GraphedCall
+
+    graphed = [v for v in vars(target).values() if isinstance(v, GraphedCall)]
+
+    def captured():
+        return [c for g in graphed for c in g.graphs.values()]
+
+    def timed():
+        torch.cuda.synchronize()
+        _PEAK_HELD[0] = max(_PEAK_HELD[0], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return (flat_tensors(out), time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    known = {id(c) for c in captured()}
+    first, first_s, first_peak = timed()
+    new = [c for c in captured() if id(c) not in known]
+    for name in names:
+        setattr(target, name, getattr(target, name + "_eager"))
+    try:
+        eager, eager_s, eager_peak = timed()
+        spread = None if rel_bound is None else rel_diff(torch, timed()[0], eager)
+    finally:
+        for name in names:
+            delattr(target, name)
+    before = {id(c): c.replays for c in captured()}
+    again, graphed_s, _ = timed()
+    used = [(c, c.replays - before[id(c)]) for c in captured() if c.replays > before[id(c)]]
+    replays = sum(n for _, n in used)
+    if len(first) != len(eager) or len(again) != len(eager):
+        fail(f"{label}: the graphed chain gave {len(again)} tensors, the eager {len(eager)}")
+    rel = max(rel_diff(torch, first, eager), rel_diff(torch, again, eager))
+    if rel_bound is None:
+        if not all(torch.equal(a, e) and torch.equal(b, e)
+                   for a, b, e in zip(first, again, eager)):
+            fail(f"{label}: the graphed chain differs from the eager chain: {rel:.3e} of "
+                 "max|eager|")
+        agree = "bit for bit"
+    else:
+        if not rel <= rel_bound:
+            fail(f"{label}: the graphed chain differs from the eager chain by {rel:.3e} of "
+                 f"max|eager| (bound {rel_bound:.0e})")
+        agree = (f"to {rel:.3e} of max|eager| (bound {rel_bound:.0e}; two eager chains "
+                 f"differ by {spread:.3e})")
+    if replays != calls:
+        fail(f"{label}: {replays} graph replays in a chain of {calls} UNet calls")
+    replay_ms = [cuda_time_ms(c.replay, reps=10, warmup=1) for c, _ in used]
+    busy_ms = sum(n * ms for (_, n), ms in zip(used, replay_ms))
+    rec = {"path": label, "calls": calls, "graphed_ms_per_call": 1e3 * graphed_s / calls,
+           "eager_ms_per_call": 1e3 * eager_s / calls,
+           "replay_ms": replay_ms, "busy_graphed": busy_ms / (1e3 * graphed_s),
+           "busy_eager": busy_ms / (1e3 * eager_s),
+           "graphs": len(used), "launches_per_replay": [
+               {k: n for k, n in c.launches.items() if n} for c, _ in used],
+           "capture_s_this_run": sum(c.seconds for c in new),
+           "capture_s": sum(c.seconds for c, _ in used), "first_run_s": first_s,
+           "peak_graphed_gib": first_peak, "peak_eager_gib": eager_peak}
+    say(f"{label}: graphed chain == eager chain {agree} ({calls} UNet calls, all "
+        f"replays of {len(used)} graph(s)); host ms per UNet call graphed "
+        f"{rec['graphed_ms_per_call']:.3f}, eager {rec['eager_ms_per_call']:.3f}; replay ms "
+        f"{[round(ms, 3) for ms in replay_ms]}, kernel launches per replay "
+        f"{rec['launches_per_replay']}; card busy (UNet replays / chain) graphed "
+        f"{rec['busy_graphed']:.3f}, eager {rec['busy_eager']:.3f}; capture "
+        f"{rec['capture_s']:.3f} s for the graphs it replays ({rec['capture_s_this_run']:.3f} "
+        f"s in this run, whose first chain took {first_s:.3f} s); peak device memory "
+        f"graphed {first_peak:.2f} GiB, eager {eager_peak:.2f} GiB ({card_name()})")
+    return rec
 
 
 def work(name: str, shp, dtype_name: str):
@@ -395,7 +535,7 @@ def phase_kernels(torch, fa):
         ("linear", "projection", bf16, (16384, 960, 320, False)),
         ("linear", "ragged", bf16, (600, 256, 256, True)),
     ]
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     record = {}
     for name, label, dtype, shp in cases:
         if name == "flash_attention_packed":
@@ -499,14 +639,20 @@ def phase_slice(torch, fa, attention, HashTokenizer, LatentCoreSpec,
     src = ["a photo of a cat", "a painting of a house"]
     dst = ["a photo of a dog", "a painting of a castle"]
 
-    # warm-up: one UNet call per batch shape, off the counted run
+    # warm-up: one UNet call per batch shape, off the counted run; it
+    # captures the call's CUDA graph (set-up)
     x_warm = torch.zeros((4, 64, 64, 4), device="cuda")
     ctx = pipe.get_condition(src + dst)
     t_warm = torch.full((4,), 981, dtype=torch.int64, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     core.apply_model(x_warm, t_warm, ctx)
     torch.cuda.synchronize()
+    say(f"slice: first UNet call at batch 4 (the eager warm-up and the graph's capture) "
+        f"{time.perf_counter() - t0:.3f} s, the capture "
+        f"{core._graphed_apply.capture_seconds:.3f} s: set-up, once per process")
 
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     unet_calls = [0]
     apply_model = core.apply_model
 
@@ -530,7 +676,9 @@ def phase_slice(torch, fa, attention, HashTokenizer, LatentCoreSpec,
 
     say(f"slice: 2 requests in {t_all:.3f} s (encode {t_enc:.3f} s, generate "
         f"{t_all - t_enc:.3f} s) = {t_all / 2:.3f} s/request; {unet_calls[0]} UNet "
-        f"calls; peak device memory {peak / 2**30:.2f} GiB")
+        f"calls, graph replays, {1e3 * t_all / unet_calls[0]:.3f} ms of host time per "
+        f"call with the steps and decodes around them; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
     if len(out) != 1:
         fail(f"expected 1 image batch (1 z x 1 decoder scale), got {len(out)}")
     img = out[0]
@@ -557,13 +705,27 @@ def phase_slice(torch, fa, attention, HashTokenizer, LatentCoreSpec,
     # per-UNet-step time at the CFG dual batch of the 2 requests
     step_ms = cuda_time_ms(lambda: core.apply_model(x_warm, t_warm, ctx), reps=10)
     say(f"slice: UNet step (batch 4 = 2 requests x CFG pair, 64x64x4 latent) "
-        f"{step_ms:.3f} ms median")
+        f"{step_ms:.3f} ms median, graph-replayed (inputs copied in, eps copied out)")
+
+    # the translate chains cut to 10 steps, graphed against eager
+    cut = StochasticTextPipeline(core, tok, decoder_unconditional_guidance_scales=[5.0],
+                                 **dict(kw, custom_steps=10, white_box_steps=11))
+
+    def translate():
+        g = torch.Generator(device="cuda").manual_seed(3)
+        z = cut.encode(images, src, g)
+        return z, cut.generate(z, dst, g)
+
+    graphed_chain(torch, "graphs [SD translate]", core, ("apply_model",), translate, 20)
 
     # one UNet call with the kernels against the same call on plain attention
+    # (eager both: a graph replays the kernels it captured)
     x_chk = torch.randn((4, 64, 64, 4), generator=gen, device="cuda")
-    eps_kernel = core.apply_model(x_chk, t_warm, ctx)
+    eps_kernel = core.apply_model_eager(x_chk, t_warm, ctx)
+    if not torch.equal(core.apply_model(x_chk, t_warm, ctx), eps_kernel):
+        fail("slice: the graphed UNet call differs from its eager call")
     with attention("plain"):
-        eps_plain = core.apply_model(x_chk, t_warm, ctx)
+        eps_plain = core.apply_model_eager(x_chk, t_warm, ctx)
     rel = float((eps_kernel - eps_plain).abs().max() / eps_plain.abs().max())
     say(f"slice: UNet eps with kernels vs plain attention: max abs diff / max|eps| "
         f"= {rel:.3e} (bound {UNET_REL_BOUND:.0e})")
@@ -761,7 +923,10 @@ def launches_per_call(spec, attention_route, reuse: bool = False) -> dict:
 
 
 def phase_ensemble(torch, fa, Args, TextUnsupervisedTranslation, num_recovered_eps):
-    """Phase 6: one image through the task model's encode + ranked forward."""
+    """Phase 6: one image through the task model's encode + ranked forward;
+    the chains with a padded tail chunk, graphed against eager."""
+    from cyclediffusion_tpu_torch.pipelines.latent_text import StochasticTextPipeline
+
     gan = Args(gan_type="SDStochasticText", source_model_type="sd-v1-4.ckpt",
                custom_steps=STEPS, white_box_steps=STEPS + 1,
                eta=ETA, encoder_unconditional_guidance_scales=[1],
@@ -821,7 +986,7 @@ def phase_ensemble(torch, fa, Args, TextUnsupervisedTranslation, num_recovered_e
     core.apply_model, pipe.generate, pipe.rank, pipe.forward = (
         counted, spy_generate, spy_rank, spy_forward)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     fa.reset_launch_counts()
     t0 = time.perf_counter()
     (_, img), _, _ = model.forward([0], image.cpu().numpy(), src, dst)
@@ -876,6 +1041,26 @@ def phase_ensemble(torch, fa, Args, TextUnsupervisedTranslation, num_recovered_e
              f"decodes to {combo}")
     say(f"ensemble: forward's winning combo (enc_scale, dec_scale, skip) "
         f"{seen['combos'][0]} decodes back to candidate {best}")
+
+    # the chains cut to 10 steps with chunks of 3: each skip's 4 decode
+    # candidates run as 3 + 1, the 1 padded to 3, so one graph at batch 6
+    # (3 candidates x the CFG pair) serves both chunks and one at batch 4
+    # the encode chains: 2 graphs in all
+    cut = StochasticTextPipeline(
+        core, pipe.tokenizer, dclip, custom_steps=10, eta=ETA, white_box_steps=11,
+        skip_steps=[2, 5], encoder_unconditional_guidance_scales=[1],
+        decoder_unconditional_guidance_scales=[1, 5], n_trials=2, candidate_chunk=3)
+
+    def ensemble():
+        g = torch.Generator(device="cuda").manual_seed(8)
+        z = cut.encode(image, src, g)
+        return z, cut.generate(z, dst, g)
+
+    rec = graphed_chain(torch, "graphs [ensemble, padded tail]", core, ("apply_model",),
+                        ensemble, expected_unet_calls(cut, num_recovered_eps))
+    if rec["graphs"] != 2:
+        fail(f"ensemble: the cut chains replayed {rec['graphs']} graphs, expected 2 (the "
+             f"tail chunk padded to the chunk's batch)")
     return counts
 
 
@@ -975,7 +1160,7 @@ def phase_cli(torch, fa, ref_core, root, num_recovered_eps, cfg_name, head_dims,
     TextUnsupervisedTranslation.forward = spy_forward
     fa.flash_attention_bhtd = spy_bhtd
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     fa.reset_launch_counts()
     t0 = time.perf_counter()
     try:
@@ -1080,7 +1265,7 @@ def phase_fast(torch, fa, core, StochasticTextPipeline, HashTokenizer, num_recov
         profile_kinds,
     )
 
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     spec = core.spec
     tok = HashTokenizer(49408, 77)
     kw = dict(custom_steps=STEPS, eta=ETA, white_box_steps=STEPS + 1, skip_steps=[0],
@@ -1171,9 +1356,24 @@ def phase_fast(torch, fa, core, StochasticTextPipeline, HashTokenizer, num_recov
         f"{sum(by_mode['fast']) / sum(by_mode['exact']):.4f}; images max|fast - exact| / "
         f"max|exact| = {rel:.4f} (a reading: random weights)")
 
+    # the fast translate's chains cut to 10 steps, key and reuse calls
+    # graphed, against eager
+    cut = StochasticTextPipeline(core, tok, fast_key_every=FAST_KEY_EVERY,
+                                 **dict(kw, custom_steps=10, white_box_steps=11))
+
+    def translate_cut():
+        g = torch.Generator(device="cuda").manual_seed(32)
+        z = cut.encode(images, src, g)
+        return z, cut.generate(z, dst, g)
+
+    rec = graphed_chain(torch, "graphs [SD fast mode, key and reuse]", core,
+                        ("apply_model_cached",), translate_cut, 20)
+    if rec["graphs"] != 2:
+        fail(f"fast: the cut chains replayed {rec['graphs']} graphs, expected 2 (key, reuse)")
+
     # a full and a reuse UNet call at batch 4: eager, graph replay, profile
-    steps = {"full": lambda: core.apply_model(x4, t4, ctx4),
-             "reuse": lambda: core.apply_model_cached(x4, t4, ctx4, cache)[0]}
+    steps = {"full": lambda: core.apply_model_eager(x4, t4, ctx4),
+             "reuse": lambda: core.apply_model_cached_eager(x4, t4, ctx4, cache)[0]}
     for kind, step in steps.items():
         host, dev = eager_ms(step, 10)
         graph, out = graph_of(step)
@@ -1197,7 +1397,7 @@ def write_ldm_assets(torch, root):
     from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
     from cyclediffusion_tpu_torch.tools import sd_assets
 
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     t0 = time.perf_counter()
     core = LatentDiffusionCore.random_init(LatentCoreSpec.ldm_text2img_large(), seed=0,
                                            device="cuda", dtype=torch.bfloat16)
@@ -1223,10 +1423,12 @@ def write_ldm_assets(torch, root):
 
 
 def phase_ldm(torch, fa, root, num_recovered_eps):
-    """Phase 9: LDM text2img-large through the CLI, then its batch-4 UNet
-    step beside SD v1's (a fresh seed-0 core), alternating -> the CLI run's
-    launch counts."""
+    """Phase 9: LDM text2img-large through the CLI, its chains graphed
+    against eager, then its batch-4 UNet step beside SD v1's (a fresh seed-0
+    core), alternating -> the CLI run's launch counts."""
     from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
+    from cyclediffusion_tpu_torch.pipelines.latent_text import StochasticTextPipeline
+    from cyclediffusion_tpu_torch.text import HashTokenizer
     from cyclediffusion_tpu_torch.tools.step_probe import (
         alternating,
         eager_ms,
@@ -1239,6 +1441,28 @@ def phase_ldm(torch, fa, root, num_recovered_eps):
                              (40,), "ldm_cli")
     del ref_core
     torch.cuda.empty_cache()
+
+    # the CLI core's translate chains cut to 10 steps, graphed against eager
+    spec = core.spec
+    cut = StochasticTextPipeline(
+        core, HashTokenizer(spec.cond_cfg.vocab_size, spec.context_length),
+        custom_steps=10, eta=ETA, white_box_steps=11, skip_steps=[0],
+        encoder_unconditional_guidance_scales=[1.0],
+        decoder_unconditional_guidance_scales=[5.0], n_trials=1)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    small = torch.rand((2, 3, 8, 8), generator=gen, device="cuda")
+    images = torch.nn.functional.interpolate(small, size=(256, 256), mode="bilinear",
+                                             align_corners=False).permute(0, 2, 3, 1)
+    src = ["a photo of a cat", "a painting of a house"]
+    dst = ["a photo of a dog", "a painting of a castle"]
+
+    def translate():
+        g = torch.Generator(device="cuda").manual_seed(43)
+        z = cut.encode(images, src, g)
+        return z, cut.generate(z, dst, g)
+
+    graphed_chain(torch, "graphs [LDM text2img-large translate]", core, ("apply_model",),
+                  translate, 20)
     cores = {"ldm": core, "sd": LatentDiffusionCore.random_init(
         LatentCoreSpec.sd_v1(), seed=0, device="cuda", dtype=torch.bfloat16)}
     gen = torch.Generator(device="cuda").manual_seed(41)
@@ -1250,7 +1474,7 @@ def phase_ldm(torch, fa, root, num_recovered_eps):
         t = torch.full((4,), 981, dtype=torch.int64, device="cuda")
         ctx = torch.randn((4, spec.context_length, spec.unet.context_dim), generator=gen,
                           device="cuda")
-        step = functools.partial(c.apply_model, x, t, ctx)
+        step = functools.partial(c.apply_model_eager, x, t, ctx)
         graph, out = graph_of(step)
         graph.replay()
         torch.cuda.synchronize()
@@ -1297,7 +1521,7 @@ def write_unpaired_assets(torch, root):
     from cyclediffusion_tpu_torch.pipelines.latent import LatentDiffusionCore
     from cyclediffusion_tpu_torch.tools import ldm_assets
 
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     cores = {}
     for model_type, seed in UNPAIRED_MODELS.items():
         t0 = time.perf_counter()
@@ -1396,7 +1620,7 @@ def phase_unpaired(torch, fa, root, num_recovered_eps):
     UnsupervisedTranslation.forward = spy_forward
     fa.flash_attention_bhtd = spy_bhtd
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     fa.reset_launch_counts()
     t0 = time.perf_counter()
     try:
@@ -1460,12 +1684,25 @@ def phase_unpaired(torch, fa, root, num_recovered_eps):
     if metrics.get("eval_samples") != UNPAIRED_SAMPLES:
         fail(f"unpaired: main() returned {metrics}")
 
-    # the batch-3 UNet step of the loaded FFHQ core, eager and graph-replayed
+    # the loaded FFHQ core's chains cut to 10 steps and refine 4, graphed
+    # against eager
     core = seen["cores"][0]
+    cut = LatentDiffStochasticPipeline(core, custom_steps=10, eta=ETA, white_box_steps=11,
+                                       refine_steps=4)
+
+    def translate():
+        g = torch.Generator(device="cuda").manual_seed(63)
+        z = cut.encode(orig.to("cuda", torch.float32), g)
+        return z, cut.generate(z, g)
+
+    graphed_chain(torch, "graphs [FFHQ LDM encode, replay, refine]", core, ("apply_model",),
+                  translate, 10 + 10 + 4)
+
+    # the batch-3 UNet step of the loaded FFHQ core, eager and graph-replayed
     gen = torch.Generator(device="cuda").manual_seed(61)
     x = torch.randn((UNPAIRED_SAMPLES, 64, 64, 3), generator=gen, device="cuda")
     t = torch.full((UNPAIRED_SAMPLES,), 981, dtype=torch.int64, device="cuda")
-    step = functools.partial(core.apply_model, x, t)
+    step = functools.partial(core.apply_model_eager, x, t)
     graph, out = graph_of(step)
     graph.replay()
     torch.cuda.synchronize()
@@ -1476,7 +1713,7 @@ def phase_unpaired(torch, fa, root, num_recovered_eps):
         rep = graph_ms(graph, 10)
         say(f"unpaired: FFHQ UNet step at batch {UNPAIRED_SAMPLES}: eager host {host:.3f} "
             f"ms, device span {dev:.3f} ms; graph replay {rep:.3f} ms")
-    del graph, out, step, core, seen, written, pipe
+    del graph, out, step, core, seen, written, pipe, cut
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1672,7 +1909,7 @@ def phase_afhq(torch, fa, root):
     from cyclediffusion_tpu_torch.tools.pixel_probe import unet_flops
     from cyclediffusion_tpu_torch.tools.step_probe import eager_ms, graph_ms, graph_of
 
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     with open(os.path.join(config_root(), AFHQ_CFG)) as f:
         cfg_text = cut_config(f.read(), AFHQ_CUTS, AFHQ_ADDS)
     cfg = os.path.join(root, "afhq.cfg")
@@ -1820,6 +2057,20 @@ def phase_afhq(torch, fa, root):
     if not traj <= PIXEL_TRAJECTORY_BOUND:
         fail(f"afhq: the replay left the encode trajectory by {traj}")
 
+    # the chains cut to 10 steps and refine 4, graphed against eager, under
+    # the CLI's flags (TF32 convolutions)
+    cut = DDPMDDIMPipeline(src.spec, src.model, custom_steps=1000, es_steps=10, eta=0.1,
+                           refine_steps=4)
+
+    def translate():
+        g = torch.Generator(device="cuda").manual_seed(74)
+        return cut.generate(cut.encode(orig, g), g)
+
+    with torch_default_backends(torch):
+        graphed_chain(torch, "graphs [AFHQ pixel encode, replay, refine]", cut,
+                      ("_model_fn",), translate, 9 + 10 + 4)
+    del cut
+
     # the batch-2 UNet call, eager and graph-replayed: fp32 (TF32 off), fp32
     # with cuDNN's TF32 convolutions (the CLI's default), bf16
     flops = unet_flops(src.model, AFHQ_SAMPLES)
@@ -1859,6 +2110,12 @@ GUIDED_WEIGHT = 0.05
 # weight 0 against the plain replay, max abs diff / max|z0|: the same UNet
 # calls and steps, the shift 0 * grad exactly 0, so bit for bit is expected
 WEIGHT0_REL_BOUND = 1e-6
+# the guided chain (weight 0.05, 10 steps) graphed against eager, max abs
+# diff / max|z0|: the energy's backward through CLIP's antialiased bicubic
+# resize (upsample_bicubic2d_aa_backward) adds with atomics, so two eager
+# chains already differ (~2e-7 of max|z0| on the H100, printed beside); at
+# weight 0 the shift is exactly 0 and the chains agree bit for bit
+GUIDED_GRAPH_REL_BOUND = 1e-4
 # the energy's gradient along a seeded unit direction against the central
 # difference at a step of FD_STEP * |p|, fp32 with TF32 off.  The step
 # trades the fp32 energy's rounding (divided by the step) against the clamps
@@ -1910,14 +2167,15 @@ def phase_guided(torch, fa, attention):
     from cyclediffusion_tpu_torch.pipelines.factory import LATENT_MODELS
     from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
     from cyclediffusion_tpu_torch.pipelines.latentdiff_plain import LatentDiffPlainPipeline
-    from cyclediffusion_tpu_torch.samplers.guided import energy_grad
+    from cyclediffusion_tpu_torch.ops.cfg import cfg_model_fn
+    from cyclediffusion_tpu_torch.samplers.guided import energy_grad, energy_guided_decode
     from cyclediffusion_tpu_torch.text import HashTokenizer
     from cyclediffusion_tpu_torch.tools import guided_probe
 
     cudnn = torch.backends.cudnn
     torch.backends.cuda.matmul.allow_tf32 = cudnn.allow_tf32 = False
     cudnn.deterministic, cudnn.benchmark = True, False
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     spec, clip = LatentCoreSpec.sd_v1(), CLIPConfig.vit_b_32()
     t0 = time.perf_counter()
     g = guided_probe.build(spec, clip, steps=STEPS, device="cuda")
@@ -1957,7 +2215,7 @@ def phase_guided(torch, fa, attention):
         return model_fn(*a)
 
     g.model_fn = counted
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     times, out, counts = {"plain": [], "guided": []}, {}, {}
     for name in ("plain", "guided", "guided", "plain"):
         calls[0] = 0
@@ -1992,6 +2250,18 @@ def phase_guided(torch, fa, attention):
         f"{guided_s:.3f} s ({1e3 * guided_s / STEPS:.2f} ms/step), ratio "
         f"{guided_s / plain_s:.3f}; mean|dz0| {dz0:.4e}; peak device memory of the "
         f"chains {chains_peak:.2f} GiB")
+
+    # the guided chain cut to 10 steps, its UNet calls graphed, against eager
+    sched10 = g.core.make_ddim_schedule(10, guided_probe.ETA)
+
+    def guided_cut(weight):
+        model = cfg_model_fn(g.core.apply_model, g.uncond, g.cond, guided_probe.CFG_SCALE)
+        return energy_guided_decode(model, sched10, g.x_T, g.eps[:10], None, g.energy_fn,
+                                    weight)
+
+    for weight, bound in ((0.0, None), (GUIDED_WEIGHT, GUIDED_GRAPH_REL_BOUND)):
+        graphed_chain(torch, f"graphs [guided chain's UNet calls, weight {weight}]", g.core,
+                      ("apply_model",), functools.partial(guided_cut, weight), 10, bound)
 
     q = torch.randn((2, 4096, 320), device="cuda", dtype=torch.bfloat16, requires_grad=True)
     with torch.enable_grad():
@@ -2085,6 +2355,8 @@ def phase_guided(torch, fa, attention):
     for mode in ("kernels", "plain"):
         samples = []
         core_f.decode_first_stage = lambda s: samples.append(s) or decode(s)
+        if mode == "plain":       # a graph replays the kernels it captured
+            core_f.apply_model = core_f.apply_model_eager
         try:
             with attention(mode):
                 fa.reset_launch_counts()
@@ -2096,6 +2368,7 @@ def phase_guided(torch, fa, attention):
                 plain_counts[mode] = dict(fa.launch_counts)
         finally:
             del core_f.decode_first_stage
+            core_f.__dict__.pop("apply_model", None)
     want = {k: n * 2 * STEPS for k, n in launches_per_call(spec_f, fa.attention_route).items()}
     if plain_counts["kernels"] != {**dict.fromkeys(plain_counts["kernels"], 0), **want} or any(
             plain_counts["plain"].values()):
@@ -2120,7 +2393,15 @@ def phase_guided(torch, fa, attention):
              f"{rel_x}, {flips} codes, image {rel_i}")
     if not (torch.isfinite(zk).all() and torch.isfinite(ik).all()):
         fail("plain pipeline: non-finite x_T or image")
-    del core_f, pipe, runs
+    cut = LatentDiffPlainPipeline(core_f, custom_steps=10)
+
+    def invert_sample():
+        z = cut.encode(images)
+        return z, cut.generate(z)
+
+    graphed_chain(torch, "graphs [plain inversion and sampling, FFHQ LDM fp32]", core_f,
+                  ("apply_model",), invert_sample, 20)
+    del core_f, pipe, runs, cut
     gc.collect()
     torch.cuda.empty_cache()
     say_peak(torch, "guided")
@@ -2347,7 +2628,7 @@ def phase_data(torch, card: str) -> None:
     """Phase 13: the JPEG decoder on the card's host, the device transforms
     and the random-feature LPIPS on the card against the CPU, the YAML spec
     loaders; their times, beside the card's name and power limit."""
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     say(f"data: {card}")
     differ, ms, pillow = check_jpeg_fixtures()
     say(f"data: JPEG, {len(differ)} fixtures decoded on the host against Pillow {pillow}'s "
@@ -2724,7 +3005,7 @@ def check_optimisers(torch, work, card) -> None:
     for name, moved in (("adamw", 7), ("adafactor", 3)):
         gc.collect()
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak(torch)
         params = [0.02 * torch.randn(s, generator=gen, device="cuda") for s in shapes]
         for p in params:
             p.grad = torch.randn(p.shape, generator=gen, device="cuda")
@@ -2961,7 +3242,7 @@ def phase_inputs(torch, fa, root, card, num_recovered_eps) -> dict:
     from cyclediffusion_tpu_torch.text import CLIPBPETokenizer
     from cyclediffusion_tpu_torch.tools import sd_assets
 
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     say(f"inputs: {card}")
     # (a)
     differ, ms, pillow = check_image_fixtures()
@@ -3105,10 +3386,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
+    card = card_name()
     say(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     say(f"nvidia-smi: {card}")

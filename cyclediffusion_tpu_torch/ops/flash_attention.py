@@ -25,7 +25,9 @@ Each wrapper takes its plain PyTorch version (:func:`attention_reference`,
 :func:`fused_self_attention_reference`, :func:`linear_reference`) for tensors
 on the CPU, and only there: for a CUDA tensor it launches its kernel or
 raises.  Each call of K1-K4 that launches adds one to the wrapper's entry in
-:data:`launch_counts` (:func:`linear`, a part of K3/K4, counts none).
+:data:`launch_counts` (:func:`linear`, a part of K3/K4, counts none); a
+call captured into a CUDA graph launches nothing, and each replay of the
+graph adds what its capture counted (``runtime.graphs``).
 None of them has a backward: in grad mode each refuses an input that
 requires a gradient, on the CPU too.
 
@@ -62,7 +64,8 @@ LINEAR_MAX_K = 448
 MIN_FLASH_TOKENS = 1024
 
 # kernel launches per wrapper since the last reset (plain-version calls on
-# CPU tensors are not launches and do not count)
+# CPU tensors are not launches and do not count; runtime.graphs takes a
+# capture's counts back out and adds them at each replay)
 launch_counts = {"flash_attention_packed": 0, "flash_attention_bhtd": 0,
                  "qout_self_attention_block": 0, "fused_self_attention_block": 0}
 

@@ -90,9 +90,9 @@ def _direct_weight_readers(module: nn.Module):
 def shard_params_tp(mesh, module: nn.Module, min_size: int = 512) -> int:
     """Shard ``module`` in place over the mesh's ``model`` dimension by
     :func:`tp_param_specs` -> the number of parameters sharded (biases not
-    counted).  Raises for a picked parameter that no layer here can shard
-    (a raw parameter, a grouped convolution, a weight its parent reads
-    directly)."""
+    counted); :func:`is_sharded` then reads True.  Raises for a picked
+    parameter that no layer here can shard (a raw parameter, a grouped
+    convolution, a weight its parent reads directly)."""
     n_model, rank = mesh_extent(mesh, "model"), mesh.get_local_rank("model")
     group = mesh.get_group("model")
     specs = tp_param_specs(module, n_model, min_size)
@@ -126,4 +126,12 @@ def shard_params_tp(mesh, module: nn.Module, min_size: int = 512) -> int:
         mod.register_forward_hook(
             lambda _m, _inputs, out, dim=out_dim: all_gather_cat(out, group, dim))
         sharded += 1
+    module._tp_sharded = sharded > 0
     return sharded
+
+
+def is_sharded(module: nn.Module) -> bool:
+    """Whether :func:`shard_params_tp` sharded a layer of ``module``: its
+    all-gathers then run in the forward, through the host under gloo, and no
+    CUDA graph can hold them."""
+    return getattr(module, "_tp_sharded", False)

@@ -15,11 +15,13 @@ shipped eta), which amplifies any error in the model's eps.  Its
 convolutions then follow PyTorch's global flags: TF32 on the card by
 default (``torch.backends.cudnn.allow_tf32``), which the pipeline leaves
 as they are.  The sampler around it is fp32.  Each call builds its chain
-anew, so any batch size runs (the task model's batches are ragged).
+anew, so any batch size runs (the task model's batches are ragged); on the
+card each batch size is one more captured graph.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -34,7 +36,12 @@ from cyclediffusion_tpu_torch.pipelines.zoo import (
     init_random_params,
     load_pixel_params,
 )
+from cyclediffusion_tpu_torch.runtime import graphs
 from cyclediffusion_tpu_torch.samplers import pixel_encode, pixel_generate
+
+
+def _pixel_eps(model, dtype, x, t):
+    return model(x.to(dtype), t).float()
 
 
 class DDPMDDIMPipeline:
@@ -54,6 +61,7 @@ class DDPMDDIMPipeline:
         self.device = resolve_device(device)
         self.dtype = dtype
         self.model = model.to(self.device, dtype).eval().requires_grad_(False)
+        self._graphed = graphs.GraphedCall(functools.partial(_pixel_eps, self.model, dtype))
         self.sample_type = sample_type
         self.custom_steps = custom_steps
         self.es_steps = es_steps
@@ -107,9 +115,15 @@ class DDPMDDIMPipeline:
 
     # ---- the chain ------------------------------------------------------ #
 
-    @torch.no_grad()
     def _model_fn(self, x, t):
-        return self.model(x.to(self.dtype), t).float()
+        """The UNet call of both chains: replayed as a CUDA graph of
+        :meth:`_model_fn_eager` on a CUDA device (``runtime.graphs``), that
+        call on the CPU."""
+        return self._graphed(x, t)
+
+    @torch.no_grad()
+    def _model_fn_eager(self, x, t):
+        return _pixel_eps(self.model, self.dtype, x, t)
 
     def _kw(self):
         return dict(sample_type=self.sample_type, eta=self.eta,

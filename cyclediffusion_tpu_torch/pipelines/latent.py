@@ -13,6 +13,7 @@ fp32, and the VQ codebook lookup runs in fp32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -38,7 +39,8 @@ from cyclediffusion_tpu_torch.models.text_encoders import (
 from cyclediffusion_tpu_torch.models.unet_gd import GDUNet, GDUNetConfig
 from cyclediffusion_tpu_torch.ops import schedule
 from cyclediffusion_tpu_torch.ops.fold import SplitInputParams, split_first_stage_apply
-from cyclediffusion_tpu_torch.runtime import yaml_subset
+from cyclediffusion_tpu_torch.parallel import tp
+from cyclediffusion_tpu_torch.runtime import graphs, yaml_subset
 from cyclediffusion_tpu_torch.samplers import (
     ddim_decode,
     ddim_decode_cached,
@@ -211,6 +213,24 @@ class LatentCoreSpec:
         return cfg.max_positions if self.cond_kind == "clip" else cfg.max_seq_len
 
 
+def _ctx(context, dtype):
+    return None if context is None else context.to(dtype)
+
+
+def _unet_eps(unet, dtype, x, t, context):
+    return unet(x.to(dtype), t, _ctx(context, dtype)).float()
+
+
+def _unet_cached(unet, dtype, x, t, context, encoder_cache):
+    eps, cache = unet(x.to(dtype), t, _ctx(context, dtype), encoder_cache=encoder_cache,
+                      return_cache=True)
+    return eps.float(), cache
+
+
+def _unet_reuse(unet, dtype, x, t, context, encoder_cache):
+    return _unet_cached(unet, dtype, x, t, context, encoder_cache)[0]
+
+
 class LatentDiffusionCore:
     """The model's modules (UNet, first stage and, for a text model, the
     conditioning model) on one device, in one dtype, frozen.
@@ -237,6 +257,15 @@ class LatentDiffusionCore:
                                    "bert": LDMBertEncoder}[spec.cond_kind](spec.cond_cfg)
         for m in self.modules():
             m.to(dtype=dtype).eval().requires_grad_(False)
+        # the UNet's calls as CUDA graphs (functions of the UNet, not of the
+        # core, so that no cycle keeps a deleted core's memory alive)
+        pool = graphs.GraphPool()
+        self._graphed_apply = graphs.GraphedCall(
+            functools.partial(_unet_eps, self.unet, dtype), pool)
+        self._graphed_key = graphs.GraphedCall(
+            functools.partial(_unet_cached, self.unet, dtype), pool)
+        self._graphed_reuse = graphs.GraphedCall(
+            functools.partial(_unet_reuse, self.unet, dtype), pool)
 
     def modules(self):
         return tuple(m for _, m in self._named_modules())
@@ -327,21 +356,38 @@ class LatentDiffusionCore:
 
     # ---- model surface -------------------------------------------------- #
 
-    @torch.no_grad()
     def apply_model(self, x, t, context=None):
-        """fp32 NHWC latent -> fp32 eps, the UNet running in the core dtype."""
-        return self.unet(x.to(self.dtype), t, self._ctx(context)).float()
+        """fp32 NHWC latent -> fp32 eps, the UNet running in the core dtype.
+        On a CUDA device the call replays a CUDA graph of
+        :meth:`apply_model_eager` captured at the first call of each
+        signature (``runtime.graphs``); on the CPU it is that call.  A UNet
+        sharded by ``parallel.tp`` runs eagerly: its sharded layers
+        all-gather through the host, which a graph cannot hold."""
+        if tp.is_sharded(self.unet):
+            return self.apply_model_eager(x, t, context)
+        return self._graphed_apply(x, t, context)
 
     @torch.no_grad()
+    def apply_model_eager(self, x, t, context=None):
+        """:meth:`apply_model` as eager launches, never a graph."""
+        return _unet_eps(self.unet, self.dtype, x, t, context)
+
     def apply_model_cached(self, x, t, context=None, encoder_cache=None):
         """The fast mode's UNet call: ``(fp32 eps, cache)``; given a cache,
-        the decoder half alone runs on it (see ``GDUNet.forward``)."""
-        eps, cache = self.unet(x.to(self.dtype), t, self._ctx(context),
-                               encoder_cache=encoder_cache, return_cache=True)
-        return eps.float(), cache
+        the decoder half alone runs on it (see ``GDUNet.forward``) and the
+        cache given is returned.  Graphed as :meth:`apply_model` is: the key
+        call (no cache) and the reuse call are two graphs, the cache an input
+        of the second."""
+        if tp.is_sharded(self.unet):
+            return self.apply_model_cached_eager(x, t, context, encoder_cache)
+        if encoder_cache is None:
+            return self._graphed_key(x, t, context, None)
+        return self._graphed_reuse(x, t, context, encoder_cache), encoder_cache
 
-    def _ctx(self, context):
-        return None if context is None else context.to(self.dtype)
+    @torch.no_grad()
+    def apply_model_cached_eager(self, x, t, context=None, encoder_cache=None):
+        """:meth:`apply_model_cached` as eager launches, never a graph."""
+        return _unet_cached(self.unet, self.dtype, x, t, context, encoder_cache)
 
     @torch.no_grad()
     def get_learned_conditioning(self, token_ids):

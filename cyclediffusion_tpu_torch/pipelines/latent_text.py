@@ -17,8 +17,12 @@ most ``candidate_chunk`` of them per chain, so one chain of UNet calls
 serves them all, with the per-candidate guidance scale a tensor (the
 always-dual-batch CFG path, as in JAX).  Chunking caps memory and changes no
 result: every candidate's noise is drawn in candidate order before the
-chunks are cut.  The VAE posterior is sampled once per image and shared by
-all chains.
+chunks are cut.  A skip's tail chunk is padded to the chunk's size with
+copies of its last candidate, as JAX pads it, so that every chain of a skip
+has one batch and replays one captured graph of the UNet call
+(``LatentDiffusionCore.apply_model``); only the real candidates' results are
+kept.  The VAE posterior is sampled once per image and shared by all
+chains.
 
 ``mesh`` (a ``DeviceMesh`` with a ``"data"`` dimension,
 ``parallel.data_mesh``) splits the candidate axis over its ranks, as JAX's
@@ -58,11 +62,6 @@ from cyclediffusion_tpu_torch.samplers import (
 # first-stage decode runs in micro-batches of this many latents: at 512 px
 # the decoder's activations are ~0.5 GB per latent
 _VAE_BATCH = 8
-
-
-def _chunks(items: list, size: Optional[int]):
-    size = size or len(items)
-    return [items[i:i + size] for i in range(0, len(items), size)]
 
 
 class StochasticTextPipeline:
@@ -109,10 +108,13 @@ class StochasticTextPipeline:
     def _data_extent(self) -> int:
         return 1 if self.mesh is None else mesh_extent(self.mesh, "data")
 
-    def _pad_launch(self, sub: list) -> list:
-        """A launch's candidates rounded up to the data extent by repeating
-        the last one."""
-        want = -(-len(sub) // self._data_extent) * self._data_extent
+    def _pad_launch(self, sub: list, chunk: int, c0: int) -> list:
+        """A launch's candidates padded by repeating the last one, as JAX pads
+        them: a skip's tail chunk (starting at ``c0 > 0``) to the chunk's
+        size, so that one captured graph serves every chunk of the skip, and
+        every launch up to a multiple of the data extent."""
+        want = chunk if len(sub) < chunk and c0 > 0 else len(sub)
+        want = -(-want // self._data_extent) * self._data_extent
         return sub + sub[-1:] * (want - len(sub))
 
     def _my_rows(self, padded: list) -> list:
@@ -241,8 +243,10 @@ class StochasticTextPipeline:
         results = {}
         for skip in sorted(set(self.skip_steps)):
             idxs = [i for i, (_, _, sk) in enumerate(combos) if sk == skip]
-            for sub in _chunks(idxs, self.candidate_chunk):
-                mine = self._my_rows(self._pad_launch(sub))
+            chunk = self.candidate_chunk or len(idxs)
+            for c0 in range(0, len(idxs), chunk):
+                sub = idxs[c0:c0 + chunk]
+                mine = self._my_rows(self._pad_launch(sub, chunk, c0))
                 xT, eps = self._encode_chains(
                     x0, c_ctx, uc_ctx, [combos[i][1] for i in mine],
                     [noises[i] for i in mine], skip)
@@ -294,8 +298,10 @@ class StochasticTextPipeline:
                                                 device=xT.device))
                         full = torch.cat([eps, tail])
                     work.append((xT, full, ds, i * D + d))
-            for sub in _chunks(work, self.candidate_chunk):
-                mine = self._my_rows(self._pad_launch(sub))
+            chunk = self.candidate_chunk or len(work)
+            for c0 in range(0, len(work), chunk):
+                sub = work[c0:c0 + chunk]
+                mine = self._my_rows(self._pad_launch(sub, chunk, c0))
                 samples = self._decode_chains(
                     torch.stack([w[0] for w in mine]), torch.stack([w[1] for w in mine]),
                     c_ctx, uc_ctx, [w[2] for w in mine], generator, skip)

@@ -5,7 +5,10 @@ decode (counterpart of ``cyclediffusion_tpu.samplers.ddim``).
 
 Each ``lax.scan`` of the JAX module is a Python loop here, one loop per
 chain kind shared by the exact and the cached variant (they differ only in
-how a step's eps is computed); the per-step
+how a step's eps is computed).  The model call inside is what the JAX
+program compiles and the host cannot keep up with: the pipelines' model
+functions replay it as a CUDA graph on the card (``runtime.graphs``), and
+the step arithmetic around it stays eager.  The per-step
 coefficients are gathered on the host into time-major tables of 0-d fp32
 tensors.  Randomness comes from an explicit ``torch.Generator``, and every
 draw can be replaced by pre-drawn noise (the seam the parity tests use to
@@ -97,7 +100,9 @@ def _cached_steps(model_fn_key, model_fn_reuse, is_key: list) -> _StepFn:
     """Step i runs ``model_fn_key(x, t) -> (eps, cache)`` at a key step and
     ``model_fn_reuse(x, t, cache) -> eps`` on the last key step's cache
     otherwise.  Step 0 is a key step, so no cache is read before one is
-    made."""
+    made.  The cache is held across the reuse calls that follow: a graphed
+    key call returns a copy of its graph's cache, never the static buffer
+    that its next replay overwrites."""
     cache = None
 
     def step(i, x, t):

@@ -8,9 +8,11 @@ sqrt(a_t) / sqrt(1 - a_t) * dE/dpred_x0``, the shift that moves pred_x0 by
 exactly ``-weight * dE/dpred_x0``.  Unlike the gradient through pred_x0 with
 respect to x_t, it has no 1/sqrt(a_bar) amplification at the noisy steps.
 
-The UNet runs under ``no_grad``: no graph ever reaches it (its attention
-kernels define no backward).  The energy's graph runs from a detached copy
-of pred_x0 and is freed when its gradient is taken, before the next step.
+The UNet runs under ``no_grad``: no autograd graph ever reaches it (its
+attention kernels define no backward), and a core's ``apply_model`` replays
+its CUDA graph there.  The energy's forward and backward run eagerly; its
+autograd graph runs from a detached copy of pred_x0 and is freed when its
+gradient is taken, before the next step.
 """
 
 from __future__ import annotations

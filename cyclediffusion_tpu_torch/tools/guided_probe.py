@@ -46,7 +46,8 @@ PROMPT = "a photo of a dog"
 @dataclasses.dataclass
 class GuidedSetup:
     """One seeded guided-sampling problem: the core, the scorer, the CFG
-    eps model, the CLIP energy, and a latent code (x_T, the chain's eps)."""
+    eps model and its contexts, the CLIP energy, and a latent code (x_T, the
+    chain's eps)."""
 
     core: LatentDiffusionCore
     scorer: CLIPScorer
@@ -55,6 +56,8 @@ class GuidedSetup:
     energy_fn: Callable
     x_T: torch.Tensor
     eps: torch.Tensor
+    cond: torch.Tensor
+    uncond: torch.Tensor
 
     def plain(self) -> torch.Tensor:
         return ddim_decode(self.model_fn, self.sched, self.x_T, self.eps)
@@ -83,7 +86,7 @@ def build(spec: LatentCoreSpec, clip_config: CLIPConfig, *, steps: int, device,
     x_T = torch.randn(shape, generator=gen, device=device)
     eps = torch.randn((steps,) + shape, generator=gen, device=device)
     return GuidedSetup(core, scorer, core.make_ddim_schedule(steps, ETA), model_fn,
-                       clip_energy_fn(core, scorer, text), x_T, eps)
+                       clip_energy_fn(core, scorer, text), x_T, eps, cond, uncond)
 
 
 def _sync(device) -> None:

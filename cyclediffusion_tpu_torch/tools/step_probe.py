@@ -18,8 +18,9 @@ that a drift of the host or the card hits both sides alike:
   times: the device's own time per call, without Python dispatch.  The
   replay's output is checked bitwise against the eager call's.
 * ``translate``: the 2-request translate of ``chip_smoke.py`` (50 encode +
-  50 decode steps, eta 0.1, scales 1 / 5), seconds per request by the host
-  clock around work that ends in a synchronize.
+  50 decode steps, eta 0.1, scales 1 / 5, the UNet calls replayed as CUDA
+  graphs, one core per mode), seconds per request by the host clock around
+  work that ends in a synchronize.
 * ``profile``: ``torch.profiler`` over ``CALLS`` eager calls with the
   kernels; device-kernel time and launches per call, grouped by kind.
 * ``folded``: the same UNet step in the three self-attention modes of the
@@ -48,6 +49,7 @@ import torch
 from cyclediffusion_tpu_torch.ops import flash_attention as fa
 from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
 from cyclediffusion_tpu_torch.pipelines.latent_text import StochasticTextPipeline
+from cyclediffusion_tpu_torch.runtime import graphs
 from cyclediffusion_tpu_torch.text import HashTokenizer
 
 MODES = ("kernels", "plain")
@@ -136,7 +138,7 @@ def folded_steps(x, t, ctx, calls: int, rounds: int) -> list:
         core = LatentDiffusionCore.random_init(
             LatentCoreSpec.sd_v1(), seed=0, device="cuda", dtype=torch.bfloat16,
             folded_attn=None if mode == "default" else mode)
-        step = functools.partial(core.apply_model, x, t, ctx)
+        step = functools.partial(core.apply_model_eager, x, t, ctx)
         steps[mode] = (step, graph_of(step)[0])
     runs = []
     for i, mode in enumerate(alternating(rounds, FOLDED_MODES)):
@@ -167,17 +169,12 @@ def eager_ms(step, calls: int):
 
 
 def graph_of(step):
-    """(CUDA graph of one call of ``step``, its static output)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            step()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = step()
-    return graph, out
+    """(one call of ``step`` captured by ``runtime.graphs`` after a warm-up
+    call, its static output).  ``step`` must launch eagerly (a model's
+    ``*_eager`` entry point): a graphed call cannot be captured again."""
+    graphs.warm_up(step)
+    captured = graphs.capture(step)
+    return captured, captured.output
 
 
 def graph_ms(graph, calls: int) -> float:
@@ -219,8 +216,9 @@ def profile_kinds(step, calls: int):
     return dict(sorted(kinds.items(), key=lambda kv: -kv[1][0]))
 
 
-def translate_s(core, pipe, images, src, dst, seed: int) -> float:
-    """Seconds per request of one 2-request translate (encode + generate)."""
+def translate_s(pipe, images, src, dst, seed: int) -> float:
+    """Seconds per request of one 2-request translate (encode + generate),
+    its UNet calls graph replays."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -240,13 +238,18 @@ def main() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     fa.load_kernels()
 
-    core = LatentDiffusionCore.random_init(LatentCoreSpec.sd_v1(), seed=0, device="cuda",
-                                           dtype=torch.bfloat16)
-    pipe = StochasticTextPipeline(
+    # one core per mode, the same weights: a chain replays the graphs its
+    # core captured, under the mode that was in force at the capture
+    cores = {mode: LatentDiffusionCore.random_init(LatentCoreSpec.sd_v1(), seed=0,
+                                                   device="cuda", dtype=torch.bfloat16)
+             for mode in MODES}
+    pipes = {mode: StochasticTextPipeline(
         core, HashTokenizer(49408, 77), custom_steps=STEPS, eta=0.1,
         white_box_steps=STEPS + 1, skip_steps=[0],
         encoder_unconditional_guidance_scales=[1.0],
         decoder_unconditional_guidance_scales=[5.0], n_trials=1)
+        for mode, core in cores.items()}
+    core, pipe = cores["kernels"], pipes["kernels"]
     gen = torch.Generator(device="cuda").manual_seed(1)
     src = ["a photo of a cat", "a painting of a house"]
     dst = ["a photo of a dog", "a painting of a castle"]
@@ -258,32 +261,32 @@ def main() -> dict:
                                              align_corners=False).permute(0, 2, 3, 1)
 
     def step():
-        return core.apply_model(x, t, ctx)
+        return core.apply_model_eager(x, t, ctx)
 
     summary = {"device": torch.cuda.get_device_name(0), "card": card_state(),
                "eager": [], "graph": [], "translate": []}
     print(f"card: {summary['card']} (SM MHz, W drawn, W limit, C, throttle reasons)",
           flush=True)
-    graphs = {}
+    step_graphs = {}
     for mode in MODES:
         with attention(mode):
             eager_out = step()
-            graphs[mode] = graph_of(step)
-            graphs[mode][0].replay()
+            step_graphs[mode] = graph_of(step)
+            step_graphs[mode][0].replay()
             torch.cuda.synchronize()
-            same = torch.equal(graphs[mode][1], eager_out)
+            same = torch.equal(step_graphs[mode][1], eager_out)
             print(f"graph [{mode}]: replay equals eager bitwise: {same}", flush=True)
             if not same:
                 raise RuntimeError(f"graph replay differs from eager ({mode})")
-            translate_s(core, pipe, images, src, dst, seed=2)   # warm-up
+            translate_s(pipes[mode], images, src, dst, seed=2)   # warm-up, captures
 
     for i, mode in enumerate(alternating(ROUNDS)):
         with attention(mode):
             host, dev = eager_ms(step, CALLS)
-            rep = graph_ms(graphs[mode][0], CALLS)
+            rep = graph_ms(step_graphs[mode][0], CALLS)
             summary["eager"].append({"mode": mode, "host_ms": host, "device_ms": dev})
             summary["graph"].append({"mode": mode, "device_ms": rep})
-            secs = translate_s(core, pipe, images, src, dst, seed=3 + i)
+            secs = translate_s(pipes[mode], images, src, dst, seed=3 + i)
             summary["translate"].append({"mode": mode, "s_per_request": secs})
             card = card_state()
             print(f"run {i} [{mode}]: eager host {host:.3f} ms/call, device span "

@@ -108,7 +108,7 @@ def test_port_imports_without_jax():
         "        'energy.clip_energy', 'energy.prior_z', 'energy.factory', 'ops.fold',\n"
         "        'pipelines.latentdiff_plain', 'tools.guided_probe', 'parallel',\n"
         "        'parallel.mesh', 'parallel.tp', 'runtime.optim', 'convert.flax_msgpack',\n"
-        "        'data.gif', 'data.jpeg', 'convert.to_jax'}\n"
+        "        'data.gif', 'data.jpeg', 'convert.to_jax', 'runtime.graphs'}\n"
         "from cyclediffusion_tpu_torch.samplers import dpm_encode_cached, ddim_decode_cached\n"
         "from cyclediffusion_tpu_torch.ops.cfg import cfg_model_fn_pair\n"
         "from cyclediffusion_tpu_torch.models.text_encoders import LDMBertEncoder\n"
@@ -135,6 +135,7 @@ def test_port_imports_without_jax():
         "from cyclediffusion_tpu_torch.parallel.tp import shard_params_tp, tp_param_specs\n"
         "from cyclediffusion_tpu_torch.runtime.optim import AdamW, Adafactor\n"
         "from cyclediffusion_tpu_torch.convert.flax_msgpack import from_bytes\n"
+        "from cyclediffusion_tpu_torch.runtime.graphs import GraphedCall\n"
         "missing = {w for w in want if 'cyclediffusion_tpu_torch.' + w not in names}\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules"
