@@ -91,20 +91,29 @@ Phases (each prints its results; any failure exits non-zero):
    Pillow decode, resized; the card's Inception against the CPU's; an fp32 round
    trip with TF32 off (the replay's states against the encode chain's);
    the batch-2 UNet call eager and graph-replayed in fp32 (TF32 off and
-   on) and bf16 beside its operation bound.
+   on) and bf16 beside its operation bound; 33 images through the FID's
+   padded batches (one graph at 32).
 12. Guided sampling (tracked config 5) and the rest of the latent surface:
    (a) SD v1 in bf16 at full width with a seeded ViT-B/32 scorer
    (``tools/guided_probe.py``'s problem): a 50-step eps replay at eta 0.1,
    CFG 5.0, batch 1, plain and CLIP-energy guided (weight 0.05, a gradient
    through the 512 px decoder and the vision tower every step) in turns,
-   s/chain, ms/step, their ratio, mean|dz0| and the chains' peak memory;
-   50 UNet calls per chain with their K1/K2 launches and none in the
-   energy's forward and backward (timed by CUDA events); weight 0 equal to
+   s/chain, ms/step, their ratio, mean|dz0| and the chains' peak memory,
+   with a third chain in the turns that takes the energy's gradient eagerly
+   (the graphed energy's chains within ten times the spread of two chains
+   of one kind); 50 UNet calls per chain with their K1/K2 launches and none
+   in the energy's forward and backward; the energy's profile
+   (``guided_probe.energy_profile``: eager host and device ms, launches and
+   device ms by kernel kind, operations and bound, the graph's capture and
+   replay) and its graphed gradient against the eager one (within ten
+   times the spread of three eager gradients); weight 0 equal to
    the plain replay; K2 refusing an input that requires a gradient; the
    gradient, core and scorer in fp32, against a central difference along a
    seeded direction.  (c) The tiled decode of the 64x64 latent: one tile
-   equal to the untiled decode, 3 x 3 patches in one decode call, an energy
-   gradient through it.  (b) The plain-inversion pipeline on the FFHQ LDM
+   equal to the untiled decode, 3 x 3 patches in one decode call, the
+   graphed tiled decode equal to the eager one, an energy gradient through
+   it, eager and graphed (another graph: the tiling is in its signature).
+   (b) The plain-inversion pipeline on the FFHQ LDM
    in fp32, 50 steps, 3 images, with K1 against plain attention.
 13. Data and metrics (no kernel of K1-K4): every committed JPEG fixture
    decoded on the host against Pillow's stored decode (0 values may
@@ -152,20 +161,30 @@ Phases (each prints its results; any failure exits non-zero):
    and the write and read seconds on the host.
 
 Graphs: on the card every pipeline's UNet call replays a CUDA graph
-captured at its first call (``runtime.graphs``), the kernels inside, so
-the phases above run their chains graphed.  Phases 4 (the SD translate), 6
-(the ensemble in chunks of 3, a padded tail), 8 (fast mode's key and reuse
-calls), 9 (LDM text2img-large), 10 (the FFHQ LDM's encode, replay and
-refine), 11 (the AFHQ pixel chains, TF32 convolutions) and 12 (the guided
-chain's UNet calls, and the plain-inversion pipeline) each run a cut chain
-of their path (10 steps) at full width graphed, eager, graphed, from the
-same inputs and noise, and fail unless every UNet call of the last run was
-a replay and the graphed results equal the eager ones bit for bit (the
-guided chain at weight 0.05 within 1e-4 of max|z0|: its energy's backward
-adds with atomics, so two eager chains differ too; at weight 0, bit for
-bit); each prints host ms per UNet call graphed and eager, each graph's
-replay ms, the card's busy share (the replays' device time over the
-chain's host time), capture seconds and peak memory.  UNet calls that
+captured at its first call (``runtime.graphs``), the kernels inside, and so
+do the text encoders, the first stage's encode and decode, the CLIP
+scorer's towers, the FID's Inception features and the guided energy's
+gradient, so the phases above run graphed.  Phases 4 (the SD translate), 6
+(the ensemble in chunks of 3, a padded tail, ranked), 8 (fast mode's key
+and reuse calls), 9 (LDM text2img-large), 10 (the FFHQ LDM's encode,
+replay and refine), 11 (the AFHQ pixel chains, TF32 convolutions) and 12
+(the guided chain's UNet calls and energy, and the plain-inversion
+pipeline) each run a cut chain of their path (10 steps) at full width
+graphed, eager (every graphed entry point it reaches swapped for its
+``*_eager`` twin), graphed, from the same inputs and noise, and fail unless
+every call of every entry point in the last run was a replay and the
+graphed results equal the eager ones bit for bit (the guided chain at
+weight 0.05 within 1e-4 of max|z0|: its energy's backward adds with
+atomics, so two eager chains differ too; at weight 0, bit for bit); each
+prints host ms per UNet call graphed and eager, each graph's replay ms,
+launches and capture seconds, the card's busy share (every replay's device
+time over the chain's host time; the UNet replays' alone beside it) and
+peak memory.  Each program is also held against its eager twin at its
+path's shapes (``graphed_program``): CLIP ViT-L/14 text and the KL-f8
+encode and decode at 512 px (phase 4), the ViT-B/32 towers (6), LDM-BERT
+and the KL-f8 first stage at 256 px (9), the VQ-f4 first stage (10),
+Inception at the FID's batch of 32 (11), the energy gradient and the tiled
+decode (12), with replay, eager and capture times.  UNet calls that
 compare a kernel with plain attention, and the probes that time one call,
 use the eager entry points (``apply_model_eager``, ``_model_fn_eager``).
 
@@ -186,6 +205,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -303,28 +323,55 @@ def rel_diff(torch, got: list, want: list) -> float:
     return num / max(float(b.abs().max()) for b in want)
 
 
-def graphed_chain(torch, label, target, names, run, calls, rel_bound=None) -> dict:
-    """A chain whose UNet calls replay CUDA graphs against the same chain
-    eager.  ``target`` (a core or a pixel pipeline) has the graphed model
-    entry points ``names`` (``apply_model``, ``apply_model_cached``,
-    ``_model_fn``), each with its ``*_eager`` twin that the eager run puts in
-    its place; ``run()`` builds the chain's model functions from them and
-    runs it on the same inputs and noise each time -> its result; ``calls``
-    is its UNet calls.  Runs graphed (a signature's first call warms up and
-    captures: set-up), eager, graphed again; fails unless the results are
-    equal bit for bit (the replay runs the eager call's kernels on the same
-    inputs, and the step arithmetic between calls is the same eager code)
-    or, with ``rel_bound``, within it of max|eager| (a chain that another
-    eager run does not repeat bit for bit: its spread is printed), and
-    every UNet call of the second graphed run was a replay.  Busy share:
-    the replays' device time (each graph's replay timed alone by CUDA
-    events) over the chain's host time."""
-    from cyclediffusion_tpu_torch.runtime.graphs import GraphedCall
+# each graphed entry point -> the GraphedCall attributes of its owner that it
+# replays (a core, a pixel pipeline, a CLIP scorer, a guided energy)
+GRAPHS_OF = {"apply_model": ("_graphed_apply",),
+             "apply_model_cached": ("_graphed_key", "_graphed_reuse"),
+             "_model_fn": ("_graphed",),
+             "get_learned_conditioning": ("_graphed_cond",),
+             "encode_first_stage": ("_graphed_encode",),
+             "decode_first_stage": ("_graphed_decode",),
+             "embed_image": ("_graphed_image",), "embed_text": ("_graphed_text",),
+             "grad": ("_graphed_grad",), "inception": ("_graphed",)}
+# a text core's first stage and conditioning, as a chain reaches them
+TEXT_PROGRAMS = ("get_learned_conditioning", "encode_first_stage", "decode_first_stage")
+FIRST_STAGE = ("encode_first_stage", "decode_first_stage")
 
-    graphed = [v for v in vars(target).values() if isinstance(v, GraphedCall)]
 
-    def captured():
-        return [c for g in graphed for c in g.graphs.values()]
+def graphs_of(owner, name) -> list:
+    """The captured graphs behind ``owner.name``."""
+    return [c for attr in GRAPHS_OF[name] if getattr(owner, attr, None) is not None
+            for c in getattr(owner, attr).graphs.values()]
+
+
+def graphed_chain(torch, label, target, names, run, calls, rel_bound=None,
+                  programs=()) -> dict:
+    """A chain whose UNet calls and other programs replay CUDA graphs
+    against the same chain eager.  ``target`` (a core or a pixel pipeline)
+    has the graphed UNet entry points ``names`` (``apply_model``,
+    ``apply_model_cached``, ``_model_fn``) and ``programs`` lists ``(owner,
+    names)`` of the other graphed entry points the chain reaches (a core's
+    ``get_learned_conditioning``, ``encode_first_stage`` and
+    ``decode_first_stage``, a scorer's ``embed_image`` and ``embed_text``, a
+    guided energy's ``grad``), each with its ``*_eager`` twin that the eager
+    run puts in its place; ``run()`` builds the chain from them and runs it on
+    the same inputs and noise each time -> its result; ``calls`` is its UNet
+    calls.  Runs graphed (a signature's first call warms up and captures:
+    set-up), eager (counting each entry point's calls), graphed again; fails
+    unless the results are equal bit for bit (the replays run the eager
+    calls' kernels on the same inputs, and the step arithmetic between calls
+    is the same eager code) or, with ``rel_bound``, within it of max|eager|
+    (a chain that another eager run does not repeat bit for bit: its spread
+    is printed), and every call of every entry point in the second graphed
+    run was a replay.  Busy share: every replay's device time (each graph's
+    replay timed alone by CUDA events) over the chain's host time; the UNet
+    replays' alone beside it (the share before the other programs were
+    graphed)."""
+    swaps = [(target, names)] + list(programs)
+
+    def every():
+        return [(owner, name, c) for owner, ns in swaps for name in ns
+                for c in graphs_of(owner, name)]
 
     def timed():
         torch.cuda.synchronize()
@@ -336,21 +383,34 @@ def graphed_chain(torch, label, target, names, run, calls, rel_bound=None) -> di
         return (flat_tensors(out), time.perf_counter() - t0,
                 torch.cuda.max_memory_allocated() / 2 ** 30)
 
-    known = {id(c) for c in captured()}
+    known = {id(c) for _, _, c in every()}
     first, first_s, first_peak = timed()
-    new = [c for c in captured() if id(c) not in known]
-    for name in names:
-        setattr(target, name, getattr(target, name + "_eager"))
+    new = [c for _, _, c in every() if id(c) not in known]
+    eager_calls = {}
+
+    def counting(owner, name):
+        fn = getattr(owner, name + "_eager")
+
+        def call(*a, **kw):
+            eager_calls[(id(owner), name)] = eager_calls.get((id(owner), name), 0) + 1
+            return fn(*a, **kw)
+        return call
+
+    for owner, ns in swaps:
+        for name in ns:
+            setattr(owner, name, counting(owner, name))
     try:
         eager, eager_s, eager_peak = timed()
+        counted = dict(eager_calls)
         spread = None if rel_bound is None else rel_diff(torch, timed()[0], eager)
     finally:
-        for name in names:
-            delattr(target, name)
-    before = {id(c): c.replays for c in captured()}
+        for owner, ns in swaps:
+            for name in ns:
+                delattr(owner, name)
+    before = {id(c): c.replays for _, _, c in every()}
     again, graphed_s, _ = timed()
-    used = [(c, c.replays - before[id(c)]) for c in captured() if c.replays > before[id(c)]]
-    replays = sum(n for _, n in used)
+    used = [(owner, name, c, c.replays - before[id(c)]) for owner, name, c in every()
+            if c.replays > before[id(c)]]
     if len(first) != len(eager) or len(again) != len(eager):
         fail(f"{label}: the graphed chain gave {len(again)} tensors, the eager {len(eager)}")
     rel = max(rel_diff(torch, first, eager), rel_diff(torch, again, eager))
@@ -366,28 +426,110 @@ def graphed_chain(torch, label, target, names, run, calls, rel_bound=None) -> di
                  f"max|eager| (bound {rel_bound:.0e})")
         agree = (f"to {rel:.3e} of max|eager| (bound {rel_bound:.0e}; two eager chains "
                  f"differ by {spread:.3e})")
-    if replays != calls:
-        fail(f"{label}: {replays} graph replays in a chain of {calls} UNet calls")
-    replay_ms = [cuda_time_ms(c.replay, reps=10, warmup=1) for c, _ in used]
-    busy_ms = sum(n * ms for (_, n), ms in zip(used, replay_ms))
-    rec = {"path": label, "calls": calls, "graphed_ms_per_call": 1e3 * graphed_s / calls,
+    per_entry = {}
+    for owner, ns in swaps:
+        for name in ns:
+            n = sum(k for o, nm, _, k in used if o is owner and nm == name)
+            want = counted.get((id(owner), name), 0)
+            if n != want:
+                fail(f"{label}: {n} graph replays of {name} where the eager chain made "
+                     f"{want} calls")
+            per_entry[name] = per_entry.get(name, 0) + n
+    unet = sum(per_entry.get(name, 0) for name in names)
+    if unet != calls:
+        fail(f"{label}: {unet} UNet graph replays in a chain of {calls} UNet calls")
+    replay_ms = [cuda_time_ms(c.replay, reps=10, warmup=1) for _, _, c, _ in used]
+    busy_ms = sum(k * ms for (_, _, _, k), ms in zip(used, replay_ms))
+    unet_ms = sum(k * ms for (_, name, _, k), ms in zip(used, replay_ms) if name in names)
+    graphs_rec = [{"entry": name, "replays": k, "replay_ms": ms,
+                   "launches": {kk: n for kk, n in c.launches.items() if n},
+                   "capture_s": c.seconds}
+                  for (_, name, c, k), ms in zip(used, replay_ms)]
+    rec = {"path": label, "calls": calls, "replays": per_entry,
+           "graphed_ms_per_call": 1e3 * graphed_s / calls,
            "eager_ms_per_call": 1e3 * eager_s / calls,
-           "replay_ms": replay_ms, "busy_graphed": busy_ms / (1e3 * graphed_s),
+           "graphs": len(used), "graph_records": graphs_rec,
+           "busy_graphed": busy_ms / (1e3 * graphed_s),
            "busy_eager": busy_ms / (1e3 * eager_s),
-           "graphs": len(used), "launches_per_replay": [
-               {k: n for k, n in c.launches.items() if n} for c, _ in used],
+           "unet_busy_graphed": unet_ms / (1e3 * graphed_s),
+           "unet_graphs": sum(1 for _, name, _, _ in used if name in names),
            "capture_s_this_run": sum(c.seconds for c in new),
-           "capture_s": sum(c.seconds for c, _ in used), "first_run_s": first_s,
+           "capture_s": sum(c.seconds for _, _, c, _ in used), "first_run_s": first_s,
+           "chain_s": {"graphed": graphed_s, "eager": eager_s},
            "peak_graphed_gib": first_peak, "peak_eager_gib": eager_peak}
-    say(f"{label}: graphed chain == eager chain {agree} ({calls} UNet calls, all "
-        f"replays of {len(used)} graph(s)); host ms per UNet call graphed "
-        f"{rec['graphed_ms_per_call']:.3f}, eager {rec['eager_ms_per_call']:.3f}; replay ms "
-        f"{[round(ms, 3) for ms in replay_ms]}, kernel launches per replay "
-        f"{rec['launches_per_replay']}; card busy (UNet replays / chain) graphed "
-        f"{rec['busy_graphed']:.3f}, eager {rec['busy_eager']:.3f}; capture "
-        f"{rec['capture_s']:.3f} s for the graphs it replays ({rec['capture_s_this_run']:.3f} "
-        f"s in this run, whose first chain took {first_s:.3f} s); peak device memory "
-        f"graphed {first_peak:.2f} GiB, eager {eager_peak:.2f} GiB ({card_name()})")
+    say(f"{label}: graphed chain == eager chain {agree} ({calls} UNet calls; replays by "
+        f"entry point {per_entry}, every call a replay, {len(used)} graph(s)); host ms "
+        f"per UNet call graphed {rec['graphed_ms_per_call']:.3f}, eager "
+        f"{rec['eager_ms_per_call']:.3f} (chain {graphed_s:.4f} s graphed, {eager_s:.4f} s "
+        f"eager); card busy (every replay / chain) graphed {rec['busy_graphed']:.3f}, eager "
+        f"{rec['busy_eager']:.3f}; UNet replays alone "
+        f"{rec['unet_busy_graphed']:.3f}; capture {rec['capture_s']:.3f} s for the graphs "
+        f"it replays ({rec['capture_s_this_run']:.3f} s in this run, whose first chain took "
+        f"{first_s:.3f} s); peak device memory graphed {first_peak:.2f} GiB, eager "
+        f"{eager_peak:.2f} GiB ({card_name()})")
+    for g in graphs_rec:
+        say(f"{label}:   graph of {g['entry']}: {g['replays']} replays, replay "
+            f"{g['replay_ms']:.4f} ms, launches per replay {g['launches']}, capture "
+            f"{g['capture_s']:.3f} s")
+    return rec
+
+
+def first_calls(owners) -> dict:
+    """{id: (warm-up host s, capture s)} of every graph the owners hold."""
+    return {id(c): (c.warm_up_seconds, c.seconds) for owner in owners
+            for name in GRAPHS_OF for c in graphs_of(owner, name)}
+
+
+def say_setup(label, owners, known: dict) -> None:
+    """The first calls of graphs made since ``known`` (a :func:`first_calls`)
+    among ``owners``: how much of a CLI's time was set-up."""
+    new = [v for k, v in first_calls(owners).items() if k not in known]
+    say(f"{label}: set-up inside the run: {len(new)} graphs made, warm-ups "
+        f"{sum(w for w, _ in new):.3f} s of host time, captures {sum(c for _, c in new):.3f} s")
+
+
+def graphed_program(torch, label, owner, name, args, rel_bound=None, why=None) -> dict:
+    """One graphed entry point (``owner.name``, see ``GRAPHS_OF``) at a
+    path's real shapes against its ``*_eager`` twin: the graphed call twice
+    (the first may warm up and capture; the second replays), the eager
+    once; fails unless both graphed results equal the eager one bit for bit
+    or, with ``rel_bound``, lie within it of max|eager| (``why`` says why).
+    -> replay ms (CUDA events), eager ms, host ms per graphed call, capture
+    s, launches per replay."""
+    graphed, eager = getattr(owner, name), getattr(owner, name + "_eager")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = flat_tensors(graphed(*args))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    before = {id(c): c.replays for c in graphs_of(owner, name)}
+    again = flat_tensors(graphed(*args))
+    used = [c for c in graphs_of(owner, name) if c.replays > before.get(id(c), c.replays)]
+    want = flat_tensors(eager(*args))
+    if len(used) != 1:
+        fail(f"{label}: the second graphed call replayed {len(used)} graphs, not 1")
+    rel = max(rel_diff(torch, first, want), rel_diff(torch, again, want))
+    if rel_bound is None:
+        if not all(torch.equal(a, w) and torch.equal(b, w)
+                   for a, b, w in zip(first, again, want)):
+            fail(f"{label}: the graphed call differs from the eager one: {rel:.3e} of max")
+        agree = "bit for bit"
+    else:
+        if not rel <= rel_bound:
+            fail(f"{label}: the graphed call differs from the eager one by {rel:.3e} of "
+                 f"max (bound {rel_bound:.3e}: {why})")
+        agree = f"to {rel:.3e} of max (bound {rel_bound:.3e}: {why})"
+    c = used[0]
+    rec = {"program": label, "replay_ms": cuda_time_ms(c.replay, reps=10, warmup=1),
+           "eager_ms": cuda_time_ms(lambda: eager(*args), reps=5, warmup=1),
+           "graphed_call_ms": cuda_time_ms(lambda: graphed(*args), reps=5, warmup=1),
+           "capture_s": c.seconds, "first_call_s": first_s,
+           "launches": {k: n for k, n in c.launches.items() if n}, "rel": rel}
+    say(f"{label}: graphed == eager {agree}; replay {rec['replay_ms']:.4f} ms, eager "
+        f"{rec['eager_ms']:.4f} ms, graphed call (copies in and out) "
+        f"{rec['graphed_call_ms']:.4f} ms by CUDA events; capture {c.seconds:.3f} s (first "
+        f"call {first_s:.3f} s); kernel launches per replay {rec['launches']} "
+        f"({card_name()})")
     return rec
 
 
@@ -716,7 +858,18 @@ def phase_slice(torch, fa, attention, HashTokenizer, LatentCoreSpec,
         z = cut.encode(images, src, g)
         return z, cut.generate(z, dst, g)
 
-    graphed_chain(torch, "graphs [SD translate]", core, ("apply_model",), translate, 20)
+    graphed_chain(torch, "graphs [SD translate]", core, ("apply_model",), translate, 20,
+                  programs=[(core, TEXT_PROGRAMS)])
+    # each program at the translate's shapes: CLIP ViT-L/14 over the 2
+    # prompts, the KL-f8 encode and decode of the 2 images at 512 px
+    noise = torch.randn((2, 64, 64, 4), generator=gen, device="cuda")
+    z_chk = torch.randn((2, 64, 64, 4), generator=gen, device="cuda")
+    graphed_program(torch, "program [SD: CLIP ViT-L/14 text, 2 x 77 tokens]", core,
+                    "get_learned_conditioning", (tok(src),))
+    graphed_program(torch, "program [SD: KL-f8 encode, 2 x 512 px]", core,
+                    "encode_first_stage", ((images - 0.5) * 2.0, noise))
+    graphed_program(torch, "program [SD: KL-f8 decode, 2 x 64x64x4]", core,
+                    "decode_first_stage", (z_chk,))
 
     # one UNet call with the kernels against the same call on plain attention
     # (eager both: a graph replays the kernels it captured)
@@ -1054,13 +1207,26 @@ def phase_ensemble(torch, fa, Args, TextUnsupervisedTranslation, num_recovered_e
     def ensemble():
         g = torch.Generator(device="cuda").manual_seed(8)
         z = cut.encode(image, src, g)
-        return z, cut.generate(z, dst, g)
+        return z, cut.forward(z, image, src, dst, g)[0]
 
-    rec = graphed_chain(torch, "graphs [ensemble, padded tail]", core, ("apply_model",),
-                        ensemble, expected_unet_calls(cut, num_recovered_eps))
-    if rec["graphs"] != 2:
-        fail(f"ensemble: the cut chains replayed {rec['graphs']} graphs, expected 2 (the "
-             f"tail chunk padded to the chunk's batch)")
+    rec = graphed_chain(torch, "graphs [ensemble, padded tail, ranked]", core,
+                        ("apply_model",), ensemble,
+                        expected_unet_calls(cut, num_recovered_eps),
+                        programs=[(core, TEXT_PROGRAMS),
+                                  (dclip.scorer, ("embed_image", "embed_text"))])
+    if rec["unet_graphs"] != 2:
+        fail(f"ensemble: the cut chains replayed {rec['unet_graphs']} UNet graphs, expected "
+             f"2 (the tail chunk padded to the chunk's batch)")
+    # the scorer's towers at the ranking's shapes: the 8 candidates at 512 px,
+    # the original, the 2 prompts
+    cands = torch.rand((8, 512, 512, 3), generator=gen, device="cuda")
+    ids = pipe.tokenizer(src + dst)
+    graphed_program(torch, "program [ViT-B/32 image, 8 x 512 px]", dclip.scorer,
+                    "embed_image", (cands,))
+    graphed_program(torch, "program [ViT-B/32 image, 1 x 512 px]", dclip.scorer,
+                    "embed_image", (image,))
+    graphed_program(torch, "program [ViT-B/32 text, 2 x 77 tokens]", dclip.scorer,
+                    "embed_text", (ids,))
     return counts
 
 
@@ -1103,6 +1269,7 @@ def phase_cli(torch, fa, ref_core, root, num_recovered_eps, cfg_name, head_dims,
     from cyclediffusion_tpu_torch.data.png import read_png
     from cyclediffusion_tpu_torch.evaluation.utils import to_uint8
     from cyclediffusion_tpu_torch.pipelines.latent import LatentDiffusionCore
+    from cyclediffusion_tpu_torch.runtime import context
     from cyclediffusion_tpu_torch.runtime.config import config_root
     from cyclediffusion_tpu_torch.tasks.text_unsupervised_translation import (
         TextUnsupervisedTranslation,
@@ -1162,6 +1329,9 @@ def phase_cli(torch, fa, ref_core, root, num_recovered_eps, cfg_name, head_dims,
     torch.cuda.synchronize()
     reset_peak(torch)
     fa.reset_launch_counts()
+    scorer = context.get_directional_clip(required=False)
+    scorers = [] if scorer is None else [scorer.scorer]
+    known = first_calls(scorers)
     t0 = time.perf_counter()
     try:
         metrics = cli.main(argv)
@@ -1249,6 +1419,7 @@ def phase_cli(torch, fa, ref_core, root, num_recovered_eps, cfg_name, head_dims,
     say(f"{label}: eval_runtime {runtime} s, eval_samples_per_second "
         f"{results['eval_samples_per_second']}, {runtime / CLI_SAMPLES:.4f} s/sample; "
         f"the whole CLI call {secs:.2f} s; peak device memory {peak / 2**30:.2f} GiB")
+    say_setup(label, [core] + scorers, known)
     if metrics.get("eval_samples") != CLI_SAMPLES:
         fail(f"{label}: main() returned {metrics}")
     return counts, core
@@ -1367,9 +1538,11 @@ def phase_fast(torch, fa, core, StochasticTextPipeline, HashTokenizer, num_recov
         return z, cut.generate(z, dst, g)
 
     rec = graphed_chain(torch, "graphs [SD fast mode, key and reuse]", core,
-                        ("apply_model_cached",), translate_cut, 20)
-    if rec["graphs"] != 2:
-        fail(f"fast: the cut chains replayed {rec['graphs']} graphs, expected 2 (key, reuse)")
+                        ("apply_model_cached",), translate_cut, 20,
+                        programs=[(core, TEXT_PROGRAMS)])
+    if rec["unet_graphs"] != 2:
+        fail(f"fast: the cut chains replayed {rec['unet_graphs']} UNet graphs, expected 2 "
+             f"(key, reuse)")
 
     # a full and a reuse UNet call at batch 4: eager, graph replay, profile
     steps = {"full": lambda: core.apply_model_eager(x4, t4, ctx4),
@@ -1462,7 +1635,16 @@ def phase_ldm(torch, fa, root, num_recovered_eps):
         return z, cut.generate(z, dst, g)
 
     graphed_chain(torch, "graphs [LDM text2img-large translate]", core, ("apply_model",),
-                  translate, 20)
+                  translate, 20, programs=[(core, TEXT_PROGRAMS)])
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    graphed_program(torch, "program [LDM-BERT, 32 layers, 2 x 77 tokens]", core,
+                    "get_learned_conditioning", (cut.tokenizer(src),))
+    graphed_program(torch, "program [LDM: KL-f8 encode, 2 x 256 px]", core,
+                    "encode_first_stage", ((images - 0.5) * 2.0, torch.randn(
+                        (2, 32, 32, 4), generator=gen, device="cuda")))
+    graphed_program(torch, "program [LDM: KL-f8 decode, 2 x 32x32x4]", core,
+                    "decode_first_stage", (torch.randn((2, 32, 32, 4), generator=gen,
+                                                       device="cuda"),))
     cores = {"ldm": core, "sd": LatentDiffusionCore.random_init(
         LatentCoreSpec.sd_v1(), seed=0, device="cuda", dtype=torch.bfloat16)}
     gen = torch.Generator(device="cuda").manual_seed(41)
@@ -1681,6 +1863,7 @@ def phase_unpaired(torch, fa, root, num_recovered_eps):
         f"{results['eval_runtime']} s, eval_samples_per_second "
         f"{results['eval_samples_per_second']}; the whole CLI call {secs:.2f} s; peak "
         f"device memory {peak / 2**30:.2f} GiB")
+    say_setup("unpaired", seen["cores"], {})
     if metrics.get("eval_samples") != UNPAIRED_SAMPLES:
         fail(f"unpaired: main() returned {metrics}")
 
@@ -1696,7 +1879,12 @@ def phase_unpaired(torch, fa, root, num_recovered_eps):
         return z, cut.generate(z, g)
 
     graphed_chain(torch, "graphs [FFHQ LDM encode, replay, refine]", core, ("apply_model",),
-                  translate, 10 + 10 + 4)
+                  translate, 10 + 10 + 4, programs=[(core, FIRST_STAGE)])
+    image = orig.to("cuda", torch.float32)
+    graphed_program(torch, f"program [FFHQ: VQ-f4 encode, {image.shape[0]} x 256 px]", core,
+                    "encode_first_stage", ((image - 0.5) * 2.0,))
+    graphed_program(torch, f"program [FFHQ: VQ-f4 decode, {image.shape[0]} x 64x64x3]", core,
+                    "decode_first_stage", (core.encode_first_stage((image - 0.5) * 2.0),))
 
     # the batch-3 UNet step of the loaded FFHQ core, eager and graph-replayed
     gen = torch.Generator(device="cuda").manual_seed(61)
@@ -2030,9 +2218,35 @@ def phase_afhq(torch, fa, root):
         fail(f"afhq: main() returned {metrics}")
 
     # the card's Inception against the same module on the CPU
-    (model, native), = fid._INCEPTION_CACHE.values()      # the evaluator's module
+    (model, native, graphed), = fid._INCEPTION_CACHE.values()  # the evaluator's module
     if not native:
         fail("afhq: the Inception asset did not load as a state dict")
+    if not graphed.graphs:
+        fail("afhq: the evaluator's Inception features replayed no graph")
+    # the graphed features at the FID's batch of 32 (the resize to 299 and
+    # the tower) against the eager call, and 33 images (a second batch
+    # padded to 32: one graph) against the unpadded eager features
+    base = img.float()[:1].clamp(0.01, 0.9)
+    batch = base + 2e-3 * torch.arange(32, device=base.device).reshape(32, 1, 1, 1)
+    owner = types.SimpleNamespace(_graphed=graphed, inception=graphed,
+                                  inception_eager=functools.partial(fid._native_features, model))
+    graphed_program(torch, "program [Inception pool3, 32 x 256 px -> 299]", owner, "inception",
+                    (batch.clamp(0, 1),))
+    n_sig = len(graphed.graphs)
+    more = torch.cat([batch, batch[:1]]).clamp(0, 1)
+    feats = fid.batched_features(graphed, more)
+    with torch.no_grad():
+        want = torch.cat([fid._native_features(model, more[:32]),
+                          fid._native_features(model, more[32:])])
+    if len(graphed.graphs) != n_sig or not torch.equal(feats[:32], want[:32]):
+        fail("afhq: 33 images did not replay the one batch-32 graph, or differ from eager")
+    tail = rel_diff(torch, [feats[32:]], [want[32:]])
+    say(f"afhq: 33 images in two batches of 32 (31 padded rows dropped): one graph, the "
+        f"first 32 rows equal to eager; the padded batch's real row against the eager "
+        f"batch-1 features {tail:.3e} of max (bound {INCEPTION_REL_BOUND:.0e}, the card "
+        f"against the CPU's: another batch may take another convolution algorithm)")
+    if not tail <= INCEPTION_REL_BOUND:
+        fail(f"afhq: the padded batch's features differ from eager by {tail}")
     x = fid.resize_299_bicubic(img.float().clamp(0, 1))
     on_card = inception_pool3_features(model, x).cpu()
     on_cpu = inception_pool3_features(copy.deepcopy(model).cpu(), x.cpu())
@@ -2116,6 +2330,12 @@ WEIGHT0_REL_BOUND = 1e-6
 # chains already differ (~2e-7 of max|z0| on the H100, printed beside); at
 # weight 0 the shift is exactly 0 and the chains agree bit for bit
 GUIDED_GRAPH_REL_BOUND = 1e-4
+# the graphed energy gradient against the eager one, max abs diff /
+# max|eager|: a bound derived in the run from three eager gradients at the
+# same input (their largest gap to a first, the atomics' spread), this many
+# times over, and never below fp32's rounding
+ENERGY_SPREAD_FACTOR = 10
+ENERGY_FLOOR = 1e-6
 # the energy's gradient along a seeded unit direction against the central
 # difference at a step of FD_STEP * |p|, fp32 with TF32 off.  The step
 # trades the fp32 energy's rounding (divided by the step) against the clamps
@@ -2162,7 +2382,6 @@ def phase_guided(torch, fa, attention):
     from cyclediffusion_tpu_torch.energy.clean_clip import CLIPScorer
     from cyclediffusion_tpu_torch.energy.clip_energy import clip_energy_fn
     from cyclediffusion_tpu_torch.models.clip import CLIPConfig
-    from cyclediffusion_tpu_torch.ops import steps
     from cyclediffusion_tpu_torch.ops.fold import SplitInputParams
     from cyclediffusion_tpu_torch.pipelines.factory import LATENT_MODELS
     from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
@@ -2187,11 +2406,9 @@ def phase_guided(torch, fa, attention):
         f"{GUIDED_WEIGHT}")
 
     # one energy gradient at the first step's pred_x0 (warm-up, then zero
-    # kernel launches in its forward and backward, then its time)
-    x, sched = g.x_T, g.sched
-    t = torch.full((1,), int(sched.timesteps[-1]), dtype=torch.int64, device="cuda")
-    p = steps.pred_x0_from_eps(x, g.model_fn(x, t), sched.alphas[-1],
-                               sched.sqrt_one_minus_alphas[-1])
+    # kernel launches in its forward and backward), its profile eager and
+    # graph-replayed, and the graphed gradient against the eager one
+    x, p, t = guided_probe.first_step_point(g)
     energy_grad(g.energy_fn, x, p, t)
     torch.cuda.synchronize()
     fa.reset_launch_counts()
@@ -2201,10 +2418,26 @@ def phase_guided(torch, fa, attention):
         fail(f"guided: the energy's forward and backward launched {fa.launch_counts}")
     if not torch.isfinite(grad).all():
         fail("guided: non-finite energy gradient")
-    energy_ms = cuda_time_ms(lambda: energy_grad(g.energy_fn, x, p, t), reps=10, warmup=1)
-    say(f"guided: energy forward + backward (decode 64x64x4 -> 512x512x3, ViT-B/32) "
-        f"{energy_ms:.3f} ms median by CUDA events; no kernel launch; max|dE/dp| "
-        f"{float(grad.abs().max()):.3e}")
+    prof = guided_probe.energy_profile(g)
+    top = list(prof["eager_kinds"].items())[:8]
+    say(f"guided: energy forward + backward (decode 64x64x4 -> 512x512x3, ViT-B/32) eager: "
+        f"host enqueue {prof['eager_host_ms']:.3f} ms, device span "
+        f"{prof['eager_device_ms']:.3f} ms per call, {prof['eager_launches']:.0f} launches; "
+        f"{prof['gflop']:.1f} GFLOP, {prof['weight_and_io_mb']:.1f} MB of weights and "
+        f"inputs: bound {prof['bound_ms']:.3f} ms by {prof['bound_by']}; graph: capture "
+        f"{prof['capture_s']:.3f} s, replay {prof['replay_ms']:.3f} ms, graphed call host "
+        f"{prof['graphed_host_ms']:.3f} ms, device span {prof['graphed_device_ms']:.3f} ms; "
+        f"max|dE/dp| {float(grad.abs().max()):.3e} ({card_name()})")
+    say(f"guided: eager energy by kernel kind (device ms, launches per call): "
+        + "; ".join(f"{k} {v['ms']:.3f} ms x{v['launches']:.0f}" for k, v in top))
+    # the bound: the eager gradient's own spread (three calls against a
+    # first), ENERGY_SPREAD_FACTOR times over, or fp32 rounding where the
+    # atomics happen to agree
+    energy_bound = max(ENERGY_SPREAD_FACTOR * prof["eager_spread"], ENERGY_FLOOR)
+    graphed_program(torch, "program [guided energy gradient, batch 1, 512 px]", g.energy_fn,
+                    "grad", (x, p, t), energy_bound,
+                    f"{ENERGY_SPREAD_FACTOR}x the eager gradients' spread "
+                    f"{prof['eager_spread']:.3e}: the resize's backward adds with atomics")
 
     # (a) the chains, plain and guided in turns, counted
     calls = [0]
@@ -2216,40 +2449,59 @@ def phase_guided(torch, fa, attention):
 
     g.model_fn = counted
     reset_peak(torch)
-    times, out, counts = {"plain": [], "guided": []}, {}, {}
-    for name in ("plain", "guided", "guided", "plain"):
+    times, out, counts = {"plain": [], "guided": [], "eager energy": []}, {}, {}
+    for name in ("plain", "guided", "eager energy", "eager energy", "guided", "plain"):
         calls[0] = 0
         fa.reset_launch_counts()
+        if name == "eager energy":        # the guided chain with the energy eager
+            g.energy_fn.grad = g.energy_fn.grad_eager
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         z0 = g.plain() if name == "plain" else g.guided(GUIDED_WEIGHT)
         torch.cuda.synchronize()
         times[name].append(time.perf_counter() - t0)
+        g.energy_fn.__dict__.pop("grad", None)
         counts.setdefault(name, (calls[0], dict(fa.launch_counts)))
-        out[name] = z0
+        out.setdefault(name, []).append(z0)
     chains_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = guided_launches(spec, fa.attention_route, STEPS)
     for name, (n, c) in counts.items():
         if n != STEPS or any(c[k] != want.get(k, 0) for k in c):
             fail(f"guided: the {name} chain made {n} UNet calls and launched {c}; expected "
                  f"{STEPS} and {want}")
-    if not torch.isfinite(out["guided"]).all():
+    if not torch.isfinite(out["guided"][0]).all():
         fail("guided: non-finite z0")
+    # the graphed energy's chains against the eager energy's, bounded by
+    # ENERGY_SPREAD_FACTOR times the spread of two chains of one kind (the
+    # atomics' differences grow over the 50 steps)
+    spread50 = max(rel_diff(torch, out[k][1:], out[k][:1]) for k in ("guided", "eager energy"))
+    rel_e = max(rel_diff(torch, [z], [e]) for z in out["guided"] for e in out["eager energy"])
+    bound50 = max(ENERGY_SPREAD_FACTOR * spread50, ENERGY_FLOOR)
+    if not rel_e <= bound50:
+        fail(f"guided: the 50-step chain with the graphed energy differs from the eager "
+             f"energy's by {rel_e} of max|z0| (bound {bound50}: {ENERGY_SPREAD_FACTOR}x the "
+             f"spread of two chains of one kind {spread50})")
+    out = {name: zs[0] for name, zs in out.items()}
     zero = g.guided(0.0)
     rel0 = float((zero - out["plain"]).abs().max() / out["plain"].abs().max())
     if not rel0 <= WEIGHT0_REL_BOUND:
         fail(f"guided: weight 0 differs from the plain replay by {rel0} of max|z0|")
     g.model_fn = model_fn
-    plain_s, guided_s = (sorted(times[k])[0] for k in ("plain", "guided"))
+    plain_s, guided_s, eager_s = (sorted(times[k])[0]
+                                  for k in ("plain", "guided", "eager energy"))
     dz0 = float((out["guided"] - out["plain"]).abs().mean())
     say(f"guided: launches per chain {counts['guided'][1]} = {STEPS} UNet calls x "
         f"{launches_per_call(spec, fa.attention_route)}; weight 0 vs plain: {rel0:.3e} of "
-        f"max|z0| (bound {WEIGHT0_REL_BOUND:.0e})")
-    say(f"guided: plain {times['plain']} s/chain, guided {times['guided']} s/chain; best "
-        f"plain {plain_s:.3f} s ({1e3 * plain_s / STEPS:.2f} ms/step), guided "
-        f"{guided_s:.3f} s ({1e3 * guided_s / STEPS:.2f} ms/step), ratio "
-        f"{guided_s / plain_s:.3f}; mean|dz0| {dz0:.4e}; peak device memory of the "
-        f"chains {chains_peak:.2f} GiB")
+        f"max|z0| (bound {WEIGHT0_REL_BOUND:.0e}); graphed energy vs eager energy, 50 steps: "
+        f"{rel_e:.3e} of max|z0| (bound {bound50:.3e}; two chains of one kind differ by "
+        f"up to {spread50:.3e})")
+    say(f"guided: plain {times['plain']} s/chain, guided {times['guided']} s/chain, guided "
+        f"with the eager energy {times['eager energy']} s/chain; best plain {plain_s:.3f} s "
+        f"({1e3 * plain_s / STEPS:.2f} ms/step), guided {guided_s:.3f} s "
+        f"({1e3 * guided_s / STEPS:.2f} ms/step), eager energy {eager_s:.3f} s "
+        f"({1e3 * eager_s / STEPS:.2f} ms/step); guided / plain {guided_s / plain_s:.3f}; "
+        f"mean|dz0| {dz0:.4e}; peak device memory of the chains {chains_peak:.2f} GiB "
+        f"({card_name()})")
 
     # the guided chain cut to 10 steps, its UNet calls graphed, against eager
     sched10 = g.core.make_ddim_schedule(10, guided_probe.ETA)
@@ -2260,8 +2512,9 @@ def phase_guided(torch, fa, attention):
                                     weight)
 
     for weight, bound in ((0.0, None), (GUIDED_WEIGHT, GUIDED_GRAPH_REL_BOUND)):
-        graphed_chain(torch, f"graphs [guided chain's UNet calls, weight {weight}]", g.core,
-                      ("apply_model",), functools.partial(guided_cut, weight), 10, bound)
+        graphed_chain(torch, f"graphs [guided chain, UNet and energy, weight {weight}]",
+                      g.core, ("apply_model",), functools.partial(guided_cut, weight), 10,
+                      bound, programs=[(g.energy_fn, ("grad",))])
 
     q = torch.randn((2, 4096, 320), device="cuda", dtype=torch.bfloat16, requires_grad=True)
     with torch.enable_grad():
@@ -2287,9 +2540,15 @@ def phase_guided(torch, fa, attention):
         one = core.decode_first_stage(z)
         core.split_input_params = SplitInputParams(**TILED_SPLIT)
         core.first_stage.decode = spy
-        tiled = core.decode_first_stage(z)
+        tiled = core.decode_first_stage_eager(z)
         del core.first_stage.decode
+        graphed_program(torch, "program [SD: tiled KL-f8 decode, 9 patches of 32x32x4]",
+                        core, "decode_first_stage", (z,))
         tiled_grad = energy_grad(g.energy_fn, x, z, t)
+        # the energy reads the tiling: another setting, another graph
+        graphed_program(torch, "program [guided energy gradient through the tiled decode]",
+                        g.energy_fn, "grad", (x, z, t), energy_bound,
+                        "the untiled gradient's bound")
         tiled_ms = cuda_time_ms(lambda: core.decode_first_stage(z), reps=5, warmup=1)
     finally:
         core.split_input_params = None
@@ -2400,7 +2659,7 @@ def phase_guided(torch, fa, attention):
         return z, cut.generate(z)
 
     graphed_chain(torch, "graphs [plain inversion and sampling, FFHQ LDM fp32]", core_f,
-                  ("apply_model",), invert_sample, 20)
+                  ("apply_model",), invert_sample, 20, programs=[(core_f, FIRST_STAGE)])
     del core_f, pipe, runs, cut
     gc.collect()
     torch.cuda.empty_cache()

@@ -10,6 +10,7 @@ candidate ensemble; candidate images are embedded in micro-batches.
 
 from __future__ import annotations
 
+import functools
 from typing import Mapping, Optional, Tuple
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 from cyclediffusion_tpu_torch.convert.from_jax import flax_to_state_dict, from_openai_state_dict
 from cyclediffusion_tpu_torch.models.clip import CLIPConfig, CLIPModel, clip_preprocess
 from cyclediffusion_tpu_torch.models.nn import fill_random_, resolve_device
+from cyclediffusion_tpu_torch.runtime import graphs
 
 
 def normalize(x):
@@ -25,8 +27,20 @@ def normalize(x):
     return x / torch.linalg.norm(x, dim=-1, keepdim=True)
 
 
+def _embed_image(model: CLIPModel, resolution: int, dtype, images01):
+    x = clip_preprocess(images01.to(dtype), resolution)
+    return normalize(model.encode_image(x).float())
+
+
+def _embed_text(model: CLIPModel, ids):
+    return normalize(model.encode_text(ids).float())
+
+
 class CLIPScorer:
-    """A frozen :class:`CLIPModel` on one device, in one dtype."""
+    """A frozen :class:`CLIPModel` on one device, in one dtype.  On a CUDA
+    device :meth:`embed_image` and :meth:`embed_text` replay CUDA graphs of
+    the towers (JAX's jitted ``_embed_image`` and ``_embed_text``), one per
+    input shape, in one pool; the ``*_eager`` twins launch eagerly."""
 
     def __init__(self, config: Optional[CLIPConfig] = None, device="cuda",
                  dtype=torch.float32):
@@ -36,6 +50,12 @@ class CLIPScorer:
         with self.device:
             self.model = CLIPModel(self.config)
         self.model.to(dtype=dtype).eval().requires_grad_(False)
+        pool = graphs.GraphPool()
+        self._graphed_image = graphs.GraphedCall(
+            functools.partial(_embed_image, self.model, self.config.image_resolution, dtype),
+            pool)
+        self._graphed_text = graphs.GraphedCall(functools.partial(_embed_text, self.model),
+                                                pool)
 
     @classmethod
     def random_init(cls, seed: int = 0, config: Optional[CLIPConfig] = None,
@@ -75,24 +95,35 @@ class CLIPScorer:
             obj = obj["state_dict"]
         return cls.from_openai_state_dict(obj, **kw)
 
-    @torch.no_grad()
     def embed_image(self, images01) -> torch.Tensor:
         """NHWC [0, 1] images -> unit-norm fp32 embeddings (B, embed_dim)."""
-        images = torch.as_tensor(images01, device=self.device).to(self.dtype)
-        x = clip_preprocess(images, self.config.image_resolution)
-        return normalize(self.model.encode_image(x).float())
+        return self._graphed_image(torch.as_tensor(images01, device=self.device))
+
+    @torch.no_grad()
+    def embed_image_eager(self, images01) -> torch.Tensor:
+        """:meth:`embed_image` as eager launches, never a graph."""
+        return _embed_image(self.model, self.config.image_resolution, self.dtype,
+                            torch.as_tensor(images01, device=self.device))
 
     def embed_images_microbatched(self, images01, micro_batch: int = 64) -> torch.Tensor:
         """:meth:`embed_image` over a large flat batch, ``micro_batch``
-        images per tower call."""
+        images per tower call.  A shorter last micro-batch is a second
+        graph: padding it would embed the real rows at another batch, and
+        so possibly round them otherwise."""
         return torch.cat([self.embed_image(images01[i:i + micro_batch])
                           for i in range(0, images01.shape[0], micro_batch)])
 
-    @torch.no_grad()
     def embed_text(self, token_ids) -> torch.Tensor:
         """(B, T) token ids -> unit-norm fp32 embeddings (B, embed_dim)."""
-        ids = torch.as_tensor(np.asarray(token_ids), dtype=torch.int64, device=self.device)
-        return normalize(self.model.encode_text(ids).float())
+        return self._graphed_text(self._token_ids(token_ids))
+
+    @torch.no_grad()
+    def embed_text_eager(self, token_ids) -> torch.Tensor:
+        """:meth:`embed_text` as eager launches, never a graph."""
+        return _embed_text(self.model, self._token_ids(token_ids))
+
+    def _token_ids(self, token_ids) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(token_ids), dtype=torch.int64, device=self.device)
 
 
 class DirectionalCLIP:

@@ -22,6 +22,7 @@ so a number that is not clean-fid's is never read as one.
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import pickle
@@ -33,12 +34,15 @@ import scipy.linalg
 import torch
 import torch.nn.functional as F
 
+from cyclediffusion_tpu_torch.runtime import graphs
+
 logger = logging.getLogger(__name__)
 
 INCEPTION_CKPT_ENV = "CYCLEDIFFUSION_INCEPTION_CKPT"
 BATCH = 32
 
-# the converted Inception module, keyed by (checkpoint path, device)
+# (the converted Inception module, whether it is native, its graphed
+# features or None), keyed by (checkpoint path, device)
 _INCEPTION_CACHE: dict = {}
 
 
@@ -133,27 +137,65 @@ def _load_inception(path: str, device):
     return model.to(device).eval().requires_grad_(False), True
 
 
-@torch.no_grad()
-def _inception_features(images: np.ndarray, device) -> Optional[np.ndarray]:
-    """pool3 features of the asset's Inception, or None without the asset."""
+def padded_batches(n: int, size: int = BATCH):
+    """(start, stop, pad) of each batch of ``n`` images, ``size`` at a time,
+    as JAX pads them "to avoid a second compile": where there is more than
+    one batch, a short last batch is padded to ``size`` by repeating its
+    last image ``pad`` times, and those rows' features are dropped."""
+    out = []
+    for i in range(0, n, size):
+        stop = min(i + size, n)
+        out.append((i, stop, size - (stop - i) if stop - i < size and n > size else 0))
+    return out
+
+
+def batched_features(fn: Callable[[torch.Tensor], torch.Tensor], images: torch.Tensor,
+                     size: int = BATCH) -> torch.Tensor:
+    """``fn`` over ``images`` in :func:`padded_batches`, the padded rows'
+    features dropped -> (N, ...) on ``images``' device: one batch shape for
+    every call where there is more than one batch."""
+    out = []
+    for i, stop, pad in padded_batches(images.shape[0], size):
+        batch = images[i:stop]
+        if pad:
+            batch = torch.cat([batch, batch[-1:].expand((pad,) + batch.shape[1:])])
+        feats = fn(batch)
+        out.append(feats[:-pad] if pad else feats)
+    return torch.cat(out)
+
+
+def _native_features(model, images01: torch.Tensor) -> torch.Tensor:
     from cyclediffusion_tpu_torch.models.inception import inception_pool3_features
 
+    return inception_pool3_features(model, resize_299_bicubic(images01))
+
+
+@torch.no_grad()
+def _inception_features(images: np.ndarray, device) -> Optional[np.ndarray]:
+    """pool3 features of the asset's Inception, or None without the asset.
+    A state dict's module replays a CUDA graph of the resize and the tower
+    on the card (JAX's jitted ``inception_pool3_features``), over
+    :func:`padded_batches`, so one graph serves every batch.  A torchscript
+    archive runs its own graph eagerly and unpadded, as JAX's does: what it
+    launches is its own."""
     path = os.environ.get(INCEPTION_CKPT_ENV)
     if not path or not os.path.exists(path):
         return None
     key = (path, str(torch.device(device)))
     if key not in _INCEPTION_CACHE:
         _INCEPTION_CACHE.clear()
-        _INCEPTION_CACHE[key] = _load_inception(path, device)
-    model, native = _INCEPTION_CACHE[key]
-    out = []
-    for i in range(0, images.shape[0], BATCH):
-        batch = torch.as_tensor(images[i:i + BATCH], dtype=torch.float32, device=device)
-        if native:
-            out.append(inception_pool3_features(model, resize_299_bicubic(batch)).cpu())
-        else:
-            out.append(model(batch.permute(0, 3, 1, 2) * 255.0).float().cpu())
-    return torch.cat(out).numpy().astype(np.float64)
+        model, native = _load_inception(path, device)
+        graphed = (graphs.GraphedCall(functools.partial(_native_features, model))
+                   if native else None)
+        _INCEPTION_CACHE[key] = (model, native, graphed)
+    model, native, graphed = _INCEPTION_CACHE[key]
+    batches = torch.as_tensor(images, dtype=torch.float32, device=device)
+    if native:
+        feats = batched_features(graphed, batches)
+    else:
+        feats = torch.cat([model(batches[i:i + BATCH].permute(0, 3, 1, 2) * 255.0).float()
+                           for i in range(0, batches.shape[0], BATCH)])
+    return feats.cpu().numpy().astype(np.float64)
 
 
 def get_feature_extractor(device="cuda") -> Callable[[np.ndarray], np.ndarray]:

@@ -16,6 +16,7 @@ names onto them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -153,6 +154,13 @@ def clip_preprocess(images: torch.Tensor, resolution: int = 224) -> torch.Tensor
         images = F.interpolate(images.permute(0, 3, 1, 2), size=(resolution, resolution),
                                mode="bicubic", antialias=True, align_corners=False)
         images = images.permute(0, 2, 3, 1).clamp(0.0, 1.0)
-    mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=images.dtype, device=images.device)
-    std = torch.tensor(CLIP_IMAGE_STD, dtype=images.dtype, device=images.device)
+    mean, std = _image_stats(images.dtype, images.device)
     return (images - mean) / std
+
+
+@functools.lru_cache(maxsize=None)
+def _image_stats(dtype, device):
+    """CLIP's channel mean and std in ``dtype`` on ``device``, copied there
+    once: a host-to-device copy cannot run inside a CUDA graph's capture."""
+    return (torch.tensor(CLIP_IMAGE_MEAN, dtype=dtype, device=device),
+            torch.tensor(CLIP_IMAGE_STD, dtype=dtype, device=device))

@@ -19,6 +19,7 @@ reference's own operators, row-major patch order) inside.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -154,9 +155,17 @@ def split_first_stage_apply(
         out = torch.cat([fn(flat[i:i + mb]) for i in range(0, n + pad, mb)], dim=0)[:n]
     out = out.reshape((b, Ly * Lx) + tuple(out.shape[1:]))
 
+    w_t, norm = _device_weights(out_hw, oks, ostride, Ly, Lx, p, out.device)
+    folded = fold_nhwc(out.float() * w_t[None, :, :, :, None], out_hw, ostride)
+    return (folded / norm[None, :, :, None]).to(out.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_weights(out_hw, oks, ostride, Ly: int, Lx: int, p: SplitInputParams, device):
+    """(patch weights, folded normaliser) on ``device``, copied there once
+    per geometry: a host-to-device copy waits for the stream, and cannot run
+    inside a CUDA graph's capture, so a graphed tiled call reads the copy
+    its warm-up made."""
     w = patch_weighting(oks, Ly, Lx, p)
     norm = fold_normalization(out_hw, oks, ostride, w)
-    out_dtype = out.dtype
-    w_t = torch.from_numpy(w).to(out.device)[None, :, :, :, None]
-    folded = fold_nhwc(out.float() * w_t, out_hw, ostride)
-    return (folded / torch.from_numpy(norm).to(out.device)[None, :, :, None]).to(out_dtype)
+    return torch.from_numpy(w).to(device), torch.from_numpy(norm).to(device)

@@ -231,6 +231,31 @@ def _unet_reuse(unet, dtype, x, t, context, encoder_cache):
     return _unet_cached(unet, dtype, x, t, context, encoder_cache)[0]
 
 
+def _first_stage_apply(fn, x, sip: Optional[SplitInputParams], spec: LatentCoreSpec,
+                       upsample: bool):
+    """``fn(x)``, or tiled over ``sip`` where that is set, at ``sip.vqf``
+    where given, else the model's factor 2^(levels - 1)."""
+    if sip is None or not sip.patch_distributed_vq:
+        return fn(x)
+    factor = 2 ** (len(spec.first_stage.ch_mult) - 1) if sip.vqf is None else sip.vqf
+    return split_first_stage_apply(fn, x, sip, scale=factor, upsample=upsample)
+
+
+def _encode_first_stage(first_stage, spec: LatentCoreSpec, dtype, image_m11, noise, sip):
+    image = image_m11.to(dtype)
+    if spec.fs_kind == "vq":
+        z = _first_stage_apply(first_stage.encode, image, sip, spec, False)
+        return z.float() * spec.scale_factor
+    moments = _first_stage_apply(first_stage.encode_moments, image, sip, spec, False).float()
+    return DiagonalGaussian(moments).sample(noise) * spec.scale_factor
+
+
+def _decode_first_stage(first_stage, spec: LatentCoreSpec, dtype, z, sip):
+    z = z / spec.scale_factor
+    z = z if spec.fs_kind == "vq" else z.to(dtype)
+    return _first_stage_apply(first_stage.decode, z, sip, spec, True).float()
+
+
 class LatentDiffusionCore:
     """The model's modules (UNet, first stage and, for a text model, the
     conditioning model) on one device, in one dtype, frozen.
@@ -257,8 +282,11 @@ class LatentDiffusionCore:
                                    "bert": LDMBertEncoder}[spec.cond_kind](spec.cond_cfg)
         for m in self.modules():
             m.to(dtype=dtype).eval().requires_grad_(False)
-        # the UNet's calls as CUDA graphs (functions of the UNet, not of the
-        # core, so that no cycle keeps a deleted core's memory alive)
+        # the UNet's, the first stage's and the text encoder's calls as CUDA
+        # graphs (functions of the modules, not of the core, so that no cycle
+        # keeps a deleted core's memory alive), in one pool: they replay one
+        # after another on one stream and each result is copied out at once,
+        # so the pool is the largest capture's, not the sum of them
         pool = graphs.GraphPool()
         self._graphed_apply = graphs.GraphedCall(
             functools.partial(_unet_eps, self.unet, dtype), pool)
@@ -266,6 +294,12 @@ class LatentDiffusionCore:
             functools.partial(_unet_cached, self.unet, dtype), pool)
         self._graphed_reuse = graphs.GraphedCall(
             functools.partial(_unet_reuse, self.unet, dtype), pool)
+        self._graphed_encode = graphs.GraphedCall(
+            functools.partial(_encode_first_stage, self.first_stage, spec, dtype), pool)
+        self._graphed_decode = graphs.GraphedCall(
+            functools.partial(_decode_first_stage, self.first_stage, spec, dtype), pool)
+        self._graphed_cond = (None if self.cond_model is None
+                              else graphs.GraphedCall(self.cond_model, pool))
 
     def modules(self):
         return tuple(m for _, m in self._named_modules())
@@ -389,57 +423,62 @@ class LatentDiffusionCore:
         """:meth:`apply_model_cached` as eager launches, never a graph."""
         return _unet_cached(self.unet, self.dtype, x, t, context, encoder_cache)
 
-    @torch.no_grad()
     def get_learned_conditioning(self, token_ids):
+        """(B, T) token ids -> the text context (B, T, width) in the core
+        dtype.  The ids are copied to the device first; on a CUDA device the
+        text encoder then replays a CUDA graph of its call (JAX's
+        ``_cond_jit``), one per (B, T)."""
+        return self._graphed_cond(self._token_ids(token_ids))
+
+    @torch.no_grad()
+    def get_learned_conditioning_eager(self, token_ids):
+        """:meth:`get_learned_conditioning` as eager launches, never a graph."""
+        return self.cond_model(self._token_ids(token_ids))
+
+    def _token_ids(self, token_ids) -> torch.Tensor:
         if self.cond_model is None:
             raise ValueError(f"{self.spec.name} has no conditioning model")
-        ids = torch.as_tensor(np.asarray(token_ids), dtype=torch.int64,
-                              device=self.device)
-        return self.cond_model(ids)
+        return torch.as_tensor(np.asarray(token_ids), dtype=torch.int64, device=self.device)
 
-    @property
-    def _vqf(self) -> int:
-        """The first stage's spatial factor, 2^(levels - 1)."""
-        return 2 ** (len(self.spec.first_stage.ch_mult) - 1)
-
-    def _split_scale(self, sip: SplitInputParams) -> int:
-        """``sip.vqf`` where given, else the model's factor."""
-        return self._vqf if sip.vqf is None else sip.vqf
-
-    def _first_stage_apply(self, fn, x, upsample: bool):
-        """``fn(x)``, or tiled over ``split_input_params`` where that is set
-        (read at each call)."""
-        sip = self.split_input_params
-        if sip is None or not sip.patch_distributed_vq:
-            return fn(x)
-        return split_first_stage_apply(fn, x, sip, scale=self._split_scale(sip),
-                                       upsample=upsample)
-
-    @torch.no_grad()
     def encode_first_stage(self, image_m11, noise=None):
         """[-1,1] NHWC image -> x0 latent (fp32), times the scale factor: the
         KL posterior sampled with ``noise``, or the VQ encoder's
         pre-quantisation latent (no noise).  Tiled with
         ``split_input_params``: a KL first stage's moments are tiled, then the
-        stitched posterior is sampled."""
-        image = image_m11.to(self.dtype)
-        if self.spec.fs_kind == "vq":
-            z = self._first_stage_apply(self.first_stage.encode, image, upsample=False)
-            return z.float() * self.spec.scale_factor
-        if noise is None:
+        stitched posterior is sampled.  On a CUDA device the call replays a
+        CUDA graph (JAX's ``_x0_jit``), one per signature: the image's and
+        the noise's shapes (a VQ encode's noise is None) and the tiling."""
+        if self.spec.fs_kind == "kl" and noise is None:
             raise ValueError("the KL first stage's posterior sample needs noise")
-        moments = self._first_stage_apply(self.first_stage.encode_moments, image,
-                                          upsample=False).float()
-        return DiagonalGaussian(moments).sample(noise) * self.spec.scale_factor
+        noise = noise if self.spec.fs_kind == "kl" else None
+        return self._graphed_encode(image_m11, noise, self.split_input_params)
+
+    @torch.no_grad()
+    def encode_first_stage_eager(self, image_m11, noise=None):
+        """:meth:`encode_first_stage` as eager launches, never a graph."""
+        if self.spec.fs_kind == "kl" and noise is None:
+            raise ValueError("the KL first stage's posterior sample needs noise")
+        return _encode_first_stage(self.first_stage, self.spec, self.dtype, image_m11,
+                                   noise, self.split_input_params)
 
     def decode_first_stage(self, z):
         """Latent -> [-1,1] NHWC image (fp32), tiled with
         ``split_input_params``.  The VQ decoder quantises the fp32 latent,
-        then runs in the core dtype.  Differentiable in ``z`` (the weights
-        are frozen, so a ``z`` that needs no gradient builds no graph)."""
-        z = z / self.spec.scale_factor
-        z = z if self.spec.fs_kind == "vq" else z.to(self.dtype)
-        return self._first_stage_apply(self.first_stage.decode, z, upsample=True).float()
+        then runs in the core dtype.  On a CUDA device the call replays a
+        CUDA graph (JAX's ``_decode_jit``), one per signature: the latent's
+        shape and the tiling.  Differentiable in ``z``: a ``z`` that requires
+        a gradient, in grad mode, takes :meth:`decode_first_stage_eager`
+        (a replay has no backward), as the guided energy does."""
+        if torch.is_grad_enabled() and z.requires_grad:
+            return self.decode_first_stage_eager(z)
+        return self._graphed_decode(z, self.split_input_params)
+
+    def decode_first_stage_eager(self, z):
+        """:meth:`decode_first_stage` as eager launches, never a graph, and
+        differentiable in ``z`` (the weights are frozen, so a ``z`` that
+        needs no gradient builds no autograd graph)."""
+        return _decode_first_stage(self.first_stage, self.spec, self.dtype, z,
+                                   self.split_input_params)
 
     def make_ddim_schedule(self, custom_steps: int, eta: float):
         betas = schedule.make_beta_schedule(

@@ -30,7 +30,11 @@ is what is captured.  :class:`GraphedCall` wraps ``fn(*args)``:
   fast mode's cache is kept across the reuse calls that follow its key
   call, and callers hold an eps across calls).
 * Graphs of one model share one :class:`GraphPool` (replays are sequential
-  on the current stream).
+  on the current stream, and each result is copied out before the next
+  replay, so one pool sized by the largest capture serves them all).
+* Frozen dataclasses (a tiled first stage's ``SplitInputParams``) are part
+  of the signature field by field, as JAX reads ``split_input_params`` at
+  trace time: another setting is another graph.
 
 The kernel wrappers of ``ops.flash_attention`` count their launches in
 Python, so a replay would count nothing: a capture records what it added
@@ -39,12 +43,19 @@ nothing), and each replay adds it once.
 
 Gradients: a replay cannot be differentiated.  In grad mode an input that
 requires a gradient is refused (on every device, as the kernels refuse
-one), and the call runs under ``torch.no_grad()``.
+one), and the call runs under ``torch.no_grad()``.  A function that takes
+its own input-only gradient inside, as ``jax.grad`` sits inside the JAX
+package's compiled guided step, is :class:`GraphedGrad`: the forward and
+the backward are captured together (the autograd engine runs a backward on
+its forward's stream, which is the capture stream), and the autograd graph
+built during the capture is freed when the gradient is taken, at the
+capture's end.  Its warm-up runs the backward too, twice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -68,8 +79,15 @@ def _structure(obj, leaves: list):
         return (torch.Tensor, tuple(obj.shape), obj.dtype, obj.device)
     if obj is None or isinstance(obj, (bool, int, float, str)):
         return (type(obj), obj)
-    raise TypeError(f"a graphed call takes tensors, tuples, lists, None and Python "
-                    f"scalars, not {type(obj).__name__}")
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        if not type(obj).__dataclass_params__.frozen:
+            raise TypeError(f"a graphed call takes frozen dataclasses only, not "
+                            f"{type(obj).__name__}")
+        return (dataclasses.dataclass, type(obj),
+                tuple((f.name, _structure(getattr(obj, f.name), leaves))
+                      for f in dataclasses.fields(obj)))
+    raise TypeError(f"a graphed call takes tensors, tuples, lists, frozen dataclasses, "
+                    f"None and Python scalars, not {type(obj).__name__}")
 
 
 def signature(args) -> tuple:
@@ -91,6 +109,8 @@ def rebuild(key: tuple, leaves) -> Any:
             return next(it)
         if kind in (tuple, list):
             return kind(build(n) for n in node[1])
+        if kind is dataclasses.dataclass:
+            return node[1](**{name: build(n) for name, n in node[2]})
         return node[1]
     return build(key[0])
 
@@ -129,7 +149,8 @@ class GraphPool:
 class Captured:
     """One captured call: its graph, static inputs (the tensor leaves of the
     arguments, in order) and outputs, the kernel launches a replay makes, the
-    seconds the capture took, and the replays so far."""
+    seconds the capture took, the replays so far, and the host seconds of
+    the warm-up before it (set by :class:`GraphedCall`)."""
 
     graph: Any
     inputs: List[torch.Tensor]
@@ -137,6 +158,7 @@ class Captured:
     launches: Dict[str, int]
     seconds: float
     replays: int = 0
+    warm_up_seconds: float = 0.0
 
     def replay(self) -> None:
         """Replay on the current stream; counts its kernels' launches."""
@@ -145,16 +167,31 @@ class Captured:
         self.replays += 1
 
 
-def warm_up(fn: Callable, args=()):
-    """``fn(*args)`` on a side stream, which the current stream then waits
-    for -> its result.  Run before :func:`capture`: whatever a first call
-    does once (an ``nvcc`` build, a library load, a cuDNN or cuBLAS
-    algorithm choice, a workspace) must not happen inside a capture."""
-    current = torch.cuda.current_stream()
-    side = torch.cuda.Stream()
+# one side stream per device for every warm-up and capture: the memory one
+# warm-up frees stays cached for the next one's (a fresh stream each time
+# would leave it to the streams before)
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream():
+    """The current device's side stream for warm-ups and captures."""
+    device = torch.cuda.current_device()
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream()
+    return _SIDE_STREAMS[device]
+
+
+def warm_up(fn: Callable, args=(), calls: int = 1):
+    """``fn(*args)`` ``calls`` times on the side stream, which the current
+    stream then waits for -> the last result.  Run before :func:`capture`:
+    whatever a first call does once (an ``nvcc`` build, a library load, a
+    cuDNN or cuBLAS algorithm choice, a workspace, the autograd engine's
+    device thread) must not happen inside a capture."""
+    current, side = torch.cuda.current_stream(), _side_stream()
     side.wait_stream(current)
     with torch.cuda.stream(side):
-        out = fn(*args)
+        for _ in range(calls):
+            out = fn(*args)
     current.wait_stream(side)
     # the result was allocated on the side stream and is read on this one
     map_tensors(lambda t: t.record_stream(current), out)
@@ -165,14 +202,24 @@ def capture(fn: Callable, args=(), pool: Optional[GraphPool] = None) -> Captured
     """``fn(*args)`` captured into a CUDA graph whose static inputs are
     fresh contiguous copies of ``args``' tensors (a closure's tensors are
     read by address).  The launches it counted are taken back out of
-    ``launch_counts`` and kept as a replay's."""
+    ``launch_counts`` and kept as a replay's.  The capture runs on the side
+    stream, as ``torch.cuda.graph`` runs one, but neither waits for the
+    device nor empties the allocator's cache first: a chain's first call of
+    each program is set-up that the next eager work should not pay for."""
     t0 = time.perf_counter()
     key, leaves = signature(args)
     inputs = [t.detach().clone(memory_format=torch.contiguous_format) for t in leaves]
     before = dict(fa.launch_counts)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=None if pool is None else pool.handle()):
-        output = fn(*rebuild(key, inputs))
+    current, side = torch.cuda.current_stream(), _side_stream()
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        graph.capture_begin(*(() if pool is None else (pool.handle(),)))
+        try:
+            output = fn(*rebuild(key, inputs))
+        finally:
+            graph.capture_end()
+    current.wait_stream(side)
     launches = count_delta(before, fa.launch_counts)
     fa.launch_counts.update(before)
     return Captured(graph, inputs, output, launches, time.perf_counter() - t0)
@@ -181,6 +228,8 @@ def capture(fn: Callable, args=(), pool: Optional[GraphPool] = None) -> Captured
 class GraphedCall:
     """``fn(*args)``, replayed as one CUDA graph per signature on CUDA
     tensors (see the module's docstring); ``plain`` is ``fn`` itself."""
+
+    warm_up_calls = 1
 
     def __init__(self, fn: Callable, pool: Optional[GraphPool] = None):
         self.plain = fn
@@ -205,8 +254,11 @@ class GraphedCall:
             with torch.cuda.device(device):
                 graph = self.graphs.get(key)
                 if graph is None:
-                    out = warm_up(self.plain, args)
-                    self.graphs[key] = capture(self.plain, args, self.pool)
+                    t0 = time.perf_counter()
+                    out = warm_up(self.plain, args, self.warm_up_calls)
+                    warm_s = time.perf_counter() - t0
+                    graph = self.graphs[key] = capture(self.plain, args, self.pool)
+                    graph.warm_up_seconds = warm_s
                     return out
                 for static, t in zip(graph.inputs, leaves):
                     static.copy_(t)
@@ -216,5 +268,32 @@ class GraphedCall:
     @property
     def capture_seconds(self) -> float:
         """Seconds spent capturing, over every signature so far (the
-        warm-ups, each one call, are not in it)."""
+        warm-ups are not in it: each graph's ``warm_up_seconds``)."""
         return sum(g.seconds for g in self.graphs.values())
+
+
+def input_grad(fn: Callable, wrt: int, *args) -> torch.Tensor:
+    """d fn(*args) / d args[wrt] of a scalar ``fn``, from a detached leaf, in
+    grad mode whatever the caller's (no gradient reaches the other
+    arguments or any weight)."""
+    p = args[wrt].detach().requires_grad_(True)
+    with torch.enable_grad():
+        value = fn(*args[:wrt], p, *args[wrt + 1:])
+        return torch.autograd.grad(value, p)[0]
+
+
+class GraphedGrad(GraphedCall):
+    """:func:`input_grad` of ``fn`` with respect to argument ``wrt``, forward
+    and backward replayed as one CUDA graph per signature on CUDA tensors
+    (the counterpart of ``jax.grad`` inside a compiled step).  Every tensor
+    argument is an input, copied at each replay; tensors that ``fn`` closes
+    over are read by address (fixed for the life of ``fn``).  The result is
+    a copy of the gradient.  The warm-up runs forward and backward twice,
+    so that the backward's first-call work (cuDNN's and cuBLAS's backward
+    algorithms, the autograd engine's device thread) is done before the
+    capture.  On CPU tensors it is :func:`input_grad` itself."""
+
+    warm_up_calls = 2
+
+    def __init__(self, fn: Callable, wrt: int, pool: Optional[GraphPool] = None):
+        super().__init__(functools.partial(input_grad, fn, wrt), pool)

@@ -10,19 +10,24 @@ respect to x_t, it has no 1/sqrt(a_bar) amplification at the noisy steps.
 
 The UNet runs under ``no_grad``: no autograd graph ever reaches it (its
 attention kernels define no backward), and a core's ``apply_model`` replays
-its CUDA graph there.  The energy's forward and backward run eagerly; its
-autograd graph runs from a detached copy of pred_x0 and is freed when its
-gradient is taken, before the next step.
+its CUDA graph there.  The energy's gradient is taken from a detached copy
+of pred_x0, and its autograd graph is freed when the gradient is taken,
+before the next step.  On a CUDA device its forward and backward replay one
+CUDA graph (:class:`GraphedEnergy`, ``runtime.graphs.GraphedGrad``), as
+JAX's ``jax.grad`` sits inside the chain's compiled scan; on the CPU the
+gradient is :func:`energy_grad`.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
 
 from cyclediffusion_tpu_torch.ops import steps
 from cyclediffusion_tpu_torch.ops.schedule import DDIMSchedule
+from cyclediffusion_tpu_torch.runtime import graphs
 from cyclediffusion_tpu_torch.samplers.ddim import (
     EpsModel,
     _chain_tables,
@@ -38,9 +43,39 @@ def energy_grad(energy_fn: EnergyFn, x: torch.Tensor, pred_x0: torch.Tensor,
                 t: torch.Tensor) -> torch.Tensor:
     """dE/dpred_x0 at ``pred_x0``, from a detached leaf, in grad mode
     whatever the caller's."""
-    p = pred_x0.detach().requires_grad_(True)
-    with torch.enable_grad():
-        return torch.autograd.grad(energy_fn(x, p, t), p)[0]
+    return graphs.input_grad(energy_fn, 1, x, pred_x0, t)
+
+
+def _with_setting(fn: EnergyFn, x_t, pred_x0, t, setting):
+    return fn(x_t, pred_x0, t)
+
+
+class GraphedEnergy:
+    """An energy with its gradient dE/dpred_x0 replayed as a CUDA graph on
+    the card: :meth:`grad` captures the forward and backward at its first
+    call per signature of ``(x_t, pred_x0, t)``; :meth:`grad_eager` is
+    :func:`energy_grad`.  The graph lives on this object, so that what the
+    energy closes over (its models, its target text feature) is fixed for
+    the graph's life: a new prompt makes a new energy, and so a new graph,
+    in a pool of its own that goes with it.  ``setting()``, where given,
+    returns what else ``fn`` reads that may change between calls (a core's
+    tiling of its first stage): it is part of the graph's signature, so
+    another setting is another graph.  Calling it is calling ``fn``."""
+
+    def __init__(self, fn: EnergyFn, setting: Optional[Callable[[], object]] = None):
+        self.fn = fn
+        self.setting = setting
+        self._graphed_grad = graphs.GraphedGrad(functools.partial(_with_setting, fn), 1)
+
+    def __call__(self, x_t, pred_x0, t):
+        return self.fn(x_t, pred_x0, t)
+
+    def grad(self, x_t, pred_x0, t) -> torch.Tensor:
+        setting = None if self.setting is None else self.setting()
+        return self._graphed_grad(x_t, pred_x0, t, setting)
+
+    def grad_eager(self, x_t, pred_x0, t) -> torch.Tensor:
+        return energy_grad(self.fn, x_t, pred_x0, t)
 
 
 @torch.no_grad()
@@ -57,7 +92,10 @@ def energy_guided_decode(
     temperature: float = 1.0,
 ) -> torch.Tensor:
     """:func:`samplers.ddim_decode` with a per-step energy-gradient shift on
-    the model's eps.  ``eps`` and ``generator`` as there."""
+    the model's eps.  ``eps`` and ``generator`` as there.  The gradient is
+    ``energy_fn.grad`` of a :class:`GraphedEnergy` (its graph kept across
+    chains); any other energy is wrapped in one for this chain."""
+    energy = energy_fn if isinstance(energy_fn, GraphedEnergy) else GraphedEnergy(energy_fn)
     refine_steps = sched.num_steps - skip_steps
     if refine_steps < 1:
         raise ValueError(f"empty chain: refine_steps={refine_steps}")
@@ -69,7 +107,7 @@ def energy_guided_decode(
         t = _t_vec(tb.t[i], bsz, x.device)
         e_t = model_fn(x, t)
         pred_x0 = steps.pred_x0_from_eps(x, e_t, tb.a_t[i], tb.s1ma[i])
-        grad = energy_grad(energy_fn, x, pred_x0, t)
+        grad = energy.grad(x, pred_x0, t)
         e_t = e_t + guidance_weight * (torch.sqrt(tb.a_t[i]) / tb.s1ma[i]) * grad
         x, _ = steps.ddim_step(x, e_t, tb.a_t[i], tb.a_prev[i], tb.sigma[i], tb.s1ma[i],
                                eps_full[i], temperature)

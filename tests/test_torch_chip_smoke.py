@@ -688,3 +688,34 @@ def test_phase_15_checkpoint_round_trip_on_a_tiny_core(smoke, tmp_path):
     n = sum(v.numel() for v in cores[0].state_dict().values())
     assert differ == [] and 2 * n < nbytes < 2 * n + 200_000
     assert write_s > 0 and read_s > 0
+
+
+def test_graphs_of_names_each_owners_graphed_calls(smoke):
+    """Every entry point ``graphed_chain`` and ``graphed_program`` swap has
+    its ``*_eager`` twin and the ``GraphedCall`` attributes ``GRAPHS_OF``
+    names, on each kind of owner: a text core, a VQ core, a pixel
+    pipeline, a CLIP scorer, a guided energy."""
+    import torch
+    from cyclediffusion_tpu_torch.energy.clean_clip import CLIPScorer
+    from cyclediffusion_tpu_torch.pipelines import zoo
+    from cyclediffusion_tpu_torch.pipelines.ddpm_ddim import DDPMDDIMPipeline
+    from cyclediffusion_tpu_torch.pipelines.factory import TINY_CLIP
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
+    from cyclediffusion_tpu_torch.runtime.graphs import GraphedCall
+    from cyclediffusion_tpu_torch.samplers.guided import GraphedEnergy
+
+    text = LatentDiffusionCore(LatentCoreSpec.tiny("clip"), device="cpu")
+    vq = LatentDiffusionCore(LatentCoreSpec.tiny(None, fs_kind="vq"), device="cpu")
+    pixel = DDPMDDIMPipeline.random_init(zoo.tiny_pixel_spec(16), 0, device="cpu",
+                                         custom_steps=20, es_steps=5, eta=0.1)
+    owners = [(text, ("apply_model", "apply_model_cached") + smoke.TEXT_PROGRAMS),
+              (vq, smoke.FIRST_STAGE),
+              (pixel, ("_model_fn",)),
+              (CLIPScorer(TINY_CLIP, device="cpu"), ("embed_image", "embed_text")),
+              (GraphedEnergy(lambda x, p, t: torch.sum(p)), ("grad",))]
+    for owner, names in owners:
+        for name in names:
+            assert callable(getattr(owner, name)) and callable(getattr(owner, name + "_eager"))
+            assert all(isinstance(getattr(owner, a), GraphedCall)
+                       for a in smoke.GRAPHS_OF[name]), (type(owner).__name__, name)
+    assert vq._graphed_cond is None and smoke.graphs_of(vq, "get_learned_conditioning") == []
