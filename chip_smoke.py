@@ -100,13 +100,14 @@ Phases (each prints its results; any failure exits non-zero):
    through the 512 px decoder and the vision tower every step) in turns,
    s/chain, ms/step, their ratio, mean|dz0| and the chains' peak memory,
    with a third chain in the turns that takes the energy's gradient eagerly
-   (the graphed energy's chains within ten times the spread of two chains
-   of one kind); 50 UNet calls per chain with their K1/K2 launches and none
-   in the energy's forward and backward; the energy's profile
-   (``guided_probe.energy_profile``: eager host and device ms, launches and
-   device ms by kernel kind, operations and bound, the graph's capture and
-   replay) and its graphed gradient against the eager one (within ten
-   times the spread of three eager gradients); weight 0 equal to
+   (the four guided chains equal bit for bit); 50 UNet calls per chain
+   with their K1/K2 launches and none in the energy's forward and backward;
+   the ops PyTorch's deterministic mode flags in one eager gradient; the
+   energy's profile (``guided_probe.energy_profile``: eager host and device
+   ms, launches and device ms by kernel kind, operations and bound, the
+   graph's capture and replay), four eager gradients at one input equal and
+   the graphed gradient equal to them; a plain energy callable in two cut
+   chains: one capture in the first, none in the second; weight 0 equal to
    the plain replay; K2 refusing an input that requires a gradient; the
    gradient, core and scorer in fp32, against a central difference along a
    seeded direction.  (c) The tiled decode of the 64x64 latent: one tile
@@ -146,13 +147,15 @@ Phases (each prints its results; any failure exits non-zero):
 15. Inputs: every image file the JAX package's loader reads, and the JAX
    driver's checkpoint.  (a) Every committed image fixture
    (``tests/data_torch/images/``: palette, grey + alpha, 1/2/4/16-bit and
-   Adam7 PNGs, GIFs, progressive, CMYK and YCCK JPEGs; and the baseline
+   Adam7 PNGs, GIFs, progressive JPEGs, complete and cut after an early
+   scan (libjpeg-turbo's block smoothing), CMYK and YCCK JPEGs; and the baseline
    JPEGs of ``tests/data_torch/jpeg/``) decoded on the card's host by
    ``load_image`` against Pillow's stored decode (0 values may differ),
    and the median host ms per 512 px image of each kind.  (b) Phase 7's cut
    SD experiment on a data root whose ``data/translate-text.json`` names
-   six of them (a palette PNG, a 16-bit RGB PNG, an Adam7 PNG, a GIF, a
-   progressive and a CMYK JPEG) at batch 2: each ``original_image`` the
+   seven of them (a palette PNG, a 16-bit RGB PNG, an Adam7 PNG, a GIF, a
+   progressive, a CMYK and a 512 px cut progressive JPEG) at batch 2: each
+   ``original_image`` the
    task model receives equals the 512 px preprocess of Pillow's stored
    decode bit for bit, K1 and K2 launch as in phase 7 (250 each per
    sample), the run leaves its files.  (c) SD v1's seeded bf16 core written
@@ -173,9 +176,7 @@ pipeline) each run a cut chain of their path (10 steps) at full width
 graphed, eager (every graphed entry point it reaches swapped for its
 ``*_eager`` twin), graphed, from the same inputs and noise, and fail unless
 every call of every entry point in the last run was a replay and the
-graphed results equal the eager ones bit for bit (the guided chain at
-weight 0.05 within 1e-4 of max|z0|: its energy's backward adds with
-atomics, so two eager chains differ too; at weight 0, bit for bit); each
+graphed results equal the eager ones bit for bit; each
 prints host ms per UNet call graphed and eager, each graph's replay ms,
 launches and capture seconds, the card's busy share (every replay's device
 time over the chain's host time; the UNet replays' alone beside it) and
@@ -344,8 +345,7 @@ def graphs_of(owner, name) -> list:
             for c in getattr(owner, attr).graphs.values()]
 
 
-def graphed_chain(torch, label, target, names, run, calls, rel_bound=None,
-                  programs=()) -> dict:
+def graphed_chain(torch, label, target, names, run, calls, programs=()) -> dict:
     """A chain whose UNet calls and other programs replay CUDA graphs
     against the same chain eager.  ``target`` (a core or a pixel pipeline)
     has the graphed UNet entry points ``names`` (``apply_model``,
@@ -360,10 +360,8 @@ def graphed_chain(torch, label, target, names, run, calls, rel_bound=None,
     set-up), eager (counting each entry point's calls), graphed again; fails
     unless the results are equal bit for bit (the replays run the eager
     calls' kernels on the same inputs, and the step arithmetic between calls
-    is the same eager code) or, with ``rel_bound``, within it of max|eager|
-    (a chain that another eager run does not repeat bit for bit: its spread
-    is printed), and every call of every entry point in the second graphed
-    run was a replay.  Busy share: every replay's device time (each graph's
+    is the same eager code) and every call of every entry point in the
+    second graphed run was a replay.  Busy share: every replay's device time (each graph's
     replay timed alone by CUDA events) over the chain's host time; the UNet
     replays' alone beside it (the share before the other programs were
     graphed)."""
@@ -402,7 +400,6 @@ def graphed_chain(torch, label, target, names, run, calls, rel_bound=None,
     try:
         eager, eager_s, eager_peak = timed()
         counted = dict(eager_calls)
-        spread = None if rel_bound is None else rel_diff(torch, timed()[0], eager)
     finally:
         for owner, ns in swaps:
             for name in ns:
@@ -413,19 +410,10 @@ def graphed_chain(torch, label, target, names, run, calls, rel_bound=None,
             if c.replays > before[id(c)]]
     if len(first) != len(eager) or len(again) != len(eager):
         fail(f"{label}: the graphed chain gave {len(again)} tensors, the eager {len(eager)}")
-    rel = max(rel_diff(torch, first, eager), rel_diff(torch, again, eager))
-    if rel_bound is None:
-        if not all(torch.equal(a, e) and torch.equal(b, e)
-                   for a, b, e in zip(first, again, eager)):
-            fail(f"{label}: the graphed chain differs from the eager chain: {rel:.3e} of "
-                 "max|eager|")
-        agree = "bit for bit"
-    else:
-        if not rel <= rel_bound:
-            fail(f"{label}: the graphed chain differs from the eager chain by {rel:.3e} of "
-                 f"max|eager| (bound {rel_bound:.0e})")
-        agree = (f"to {rel:.3e} of max|eager| (bound {rel_bound:.0e}; two eager chains "
-                 f"differ by {spread:.3e})")
+    if not all(torch.equal(a, e) and torch.equal(b, e) for a, b, e in zip(first, again, eager)):
+        rel = max(rel_diff(torch, first, eager), rel_diff(torch, again, eager))
+        fail(f"{label}: the graphed chain differs from the eager chain: {rel:.3e} of "
+             "max|eager|")
     per_entry = {}
     for owner, ns in swaps:
         for name in ns:
@@ -457,7 +445,7 @@ def graphed_chain(torch, label, target, names, run, calls, rel_bound=None,
            "capture_s": sum(c.seconds for _, _, c, _ in used), "first_run_s": first_s,
            "chain_s": {"graphed": graphed_s, "eager": eager_s},
            "peak_graphed_gib": first_peak, "peak_eager_gib": eager_peak}
-    say(f"{label}: graphed chain == eager chain {agree} ({calls} UNet calls; replays by "
+    say(f"{label}: graphed chain == eager chain bit for bit ({calls} UNet calls; replays by "
         f"entry point {per_entry}, every call a replay, {len(used)} graph(s)); host ms "
         f"per UNet call graphed {rec['graphed_ms_per_call']:.3f}, eager "
         f"{rec['eager_ms_per_call']:.3f} (chain {graphed_s:.4f} s graphed, {eager_s:.4f} s "
@@ -488,13 +476,12 @@ def say_setup(label, owners, known: dict) -> None:
         f"{sum(w for w, _ in new):.3f} s of host time, captures {sum(c for _, c in new):.3f} s")
 
 
-def graphed_program(torch, label, owner, name, args, rel_bound=None, why=None) -> dict:
+def graphed_program(torch, label, owner, name, args) -> dict:
     """One graphed entry point (``owner.name``, see ``GRAPHS_OF``) at a
     path's real shapes against its ``*_eager`` twin: the graphed call twice
     (the first may warm up and capture; the second replays), the eager
-    once; fails unless both graphed results equal the eager one bit for bit
-    or, with ``rel_bound``, lie within it of max|eager| (``why`` says why).
-    -> replay ms (CUDA events), eager ms, host ms per graphed call, capture
+    once; fails unless both graphed results equal the eager one bit for
+    bit.  -> replay ms (CUDA events), eager ms, host ms per graphed call, capture
     s, launches per replay."""
     graphed, eager = getattr(owner, name), getattr(owner, name + "_eager")
     torch.cuda.synchronize()
@@ -509,23 +496,15 @@ def graphed_program(torch, label, owner, name, args, rel_bound=None, why=None) -
     if len(used) != 1:
         fail(f"{label}: the second graphed call replayed {len(used)} graphs, not 1")
     rel = max(rel_diff(torch, first, want), rel_diff(torch, again, want))
-    if rel_bound is None:
-        if not all(torch.equal(a, w) and torch.equal(b, w)
-                   for a, b, w in zip(first, again, want)):
-            fail(f"{label}: the graphed call differs from the eager one: {rel:.3e} of max")
-        agree = "bit for bit"
-    else:
-        if not rel <= rel_bound:
-            fail(f"{label}: the graphed call differs from the eager one by {rel:.3e} of "
-                 f"max (bound {rel_bound:.3e}: {why})")
-        agree = f"to {rel:.3e} of max (bound {rel_bound:.3e}: {why})"
+    if not all(torch.equal(a, w) and torch.equal(b, w) for a, b, w in zip(first, again, want)):
+        fail(f"{label}: the graphed call differs from the eager one: {rel:.3e} of max")
     c = used[0]
     rec = {"program": label, "replay_ms": cuda_time_ms(c.replay, reps=10, warmup=1),
            "eager_ms": cuda_time_ms(lambda: eager(*args), reps=5, warmup=1),
            "graphed_call_ms": cuda_time_ms(lambda: graphed(*args), reps=5, warmup=1),
            "capture_s": c.seconds, "first_call_s": first_s,
            "launches": {k: n for k, n in c.launches.items() if n}, "rel": rel}
-    say(f"{label}: graphed == eager {agree}; replay {rec['replay_ms']:.4f} ms, eager "
+    say(f"{label}: graphed == eager bit for bit; replay {rec['replay_ms']:.4f} ms, eager "
         f"{rec['eager_ms']:.4f} ms, graphed call (copies in and out) "
         f"{rec['graphed_call_ms']:.4f} ms by CUDA events; capture {c.seconds:.3f} s (first "
         f"call {first_s:.3f} s); kernel launches per replay {rec['launches']} "
@@ -2324,18 +2303,10 @@ GUIDED_WEIGHT = 0.05
 # weight 0 against the plain replay, max abs diff / max|z0|: the same UNet
 # calls and steps, the shift 0 * grad exactly 0, so bit for bit is expected
 WEIGHT0_REL_BOUND = 1e-6
-# the guided chain (weight 0.05, 10 steps) graphed against eager, max abs
-# diff / max|z0|: the energy's backward through CLIP's antialiased bicubic
-# resize (upsample_bicubic2d_aa_backward) adds with atomics, so two eager
-# chains already differ (~2e-7 of max|z0| on the H100, printed beside); at
-# weight 0 the shift is exactly 0 and the chains agree bit for bit
-GUIDED_GRAPH_REL_BOUND = 1e-4
-# the graphed energy gradient against the eager one, max abs diff /
-# max|eager|: a bound derived in the run from three eager gradients at the
-# same input (their largest gap to a first, the atomics' spread), this many
-# times over, and never below fp32's rounding
-ENERGY_SPREAD_FACTOR = 10
-ENERGY_FLOOR = 1e-6
+# The energy's gradient, the guided chains and their graphed twins are held
+# bit for bit: CLIP's resize is JAX's weight matrices applied as two fp32
+# products, whose backward adds no atomics, and the decoder's convolutions
+# run with deterministic cuDNN here
 # the energy's gradient along a seeded unit direction against the central
 # difference at a step of FD_STEP * |p|, fp32 with TF32 off.  The step
 # trades the fp32 energy's rounding (divided by the step) against the clamps
@@ -2373,6 +2344,43 @@ def directional_check(energy, grad, p, v, h: float):
     gv = float((grad.double() * v.double()).sum())
     fd = (float(energy(p + h * v)) - float(energy(p - h * v))) / (2.0 * h)
     return gv, fd, abs(gv - fd) / max(abs(gv), abs(fd), 1e-30)
+
+
+def plain_energy_chains(torch, g, want, run) -> None:
+    """The cut guided chain twice with a plain callable as its energy (the
+    CLIP energy's own function, behind a new lambda): the first chain wraps
+    it and captures its gradient's graph, the second reuses that wrapper and
+    only replays; both equal ``want`` (the chain with the ``GraphedEnergy``)
+    bit for bit.  ``run(energy)`` runs the chain.  Dropping the callable
+    frees the wrapper, its graph and its pool."""
+    from cyclediffusion_tpu_torch.samplers.guided import graphed_energy
+
+    fn = g.energy_fn.fn
+    plain = lambda x_t, p, t: fn(x_t, p, t)         # noqa: E731
+    seen, made = set(), []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z = run(plain)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        graphs = graphed_energy(plain)._graphed_grad.graphs
+        new = [c for k, c in graphs.items() if k not in seen]
+        seen |= set(graphs)
+        made.append((secs, len(new), sum(c.warm_up_seconds + c.seconds for c in new)))
+        del graphs, new
+        if not torch.equal(z, want):
+            fail(f"guided: the chain with a plain energy callable differs from the "
+                 f"GraphedEnergy's by {rel_diff(torch, [z], [want]):.3e} of max|z0|")
+    if made[0][1] != 1 or made[1][1] != 0:
+        fail(f"guided: a plain energy made {made[0][1]} graph(s) in its first chain and "
+             f"{made[1][1]} in its second; expected 1 and 0")
+    say(f"guided: a plain energy callable in two 10-step chains: the first {made[0][0]:.3f} s "
+        f"with {made[0][1]} capture (warm-up and capture {made[0][2]:.3f} s), the second "
+        f"{made[1][0]:.3f} s with {made[1][1]} (its graph replayed); both equal the "
+        f"GraphedEnergy chain bit for bit ({card_name()})")
+    del plain
+    gc.collect()
 
 
 def phase_guided(torch, fa, attention):
@@ -2418,7 +2426,14 @@ def phase_guided(torch, fa, attention):
         fail(f"guided: the energy's forward and backward launched {fa.launch_counts}")
     if not torch.isfinite(grad).all():
         fail("guided: non-finite energy gradient")
+    flagged = guided_probe.nondeterministic_ops(g)
+    say(f"guided: torch.use_deterministic_algorithms(True, warn_only=True) over one eager "
+        f"energy gradient flags {len(flagged)} op(s)"
+        + "".join(f"\nguided:   {m}" for m in flagged))
     prof = guided_probe.energy_profile(g)
+    if not prof["eager_equal"]:
+        fail(f"guided: three eager energy gradients at one input differ from a first by up "
+             f"to {prof['eager_spread']:.3e} of max")
     top = list(prof["eager_kinds"].items())[:8]
     say(f"guided: energy forward + backward (decode 64x64x4 -> 512x512x3, ViT-B/32) eager: "
         f"host enqueue {prof['eager_host_ms']:.3f} ms, device span "
@@ -2427,17 +2442,12 @@ def phase_guided(torch, fa, attention):
         f"inputs: bound {prof['bound_ms']:.3f} ms by {prof['bound_by']}; graph: capture "
         f"{prof['capture_s']:.3f} s, replay {prof['replay_ms']:.3f} ms, graphed call host "
         f"{prof['graphed_host_ms']:.3f} ms, device span {prof['graphed_device_ms']:.3f} ms; "
-        f"max|dE/dp| {float(grad.abs().max()):.3e} ({card_name()})")
+        f"max|dE/dp| {float(grad.abs().max()):.3e}; four eager gradients at one input "
+        f"equal bit for bit ({card_name()})")
     say(f"guided: eager energy by kernel kind (device ms, launches per call): "
         + "; ".join(f"{k} {v['ms']:.3f} ms x{v['launches']:.0f}" for k, v in top))
-    # the bound: the eager gradient's own spread (three calls against a
-    # first), ENERGY_SPREAD_FACTOR times over, or fp32 rounding where the
-    # atomics happen to agree
-    energy_bound = max(ENERGY_SPREAD_FACTOR * prof["eager_spread"], ENERGY_FLOOR)
     graphed_program(torch, "program [guided energy gradient, batch 1, 512 px]", g.energy_fn,
-                    "grad", (x, p, t), energy_bound,
-                    f"{ENERGY_SPREAD_FACTOR}x the eager gradients' spread "
-                    f"{prof['eager_spread']:.3e}: the resize's backward adds with atomics")
+                    "grad", (x, p, t))
 
     # (a) the chains, plain and guided in turns, counted
     calls = [0]
@@ -2471,16 +2481,13 @@ def phase_guided(torch, fa, attention):
                  f"{STEPS} and {want}")
     if not torch.isfinite(out["guided"][0]).all():
         fail("guided: non-finite z0")
-    # the graphed energy's chains against the eager energy's, bounded by
-    # ENERGY_SPREAD_FACTOR times the spread of two chains of one kind (the
-    # atomics' differences grow over the 50 steps)
-    spread50 = max(rel_diff(torch, out[k][1:], out[k][:1]) for k in ("guided", "eager energy"))
-    rel_e = max(rel_diff(torch, [z], [e]) for z in out["guided"] for e in out["eager energy"])
-    bound50 = max(ENERGY_SPREAD_FACTOR * spread50, ENERGY_FLOOR)
-    if not rel_e <= bound50:
-        fail(f"guided: the 50-step chain with the graphed energy differs from the eager "
-             f"energy's by {rel_e} of max|z0| (bound {bound50}: {ENERGY_SPREAD_FACTOR}x the "
-             f"spread of two chains of one kind {spread50})")
+    # the two chains of each kind, and the graphed energy's against the
+    # eager energy's, bit for bit
+    z50 = out["guided"] + out["eager energy"]
+    if not all(torch.equal(z, z50[0]) for z in z50[1:]):
+        rel_e = max(rel_diff(torch, [z], z50[:1]) for z in z50[1:])
+        fail(f"guided: the four 50-step guided chains (two with the graphed energy, two with "
+             f"the eager) are not equal: up to {rel_e:.3e} of max|z0| apart")
     out = {name: zs[0] for name, zs in out.items()}
     zero = g.guided(0.0)
     rel0 = float((zero - out["plain"]).abs().max() / out["plain"].abs().max())
@@ -2492,9 +2499,8 @@ def phase_guided(torch, fa, attention):
     dz0 = float((out["guided"] - out["plain"]).abs().mean())
     say(f"guided: launches per chain {counts['guided'][1]} = {STEPS} UNet calls x "
         f"{launches_per_call(spec, fa.attention_route)}; weight 0 vs plain: {rel0:.3e} of "
-        f"max|z0| (bound {WEIGHT0_REL_BOUND:.0e}); graphed energy vs eager energy, 50 steps: "
-        f"{rel_e:.3e} of max|z0| (bound {bound50:.3e}; two chains of one kind differ by "
-        f"up to {spread50:.3e})")
+        f"max|z0| (bound {WEIGHT0_REL_BOUND:.0e}); the 50-step guided chains, two with the "
+        f"graphed energy and two with the eager, equal bit for bit")
     say(f"guided: plain {times['plain']} s/chain, guided {times['guided']} s/chain, guided "
         f"with the eager energy {times['eager energy']} s/chain; best plain {plain_s:.3f} s "
         f"({1e3 * plain_s / STEPS:.2f} ms/step), guided {guided_s:.3f} s "
@@ -2506,15 +2512,17 @@ def phase_guided(torch, fa, attention):
     # the guided chain cut to 10 steps, its UNet calls graphed, against eager
     sched10 = g.core.make_ddim_schedule(10, guided_probe.ETA)
 
-    def guided_cut(weight):
+    def guided_cut(weight, energy=None):
         model = cfg_model_fn(g.core.apply_model, g.uncond, g.cond, guided_probe.CFG_SCALE)
-        return energy_guided_decode(model, sched10, g.x_T, g.eps[:10], None, g.energy_fn,
-                                    weight)
+        return energy_guided_decode(model, sched10, g.x_T, g.eps[:10], None,
+                                    g.energy_fn if energy is None else energy, weight)
 
-    for weight, bound in ((0.0, None), (GUIDED_WEIGHT, GUIDED_GRAPH_REL_BOUND)):
+    for weight in (0.0, GUIDED_WEIGHT):
         graphed_chain(torch, f"graphs [guided chain, UNet and energy, weight {weight}]",
                       g.core, ("apply_model",), functools.partial(guided_cut, weight), 10,
-                      bound, programs=[(g.energy_fn, ("grad",))])
+                      programs=[(g.energy_fn, ("grad",))])
+    plain_energy_chains(torch, g, guided_cut(GUIDED_WEIGHT),
+                        functools.partial(guided_cut, GUIDED_WEIGHT))
 
     q = torch.randn((2, 4096, 320), device="cuda", dtype=torch.bfloat16, requires_grad=True)
     with torch.enable_grad():
@@ -2547,8 +2555,7 @@ def phase_guided(torch, fa, attention):
         tiled_grad = energy_grad(g.energy_fn, x, z, t)
         # the energy reads the tiling: another setting, another graph
         graphed_program(torch, "program [guided energy gradient through the tiled decode]",
-                        g.energy_fn, "grad", (x, z, t), energy_bound,
-                        "the untiled gradient's bound")
+                        g.energy_fn, "grad", (x, z, t))
         tiled_ms = cuda_time_ms(lambda: core.decode_first_stage(z), reps=5, warmup=1)
     finally:
         core.split_input_params = None
@@ -3396,10 +3403,12 @@ IMAGE_REPS = 5
 # kind -> the 512 px fixture whose host decode is timed
 IMAGE_TIMED = {"palette PNG": "p8_512.png", "Paeth RGB PNG": "paeth_rgb_512.png",
                "Adam7 PNG": "adam7_rgb_512.png", "GIF": "gif_512.gif",
-               "progressive JPEG": "prog_512.jpg", "CMYK JPEG": "cmyk_512.jpg"}
+               "progressive JPEG": "prog_512.jpg",
+               "progressive JPEG cut before its last scan": "prog_512_cut9.jpg",
+               "CMYK JPEG": "cmyk_512.jpg"}
 # (b): one fixture of each new kind, in the order of the data file
 INPUT_FILES = ("p4_trns.png", "rgb16.png", "adam7_rgb8.png", "interlaced.gif",
-               "prog_420.jpg", "cmyk.jpg")
+               "prog_420.jpg", "cmyk.jpg", "prog_512_cut9.jpg")
 INPUT_CUTS = {**CLI_CUTS, ("raw_data", "range"): f"[0, {len(INPUT_FILES)}]"}
 INPUT_RESOLUTION = 512
 
@@ -3427,6 +3436,33 @@ def check_image_fixtures(reps: int = IMAGE_REPS):
             load_image(os.path.join(d, name))
             ms[kind].append(1e3 * (time.perf_counter() - t0))
     return differ, ms, str(stored["pillow_version"])
+
+
+def smoothing_share(name: str = IMAGE_TIMED["progressive JPEG cut before its last scan"],
+                    reps: int = IMAGE_REPS):
+    """The host decode of a progressive fixture that stops early, ``reps``
+    times, with its block smoothing timed inside -> (ms of each decode, ms
+    of the smoothing in each)."""
+    from cyclediffusion_tpu_torch.data import jpeg
+
+    smooth, inside = jpeg._smooth_blocks, []
+
+    def timed(*a):
+        t0 = time.perf_counter()
+        smooth(*a)
+        inside[-1] += 1e3 * (time.perf_counter() - t0)
+
+    jpeg._smooth_blocks = timed
+    try:
+        ms = []
+        for _ in range(reps):
+            inside.append(0.0)
+            t0 = time.perf_counter()
+            jpeg.read_jpeg(os.path.join(ROOT, IMAGE_DIR, name))
+            ms.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        jpeg._smooth_blocks = smooth
+    return ms, inside
 
 
 def write_input_root(root: str) -> str:
@@ -3517,6 +3553,11 @@ def phase_inputs(torch, fa, root, card, num_recovered_eps) -> dict:
         say(f"inputs: (a) {kind} ({IMAGE_TIMED[kind]}, 512x512) host decode: median "
             f"{times[len(times) // 2]:.1f} ms over {len(times)} (min {times[0]:.1f}, max "
             f"{times[-1]:.1f}) ({card})")
+    decode_ms, smooth_ms = smoothing_share()
+    say(f"inputs: (a) the cut progressive file's block smoothing: {sorted(smooth_ms)} ms of "
+        f"decodes taking {sorted(decode_ms)} ms (median share "
+        f"{sorted(s / d for s, d in zip(smooth_ms, decode_ms))[len(decode_ms) // 2]:.3f}) "
+        f"({card})")
 
     # (b)
     data_root = write_input_root(root)

@@ -13,7 +13,10 @@ Keys' a = -0.5; its edge normalisation and nearest rounding differ), so
 fp32 with ``compute_weight_mat``'s order of operations) and :func:`resize_nhwc`
 applies them as two products in full fp32 (``precision=HIGHEST`` in the
 JAX function), on the images' device.  Nearest is JAX's gather written as
-a one-hot matrix.
+a one-hot matrix.  The matrices are copied to each device once and kept
+there (a host-to-device copy cannot run inside a CUDA graph's capture).
+The products' backward is their transposed products, also in full fp32,
+and adds no atomics: the gradient of a resize is the same at every call.
 """
 
 from __future__ import annotations
@@ -94,23 +97,51 @@ def _full_fp32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+@functools.lru_cache(maxsize=None)
+def device_weight_matrix(in_size: int, out_size: int, method: str, antialias: bool,
+                         device: torch.device, dtype=torch.float32) -> torch.Tensor:
+    """:func:`resize_weight_matrix` on ``device``, cast from fp32 to
+    ``dtype`` as JAX casts it to the image's, copied there once: a graph's
+    warm-up fills the cache that its capture reads."""
+    return torch.tensor(resize_weight_matrix(in_size, out_size, method, antialias),
+                        device=device).to(dtype)
+
+
+class _AxisProduct(torch.autograd.Function):
+    """``einsum(forward, x, w)`` for a constant matrix ``w``; the gradient
+    is ``einsum(backward, grad, w)``.  Both run in full fp32 whatever the
+    caller's TF32 flag: autograd runs a backward after the forward's block
+    has exited."""
+
+    @staticmethod
+    def forward(ctx, x, w, forward, backward):
+        ctx.save_for_backward(w)
+        ctx.backward_equation = backward
+        with _full_fp32_matmul():
+            return torch.einsum(forward, x, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (w,) = ctx.saved_tensors
+        with _full_fp32_matmul():
+            return torch.einsum(ctx.backward_equation, grad, w), None, None, None
+
+
 def resize_nhwc(images: torch.Tensor, height: int, width: int, method: str = "bilinear",
                 antialias: bool = True) -> torch.Tensor:
-    """fp32 (B, H, W, C) -> (B, height, width, C), ``jax.image.resize``'s
-    function: an axis whose size does not change is left as it is."""
+    """(B, H, W, C) -> (B, height, width, C) in the images' float dtype,
+    ``jax.image.resize``'s function: an axis whose size does not change is
+    left as it is."""
     if method not in METHODS:
         raise ValueError(f'Unknown resize method "{method}"')
-    b, h, w, c = images.shape
+    _, h, w, _ = images.shape
     out = images
-    with _full_fp32_matmul():
-        if h != height:
-            wh = torch.tensor(resize_weight_matrix(h, height, method, antialias),
-                              device=out.device)
-            out = torch.einsum("bhwc,hy->bywc", out, wh)
-        if w != width:
-            ww = torch.tensor(resize_weight_matrix(w, width, method, antialias),
-                              device=out.device)
-            out = torch.einsum("bywc,wx->byxc", out, ww)
+    if h != height:
+        wh = device_weight_matrix(h, height, method, antialias, out.device, out.dtype)
+        out = _AxisProduct.apply(out, wh, "bhwc,hy->bywc", "bywc,hy->bhwc")
+    if w != width:
+        ww = device_weight_matrix(w, width, method, antialias, out.device, out.dtype)
+        out = _AxisProduct.apply(out, ww, "bywc,wx->byxc", "byxc,wx->bywc")
     return out
 
 

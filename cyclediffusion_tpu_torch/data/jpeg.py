@@ -26,18 +26,23 @@ where an Adobe marker's transform is not 0, converted to CMYK as
 the MCU grid; interleaved or one-component scans.  A progressive file's
 scans (DC first and refinement, AC first with end-of-band runs, AC
 refinement) fill the same coefficient arrays a sequential one fills, so
-the reconstruction is shared.  libjpeg smooths the blocks of a
-progressive file whose first AC coefficients were not all refined to
-their last bit (``jdcoefct.c``'s ``smoothing_ok``); such a file is
-refused.  Lossless and hierarchical frames, arithmetic coding and 12-bit
-samples raise a ``ValueError`` that names what the file is.  EXIF
-orientation is not applied, as Pillow's ``open`` does not apply it.
+the reconstruction is shared.  A progressive file whose first AC
+coefficients were not all refined to their last bit (a progression that
+stops early) has its blocks smoothed before the IDCT, as libjpeg-turbo
+2.1 and later do (``jdcoefct.c``'s ``smoothing_ok`` and
+``decompress_smooth_data``): each unknown coefficient of the first nine
+is estimated from the 5 x 5 neighbourhood of DC values, and the DC
+itself where no AC coefficient of the nine was coded.  Lossless and
+hierarchical frames, arithmetic coding and 12-bit samples raise a
+``ValueError`` that names what the file is.  EXIF orientation is not
+applied, as Pillow's ``open`` does not apply it.
 
 The Huffman decode is the only serial part: one Python step per coded
 coefficient (and per correction bit of a progressive refinement scan),
 through 16-bit lookahead tables that carry the code, the zero run and the
-coefficient's value bits together.  Dequantisation, the IDCT, upsampling
-and colour conversion run as integer numpy over all blocks at once.
+coefficient's value bits together.  The smoothing, dequantisation, the
+IDCT, upsampling and colour conversion run as numpy over all blocks at
+once.
 """
 
 from __future__ import annotations
@@ -593,8 +598,6 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         pos += length
     if frame is None:
         raise ValueError("JPEG: no frame header")
-    if frame.progressive:
-        _check_no_smoothing(frame)
     return _reconstruct(frame, jfif, adobe_transform)
 
 
@@ -662,19 +665,121 @@ def _decode_scan(data, pos, seg, frame, qt, dc_tabs, ac_tabs, restart) -> int:
     return end
 
 
-def _check_no_smoothing(frame: _Frame) -> None:
+def _smoothing_ok(frame: _Frame) -> bool:
     """libjpeg-turbo smooths a progressive file's blocks when every
     component's DC is known, no quantiser of the DC or the first nine AC
     coefficients is 0, and some of those AC coefficients were not refined
-    to bit 0 (``jdcoefct.c``'s ``smoothing_ok``); that reconstruction is
-    not ported, so such a file is refused."""
+    to bit 0 in some component (``jdcoefct.c``'s ``smoothing_ok``): a
+    progression that stops early."""
+    if not frame.progressive:
+        return False
     for c in frame.comps:
         if c.quant is None or c.coef_bits[0] < 0 or not c.quant[:10].all():
-            return
-    if any(b != 0 for c in frame.comps for b in c.coef_bits[1:10]):
-        raise ValueError("unsupported JPEG: a progressive file whose first AC coefficients "
-                         "are not refined to their last bit (libjpeg would smooth its "
-                         "blocks: an incomplete or truncated progression)")
+            return False
+    return any(b != 0 for c in frame.comps for b in c.coef_bits[1:10])
+
+
+def _kernel(rows) -> np.ndarray:
+    return np.array(rows, np.int64)
+
+
+# jdcoefct.c's decompress_smooth_data (libjpeg-turbo >= 2.1): zigzag position
+# k -> the weights of the 5 x 5 DC neighbourhood (rows above to below,
+# columns left to right) in its estimate, with the DC interpolated (no AC
+# coefficient of the first nine known) and without
+_SMOOTH_DC_KERNELS = {
+    1: _kernel([[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3],
+                [-3, 13, 0, -13, 3], [-1, -1, 0, 1, 1]]),
+    3: _kernel([[0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0], [0, 2, 7, 2, 0],
+                [0, 0, 1, 0, 0]]),
+    4: _kernel([[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0, 0, 0, 0, 0], [0, -9, 0, 9, 0],
+                [1, 0, 0, 0, -1]]),
+    6: _kernel([[0, 0, 0, 0, 0], [0, 1, 0, -1, 0], [0, 2, 0, -2, 0], [0, 1, 0, -1, 0],
+                [0, 0, 0, 0, 0]]),
+    7: _kernel([[0, 0, 0, 0, 0], [0, 1, -3, 1, 0], [0, 0, 0, 0, 0], [0, -1, 3, -1, 0],
+                [0, 0, 0, 0, 0]]),
+}
+_SMOOTH_KERNELS = {
+    1: _kernel([[0] * 5, [0] * 5, [-7, 50, 0, -50, 7], [0] * 5, [0] * 5]),
+    3: _kernel([[0, 0, -1, 0, 0], [0, 0, 13, 0, 0], [0, 0, -24, 0, 0], [0, 0, 13, 0, 0],
+                [0, 0, -1, 0, 0]]),
+    4: _kernel([[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], [0, 0, 0, 0, 0], [1, -10, 0, 10, -1],
+                [0, 1, 0, -1, 0]]),
+}
+# the transposed pairs: AC10 of AC01, AC02 of AC20, AC30 of AC03, AC21 of AC12
+_TRANSPOSED = {2: 1, 5: 3, 9: 6, 8: 7}
+_SMOOTH_DC_KERNELS.update({a: _SMOOTH_DC_KERNELS[b].T for a, b in _TRANSPOSED.items()})
+_SMOOTH_KERNELS.update({a: _SMOOTH_KERNELS[b].T for a, b in _TRANSPOSED.items()
+                        if b in _SMOOTH_KERNELS})
+_SMOOTH_DC = _kernel([[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6], [-8, 42, 152, 42, -8],
+                      [-6, 6, 42, 6, -6], [-2, -6, -8, -6, -2]])
+
+
+def _neighbour_rows(rows: int, v: int, imcu_rows: int) -> np.ndarray:
+    """(rows, 5): the block rows whose DC values each block row reads, two
+    above to two below, as ``decompress_smooth_data`` picks them iMCU row
+    by iMCU row: an edge row stands in for the rows past it, where the
+    last iMCU row's index runs in steps of its own height (so a second-last
+    iMCU row may read a padding row of the last)."""
+    last_rows = rows % v or v
+    out = np.empty((rows, 5), np.int64)
+    for r in range(rows):
+        m, b = divmod(r, v)
+        if m < imcu_rows - 1:
+            i, n = r, v * imcu_rows
+        else:
+            i, n = m * last_rows + b, last_rows * imcu_rows
+        up = r - 1 if i > 0 else r
+        down = r + 1 if i < n - 1 else r
+        out[r] = (r - 2 if i > 1 else up, up, r, down, r + 2 if i < n - 2 else down)
+    return out
+
+
+def _neighbour_cols(cols: int) -> np.ndarray:
+    """(cols, 5): the block columns whose DC values each block column reads,
+    two left to two right, the edge columns standing in for those past
+    them."""
+    return np.clip(np.arange(cols)[:, None] + np.arange(-2, 3), 0, cols - 1)
+
+
+def _estimate(num: np.ndarray, q: int, al: int) -> np.ndarray:
+    """libjpeg's rounded ``num / (q << 8)`` by magnitude, capped below
+    ``2**al`` where ``al > 0``, signed as ``num``."""
+    pred = ((q << 7) + np.abs(num)) // (q << 8)
+    if al > 0:
+        pred = np.minimum(pred, (1 << al) - 1)
+    return np.where(num < 0, -pred, pred)
+
+
+def _smooth_blocks(blocks: np.ndarray, c: _Component, rows: int, cols: int,
+                   imcu_rows: int) -> None:
+    """libjpeg-turbo's block smoothing of one component, in place on its
+    quantised zigzag blocks ``(block rows, block columns, 64)`` (padding
+    included; the ``rows`` x ``cols`` real ones are smoothed): each of the
+    first nine AC coefficients that is 0 and not known to its last bit
+    gets an estimate from the 5 x 5 neighbourhood of DC values, and where
+    no AC coefficient of the nine was coded at all the DC is interpolated
+    from it too."""
+    bits, q = c.coef_bits, [int(v) for v in c.quant[:10]]
+    interpolate = all(b == -1 for b in bits[1:10])
+    kernels = _SMOOTH_DC_KERNELS if interpolate else _SMOOTH_KERNELS
+    zs = [z for z in kernels if bits[z] != 0]
+    weights = [kernels[z] for z in zs] + ([_SMOOTH_DC] if interpolate else [])
+    if not weights:
+        return
+    # the neighbourhoods (rows, cols, 25) times the weights (25, kernels), in
+    # float64 for BLAS: |DC| < 2**15 and each kernel's |weights| sum to
+    # < 2**9, so every sum is exact
+    dc = blocks[:, :, 0].astype(np.float64)[_neighbour_rows(rows, c.v, imcu_rows)]
+    dc = dc[:, :, _neighbour_cols(cols)].transpose(0, 2, 1, 3).reshape(rows, cols, 25)
+    sums = dc @ np.stack(weights, axis=-1).reshape(25, -1).astype(np.float64)
+    nums = q[0] * sums.astype(np.int64)
+    real = blocks[:rows, :cols]
+    for i, z in enumerate(zs):
+        real[:, :, z] = np.where(real[:, :, z] == 0, _estimate(nums[..., i], q[z], bits[z]),
+                                 real[:, :, z])
+    if interpolate:
+        real[:, :, 0] = _estimate(nums[..., -1], q[0], 0)
 
 
 def _reconstruct(frame: _Frame, jfif: bool, adobe_transform) -> np.ndarray:
@@ -685,6 +790,7 @@ def _reconstruct(frame: _Frame, jfif: bool, adobe_transform) -> np.ndarray:
     else:
         coef = np.zeros(frame.size, np.int64)
         coef[np.asarray(frame.idx, np.int64)] = np.asarray(frame.val, np.int64)
+    smooth = _smoothing_ok(frame)
     planes = []
     for c in frame.comps:
         if c.quant is None:
@@ -692,13 +798,16 @@ def _reconstruct(frame: _Frame, jfif: bool, adobe_transform) -> np.ndarray:
         if frame.hmax % c.h or frame.vmax % c.v:
             raise ValueError("unsupported JPEG: fractional sampling ratios")
         bw, bh = frame.mcux * c.h, frame.mcuy * c.v
-        zz = coef[c.offset:c.offset + bw * bh * 64].reshape(-1, 64) * c.quant[None, :]
+        cw = _cdiv(frame.width * c.h, frame.hmax)
+        ch = _cdiv(frame.height * c.v, frame.vmax)
+        blocks = coef[c.offset:c.offset + bw * bh * 64].reshape(bh, bw, 64)
+        if smooth:
+            _smooth_blocks(blocks, c, _cdiv(ch, 8), _cdiv(cw, 8), frame.mcuy)
+        zz = blocks.reshape(-1, 64) * c.quant[None, :]
         nat = np.empty_like(zz)
         nat[:, NATURAL_ORDER] = zz
         pix = idct_islow(nat.reshape(-1, 8, 8))
         plane = pix.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(bh * 8, bw * 8)
-        cw = _cdiv(frame.width * c.h, frame.hmax)
-        ch = _cdiv(frame.height * c.v, frame.vmax)
         planes.append(upsample(plane[:ch, :cw], frame.hmax // c.h, frame.vmax // c.v)
                       [:frame.height, :frame.width])
     if len(planes) == 1:

@@ -19,9 +19,9 @@ import dataclasses
 import functools
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from cyclediffusion_tpu_torch.data.device_transforms import resize_nhwc
 from cyclediffusion_tpu_torch.models.text_encoders import (
     causal_mask_bias,
     masked_multi_head_attention,
@@ -145,15 +145,15 @@ class CLIPModel(nn.Module):
 def clip_preprocess(images: torch.Tensor, resolution: int = 224) -> torch.Tensor:
     """NHWC [0, 1] images -> the normalised CLIP input at ``resolution``.
 
-    The resize is ``jax.image.resize(..., "bicubic")``'s: Keys cubic with
-    a = -0.5, antialiased when downsampling, half-pixel centres, then a clip
-    to [0, 1]; ``F.interpolate``'s antialiased bicubic is that filter.
-    Square inputs make the reference's centre crop a no-op."""
+    The resize is ``jax.image.resize(..., "bicubic")``'s (Keys cubic with
+    a = -0.5, antialiased when downsampling, half-pixel centres), applied
+    as JAX's weight matrices (``data.device_transforms.resize_nhwc``: two
+    fp32 products, whose gradient is the same at every call), then a clip
+    to [0, 1].  Square inputs make the reference's centre crop a no-op."""
     b, h, w, c = images.shape
     if (h, w) != (resolution, resolution):
-        images = F.interpolate(images.permute(0, 3, 1, 2), size=(resolution, resolution),
-                               mode="bicubic", antialias=True, align_corners=False)
-        images = images.permute(0, 2, 3, 1).clamp(0.0, 1.0)
+        images = resize_nhwc(images, resolution, resolution, "bicubic", antialias=True)
+        images = images.clamp(0.0, 1.0)
     mean, std = _image_stats(images.dtype, images.device)
     return (images - mean) / std
 

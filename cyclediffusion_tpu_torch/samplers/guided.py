@@ -21,6 +21,7 @@ gradient is :func:`energy_grad`.
 from __future__ import annotations
 
 import functools
+import weakref
 from typing import Callable, Optional
 
 import torch
@@ -78,6 +79,24 @@ class GraphedEnergy:
         return energy_grad(self.fn, x_t, pred_x0, t)
 
 
+# a plain energy -> its GraphedEnergy, which holds it weakly: the entry goes
+# when the energy does, and with it the graph and its pool
+_GRAPHED: "weakref.WeakKeyDictionary[Callable, GraphedEnergy]" = weakref.WeakKeyDictionary()
+
+
+def graphed_energy(energy_fn: EnergyFn) -> GraphedEnergy:
+    """``energy_fn`` if it is a :class:`GraphedEnergy`, else the one kept for
+    it, made at its first chain: a later chain with the same callable
+    replays the graphs the first one captured.  The callable must take a
+    weak reference (a function, a lambda, a ``functools.partial``)."""
+    if isinstance(energy_fn, GraphedEnergy):
+        return energy_fn
+    energy = _GRAPHED.get(energy_fn)
+    if energy is None:
+        energy = _GRAPHED[energy_fn] = GraphedEnergy(weakref.proxy(energy_fn))
+    return energy
+
+
 @torch.no_grad()
 def energy_guided_decode(
     model_fn: EpsModel,
@@ -94,8 +113,9 @@ def energy_guided_decode(
     """:func:`samplers.ddim_decode` with a per-step energy-gradient shift on
     the model's eps.  ``eps`` and ``generator`` as there.  The gradient is
     ``energy_fn.grad`` of a :class:`GraphedEnergy` (its graph kept across
-    chains); any other energy is wrapped in one for this chain."""
-    energy = energy_fn if isinstance(energy_fn, GraphedEnergy) else GraphedEnergy(energy_fn)
+    chains); any other energy gets one (:func:`graphed_energy`), kept for
+    its next chain."""
+    energy = graphed_energy(energy_fn)
     refine_steps = sched.num_steps - skip_steps
     if refine_steps < 1:
         raise ValueError(f"empty chain: refine_steps={refine_steps}")

@@ -15,7 +15,15 @@ and power limit (nvidia-smi) after the runs.  Reports
 seconds per chain and ms per step of each chain (host clock around work that
 ends in a synchronize, the median of ``--reps`` runs after one untimed run
 of each, in alternating order: plain, guided, guided, plain, ...), their ratio and mean|dz0|, the
-guidance's shift of the final latent.
+guidance's shift of the final latent; then the seconds of two 10-step guided
+chains with a plain energy callable (``plain_energy_chains``) and the run's
+peak device memory, and the whole result as one JSON line.  cuDNN runs
+deterministic and TF32 is off, as in ``chip_smoke.py``'s phase 12.
+
+To compare two trees on one card, run this file against each package in
+turn, parent, change, change, parent:
+
+    PYTHONPATH=<tree> python cyclediffusion_tpu_torch/tools/guided_probe.py
 
 Before the chains it profiles the energy's gradient at the first step's
 pred_x0 (``energy_profile``): eager, the host's enqueue ms and the device
@@ -25,8 +33,10 @@ forward and input-only backward at 512 px, the ViT-B/32's forward and
 backward) and the bytes of its weights, and the bound they set on the
 card; graph-replayed (``samplers.guided.GraphedEnergy``), the capture's
 seconds, the replay's device ms, the host ms per graphed call, and the
-replay's gradient against the eager one beside the spread of three eager
-gradients (the resize's backward adds with atomics).
+replay's gradient against the eager one beside three more eager
+gradients, all of which should equal the first bit for bit
+(``nondeterministic_ops`` names what PyTorch's deterministic mode flags
+in one eager gradient).
 """
 
 from __future__ import annotations
@@ -149,7 +159,9 @@ def energy_profile(setup: GuidedSetup, calls: int = 10) -> dict:
                  for q in m.parameters())
     nbytes += sum(v.numel() * v.element_size() for v in (x, p, t, first))
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    spread = max(rel_gap(eager(), first) for _ in range(3))
+    again = [eager() for _ in range(3)]
+    spread = max(rel_gap(g, first) for g in again)
+    equal = all(torch.equal(g, first) for g in again)
 
     graphed = functools.partial(energy.grad, x, p, t)
     known = set(energy._graphed_grad.graphs)
@@ -167,7 +179,32 @@ def energy_profile(setup: GuidedSetup, calls: int = 10) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "capture_s": captured.seconds, "replay_ms": graph_ms(captured.graph, calls),
             "graphed_host_ms": ghost, "graphed_device_ms": gdev,
-            "graphed_vs_eager": gap, "eager_spread": spread}
+            "graphed_vs_eager": gap, "graphed_equal": torch.equal(graphed(), first),
+            "eager_spread": spread, "eager_equal": equal}
+
+
+def nondeterministic_ops(setup: GuidedSetup) -> list:
+    """The distinct warnings of ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` over one eager energy gradient at the first step's
+    pred_x0: each names an op that has no deterministic implementation
+    (cuBLAS's products name themselves unless ``CUBLAS_WORKSPACE_CONFIG``
+    was set before the process started).  The caller's setting is back
+    afterwards."""
+    import warnings
+
+    x, p, t = first_step_point(setup)
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            setup.energy_fn.grad_eager(x, p, t)
+            if x.device.type == "cuda":
+                torch.cuda.synchronize(x.device)
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+    return sorted({str(w.message).splitlines()[0] for w in caught})
 
 
 def _sync(device) -> None:
@@ -201,6 +238,26 @@ def run(setup: GuidedSetup, weight: float, reps: int) -> dict:
             "mean_abs_dz0": float((out["guided"] - out["plain"]).abs().mean())}
 
 
+def plain_energy_chains(setup: GuidedSetup, weight: float, steps: int = 10) -> list:
+    """Seconds of two guided chains of ``steps`` steps, one after the other,
+    whose energy is a plain callable (the CLIP energy's own function behind
+    a new lambda): the first pays the wrapper's warm-up and capture on the
+    card, and the second, where the wrapper is kept for the callable,
+    replays only."""
+    fn = setup.energy_fn.fn
+    plain = lambda x_t, p, t: fn(x_t, p, t)         # noqa: E731
+    sched = setup.core.make_ddim_schedule(steps, ETA)
+    secs = []
+    for _ in range(2):
+        _sync(setup.x_T.device)
+        t0 = time.perf_counter()
+        energy_guided_decode(setup.model_fn, sched, setup.x_T, setup.eps[:steps], None,
+                             plain, weight)
+        _sync(setup.x_T.device)
+        secs.append(time.perf_counter() - t0)
+    return secs
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50)
@@ -215,19 +272,30 @@ def main(argv=None) -> dict:
             raise SystemExit("guided_probe: no CUDA device (pass --device cpu for the CPU)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # as chip_smoke.py's phase 12 runs it
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     setup = build(LatentCoreSpec.sd_v1(), CLIPConfig.vit_b_32(), steps=args.steps,
                   device=device)
     if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
         prof = energy_profile(setup)
         print(f"guided_probe energy: {json.dumps(prof)}", flush=True)
+        print(f"guided_probe: deterministic mode flags {nondeterministic_ops(setup)} in one "
+              "eager energy gradient", flush=True)
     res = run(setup, args.weight, args.reps)
+    res["plain_energy_chains_s"] = plain_energy_chains(setup, args.weight)
     if device.type == "cuda":
+        res["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
         where = (f"{torch.cuda.get_device_name(device)}; SM clock, power, limit, "
                  f"temperature, throttle: {card_state()}")
     print(f"guided_probe ({where}): plain {res['plain_s']:.3f} s/chain "
           f"({res['plain_ms_per_step']:.1f} ms/step), guided {res['guided_s']:.3f} s/chain "
           f"({res['guided_ms_per_step']:.1f} ms/step) = {res['ratio']:.2f}x plain; "
-          f"mean|dz0| {res['mean_abs_dz0']:.4g} at weight {args.weight}", flush=True)
+          f"mean|dz0| {res['mean_abs_dz0']:.4g} at weight {args.weight}; two 10-step chains "
+          f"with a plain energy callable {res['plain_energy_chains_s']} s; "
+          f"peak device memory {res.get('peak_gib', float('nan')):.2f} GiB", flush=True)
+    print(f"guided_probe: {json.dumps(res)}", flush=True)
     return res
 
 

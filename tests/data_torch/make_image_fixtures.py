@@ -246,7 +246,23 @@ def fixtures() -> dict:
     out["ycck.jpg"] = jpeg_adobe_transform(out["cmyk.jpg"], 2)
     out["cmyk_512.jpg"] = pil_bytes(Image.fromarray(smooth(rng, 512, 512, 4).astype(np.uint8),
                                                     "CMYK"), "JPEG", quality=75)
+    for name in ("prog_420", "prog_grey"):
+        full = out[f"{name}.jpg"]
+        for scans in (1, 2, scan_count(full) - 1):
+            out[f"{name}_cut{scans}.jpg"] = progression_cut(full, scans)
+    full = out["prog_512.jpg"]
+    out[f"prog_512_cut{scan_count(full) - 1}.jpg"] = progression_cut(full, scan_count(full) - 1)
     return out
+
+
+def progression_cut(data: bytes, scans: int) -> bytes:
+    """A progressive file cut after its first ``scans`` scans (EOI added)."""
+    starts = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    return data[:starts[scans]] + b"\xff\xd9"
+
+
+def scan_count(data: bytes) -> int:
+    return sum(1 for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda")
 
 
 def pillow_rgb(data: bytes) -> np.ndarray:

@@ -651,6 +651,9 @@ def test_phase_15_fixture_checks_pass_on_the_cpu(smoke):
     stored = np.load(os.path.join(REPO, smoke.IMAGE_DIR, "pillow_rgb.npz"))
     assert all(stored[name].shape == (512, 512, 3) for name in smoke.IMAGE_TIMED.values())
     assert {os.path.splitext(f)[1] for f in smoke.INPUT_FILES} == {".png", ".gif", ".jpg"}
+    decode_ms, smooth_ms = smoke.smoothing_share(reps=2)
+    assert len(decode_ms) == len(smooth_ms) == 2
+    assert all(0 < s < d for s, d in zip(smooth_ms, decode_ms))
 
 
 def test_phase_15_inputs_are_what_the_preprocessor_gives(smoke, tmp_path, monkeypatch):

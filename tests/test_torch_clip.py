@@ -2,10 +2,16 @@
 
 Towers and DirectionalCLIP scores on a miniature ViT (the JAX factory's
 tiny scorer) with one seeded Flax tree: 1e-4, the fp32 towers' summation
-order.  ``clip_preprocess``'s 512 -> 224 bicubic resize against
-``jax.image.resize``: 1e-5 (the same filter, weights summed in another
-order).  OpenAI's state-dict names map to the same parameters as JAX's
-converter gives, exactly.
+order.  ``clip_preprocess``'s bicubic resizes (512 and 256 -> 224, the
+shipped energies' sizes, and 64 -> 32) against ``jax.image.resize``: the
+port applies JAX's own weight matrices, so what is left is the products'
+fp32 rounding.  JAX's CPU einsum lies up to 1.3e-6 from the float64
+product on [0, 1] pixels and the port's up to 2e-7 (bound 5e-7);
+divided by CLIP's std (>= 0.26) the gap to JAX is up to 4.6e-6 (bound
+6e-6, from 1e-5 when the port resized with ``F.interpolate``).  The
+gradient is the transposed products: the same at every call, and within
+1e-5 of max|g| of ``jax.grad``'s.  OpenAI's state-dict names map to the
+same parameters as JAX's converter gives, exactly.
 """
 
 import jax
@@ -23,7 +29,13 @@ from cyclediffusion_tpu.models.clip import clip_preprocess as jclip_preprocess
 from cyclediffusion_tpu.text.tokenizer import HashTokenizer as JHashTokenizer
 from cyclediffusion_tpu_torch.convert.from_jax import flax_to_state_dict, from_openai_state_dict
 from cyclediffusion_tpu_torch.energy.clean_clip import CLIPScorer, DirectionalCLIP
-from cyclediffusion_tpu_torch.models.clip import CLIPModel, clip_preprocess
+from cyclediffusion_tpu_torch.data.device_transforms import resize_weight_matrix
+from cyclediffusion_tpu_torch.models.clip import (
+    CLIP_IMAGE_MEAN,
+    CLIP_IMAGE_STD,
+    CLIPModel,
+    clip_preprocess,
+)
 from cyclediffusion_tpu_torch.pipelines.factory import TINY_CLIP
 from cyclediffusion_tpu_torch.text import HashTokenizer
 from test_torch_common import fill_flax_tree, max_abs, to_torch
@@ -42,12 +54,45 @@ def scorers():
     return jscorer, CLIPScorer.from_jax_params(tree, TINY_CLIP, device="cpu")
 
 
-@pytest.mark.parametrize("size,res", [(512, 224), (64, 32), (224, 224)])
+SIZES = [(512, 224), (256, 224), (64, 32)]
+
+
+def _image(size, seed=0):
+    return np.random.default_rng(seed).uniform(size=(2, size, size, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("size,res", SIZES + [(224, 224)])
 def test_clip_preprocess_matches_jax(size, res):
-    img = np.random.default_rng(0).uniform(size=(2, size, size, 3)).astype(np.float32)
+    img = _image(size)
     want = jclip_preprocess(jnp.asarray(img), res)
     got = clip_preprocess(to_torch(img), res)
-    assert max_abs(got, want) < 1e-5
+    assert max_abs(got, want) <= 6e-6
+    if size != res:     # the products against float64 ones of the same matrices
+        w = resize_weight_matrix(size, res, "bicubic", True).astype(np.float64)
+        rows = np.einsum("bhwc,hy->bywc", img.astype(np.float64), w)
+        exact = np.clip(np.einsum("bywc,wx->byxc", rows, w), 0, 1)
+        raw = got.numpy() * np.asarray(CLIP_IMAGE_STD) + np.asarray(CLIP_IMAGE_MEAN)
+        assert np.abs(raw - exact).max() <= 5e-7
+
+
+def _preprocess_grad(img, res):
+    x = to_torch(img).requires_grad_(True)
+    return torch.autograd.grad(clip_preprocess(x, res).square().sum(), x)[0]
+
+
+@pytest.mark.parametrize("size,res", SIZES)
+def test_clip_preprocess_gradient_is_reproducible(size, res):
+    img = _image(size, 1)
+    first = _preprocess_grad(img, res)
+    assert float(first.abs().max()) > 0
+    assert torch.equal(_preprocess_grad(img, res), first)
+
+
+@pytest.mark.parametrize("size,res", SIZES)
+def test_clip_preprocess_gradient_matches_jax(size, res):
+    img = _image(size, 2)
+    want = jax.grad(lambda x: jnp.sum(jclip_preprocess(x, res) ** 2))(jnp.asarray(img))
+    assert max_abs(_preprocess_grad(img, res), want) <= 1e-5 * float(jnp.abs(want).max())
 
 
 def test_towers_match_jax(scorers):

@@ -143,9 +143,9 @@ def test_png_round_trip_and_pil_reads_ours():
 def test_unsupported_images_raise(tmp_path):
     """What the loaders still refuse raises a ``ValueError`` naming it: a
     PNG of a bit depth its colour type does not allow (Pillow has no mode
-    for it either), a progressive JPEG whose progression stops before the
-    last refinement (libjpeg would smooth its blocks), a GIF without an
-    image, a file of another format."""
+    for it either), an arithmetic-coded JPEG, a GIF without an image, a
+    file of another format.  (A progressive JPEG whose progression stops
+    early is read as Pillow reads it: ``test_torch_jpeg.py``.)"""
     import struct
     import zlib
 
@@ -155,11 +155,10 @@ def test_unsupported_images_raise(tmp_path):
     with pytest.raises(ValueError, match="bit depth 4 with colour type 6"):
         transforms.load_image(str(tmp_path / "x.png"))
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(buf, "JPEG", progressive=True)
-    data = buf.getvalue()
-    (tmp_path / "x.jpg").write_bytes(data[:data.index(b"\xff\xda", data.index(b"\xff\xda") + 2)]
-                                     + b"\xff\xd9")
-    with pytest.raises(ValueError, match="progressive"):
+    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(buf, "JPEG")
+    data = buf.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1)     # SOF9
+    (tmp_path / "x.jpg").write_bytes(data)
+    with pytest.raises(ValueError, match="arithmetic"):
         transforms.load_image(str(tmp_path / "x.jpg"))
     (tmp_path / "x.gif").write_bytes(b"GIF89a\x04\x00\x04\x00\x00\x00\x00;")
     with pytest.raises(ValueError, match="no image"):

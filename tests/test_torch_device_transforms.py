@@ -73,3 +73,46 @@ def test_unknown_method_raises_as_jax():
         dt.preprocess_batch(x, 4, method="area")
     with pytest.raises(ValueError, match="Unknown resize method"):
         jdt.preprocess_batch(jnp.zeros((1, 8, 8, 3)), 4, method="area")
+
+
+def test_device_matrices_are_copied_once_per_device_and_key(monkeypatch):
+    """``resize_nhwc`` reads the cached device copy (the same tensor at every
+    call: a graph's capture must not copy from the host)."""
+    key = (48, 29, "bicubic", True, torch.device("cpu"), torch.float32)
+    first = dt.device_weight_matrix(*key)
+    assert dt.device_weight_matrix(*key) is first
+    assert dt.device_weight_matrix(48, 29, "bicubic", False, torch.device("cpu"),
+                                   torch.float32) is not first
+    seen = []
+    product = dt._AxisProduct.apply
+    monkeypatch.setattr(dt._AxisProduct, "apply",
+                        lambda x, w, *eq: seen.append(w) or product(x, w, *eq))
+    dt.resize_nhwc(torch.zeros(1, 48, 48, 3), 29, 29, "bicubic")
+    dt.resize_nhwc(torch.zeros(2, 48, 48, 3), 29, 29, "bicubic")
+    assert len(seen) == 4 and all(w is first for w in seen)
+
+
+def test_resize_forward_and_backward_run_in_full_fp32(monkeypatch):
+    """The products run with TF32 off, the backward's too, whatever the
+    caller set; the caller's flag is back afterwards."""
+    flags = []
+    einsum = torch.einsum
+    monkeypatch.setattr(torch, "einsum", lambda *a: flags.append(
+        torch.backends.cuda.matmul.allow_tf32) or einsum(*a))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        x = torch.rand(1, 20, 24, 3, requires_grad=True)
+        out = dt.resize_nhwc(x, 13, 37, "bicubic")
+        assert flags == [False, False]
+        g = torch.autograd.grad(out.square().sum(), x)[0]
+        assert flags == [False] * 4
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    # the backward is the transposed products: against float64
+    wh = torch.tensor(dt.resize_weight_matrix(20, 13, "bicubic", True), dtype=torch.float64)
+    ww = torch.tensor(dt.resize_weight_matrix(24, 37, "bicubic", True), dtype=torch.float64)
+    up = 2 * out.detach().double()
+    want = torch.einsum("byxc,hy,wx->bhwc", up, wh, ww)
+    assert float((g.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -48,6 +48,7 @@ from cyclediffusion_tpu_torch.samplers import (
     stochastic_decode,
     stochastic_encode,
 )
+from cyclediffusion_tpu_torch.samplers import guided
 from cyclediffusion_tpu_torch.samplers.guided import energy_grad
 from test_torch_common import fill_flax_tree, max_abs, tiny_latent_cores, to_torch
 
@@ -189,6 +190,44 @@ def test_clip_energy_and_its_gradient_match_jax(kl_cores, clip):
     g = energy_grad(efn, to_torch(x_t), to_torch(p0), torch.zeros(2, dtype=torch.int64))
     assert float(g.abs().max()) > 0
     _close(g, jg, 1e-4)
+
+
+@pytest.mark.parametrize("clip", list(CLIP_CONFIGS))
+def test_clip_energy_gradient_is_reproducible(kl_cores, clip):
+    """The same gradient at every call: no step of its backward adds in an
+    order that changes (the resize is two products, not F.interpolate's
+    scattered backward)."""
+    _, core = kl_cores
+    _, scorer, text = _scorers(clip)
+    efn = clip_energy_fn(core, scorer, to_torch(text), weight_prior=0.1)
+    args = (to_torch(_rand((2, 8, 8, 4), 27)), to_torch(_rand((2, 8, 8, 4), 28)),
+            torch.zeros(2, dtype=torch.int64))
+    first = energy_grad(efn, *args)
+    assert float(first.abs().max()) > 0
+    assert torch.equal(energy_grad(efn, *args), first)
+    assert torch.equal(efn.grad(*args), first)
+
+
+def test_a_plain_energy_gets_one_wrapper_across_chains(monkeypatch):
+    """Two chains with the same plain callable share one ``GraphedEnergy``
+    (on the card: one capture, replayed by the second chain); another
+    callable gets its own, and a ``GraphedEnergy`` is used as it is."""
+    _, sched = _scheds(3, 0.1)
+    shape = (1, 4, 4, 3)
+    xT, eps = to_torch(_rand(shape, 29)), to_torch(_rand((3,) + shape, 30))
+    users = []
+    grad = guided.GraphedEnergy.grad
+    monkeypatch.setattr(guided.GraphedEnergy, "grad",
+                        lambda self, *a: users.append(self) or grad(self, *a))
+    energy = _quadratic(torch.full(shape, 0.7))
+    other = _quadratic(torch.full(shape, 0.2))
+    runs = [energy_guided_decode(_fake_eps_t, sched, xT, eps, None, fn, 0.5)
+            for fn in (energy, energy, other)]
+    assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
+    assert len(users) == 9 and len({id(u) for u in users[:6]}) == 1
+    assert users[6] is not users[0] and guided.graphed_energy(energy) is users[0]
+    wrapped = guided.GraphedEnergy(energy)
+    assert guided.graphed_energy(wrapped) is wrapped
 
 
 def test_tiny_guided_chain_matches_jax(kl_cores):

@@ -4,8 +4,9 @@
 
 * The committed fixtures of ``tests/data_torch/images/`` (palette PNGs at
   1-8 bits with and without ``tRNS``, grey + alpha, 1/2/4/16-bit grey,
-  16-bit RGB, RGBA and grey + alpha, Adam7 PNGs, GIFs, progressive, CMYK
-  and YCCK JPEGs; ``chip_smoke.py`` decodes the same files on the card's
+  16-bit RGB, RGBA and grey + alpha, Adam7 PNGs, GIFs, progressive (some
+  cut after an early scan, which libjpeg-turbo smooths), CMYK and YCCK
+  JPEGs; ``chip_smoke.py`` decodes the same files on the card's
   host) against ``pil_loader`` and against the decode stored beside them.
 * PNGs written here of every colour type at every bit depth the standard
   allows, plain and Adam7, every row filter in turn; GIFs Pillow writes at

@@ -1,6 +1,8 @@
 """The port's JPEG decoder (``data/jpeg.py``) against Pillow's
 libjpeg-turbo: 0 values differ, in every mode it reads, at qualities 50,
-75 and 95, baseline and progressive, CMYK and YCCK; the committed fixtures
+75 and 95, baseline and progressive, CMYK and YCCK; progressive files
+cut after every scan (a progression that stops early, which libjpeg-turbo
+smooths) in eleven layouts; the committed fixtures
 that ``chip_smoke.py`` decodes on the card's host against the decode
 stored beside them; the port's ``load_image`` against the JAX package's
 loader; the files it refuses.
@@ -23,6 +25,7 @@ from PIL import Image
 
 from cyclediffusion_tpu.data.transforms import pil_loader
 from cyclediffusion_tpu_torch.data import jpeg, transforms
+from data_torch.make_image_fixtures import jpeg_adobe_transform, progression_cut, scan_count
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "data_torch", "jpeg")
@@ -316,13 +319,16 @@ def test_cmyk_to_rgb_is_pillows_formula():
     np.testing.assert_array_equal(got, np.asarray(Image.fromarray(cmyk, "CMYK").convert("RGB")))
 
 
-@pytest.mark.parametrize("kind", ["progressive", "cmyk", "ycck"])
+@pytest.mark.parametrize("kind", ["progressive", "progressive_cut", "cmyk", "ycck"])
 def test_progressive_and_cmyk_files_match_the_jax_loader(tmp_path, kind):
     path = str(tmp_path / "img.jpg")
-    img = smooth(9, 45, 61, 4 if kind != "progressive" else 3)
+    img = smooth(9, 45, 61, 4 if kind in ("cmyk", "ycck") else 3)
     with open(path, "wb") as f:
-        f.write(pillow_jpeg(img, quality=85, progressive=True) if kind == "progressive"
-                else _cmyk_jpeg(img, 85, 2 if kind == "ycck" else 0))
+        if kind.startswith("progressive"):
+            data = pillow_jpeg(img, quality=85, progressive=True)
+            f.write(progression_cut(data, 3) if kind == "progressive_cut" else data)
+        else:
+            f.write(_cmyk_jpeg(img, 85, 2 if kind == "ycck" else 0))
     got = transforms.load_image(path)
     assert got.shape == (45, 61, 3)
     np.testing.assert_array_equal(got, np.asarray(pil_loader(path)))
@@ -380,14 +386,97 @@ def _patched(data: bytes, offset_from_sof: int, value: int, sof=b"\xff\xc0") -> 
     return data[:i + offset_from_sof] + bytes([value]) + data[i + offset_from_sof + 1:]
 
 
-def _progression_cut(data: bytes, scans: int) -> bytes:
-    """A progressive file cut after its first ``scans`` scans (EOI added)."""
-    starts = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
-    return data[:starts[scans]] + b"\xff\xd9"
+# progressive files whose progression stops early, which libjpeg-turbo
+# smooths: name -> (H, W, channels, Pillow's save options; "ycck" sets the
+# Adobe transform of a CMYK file to 2)
+CUT_LAYOUTS = {
+    "420": (45, 61, 3, {}),
+    "444": (37, 29, 3, {"subsampling": 0}),
+    "grey": (33, 27, 1, {}),
+    "restart": (51, 67, 3, {"restart_marker_blocks": 3}),
+    # 3 luma block rows at 4:2:0: the second-last iMCU row reads the last's
+    # padding row, the last reads its own rows only; chroma 2 blocks wide
+    "420_odd_rows": (17, 40, 3, {}),
+    "422_off_grid": (37, 29, 3, {"subsampling": 1}),
+    "one_block_row": (5, 37, 3, {}),
+    "grey_one_block_row": (8, 64, 1, {}),
+    "two_block_columns": (16, 16, 3, {"subsampling": 0}),
+    "cmyk": (31, 43, 4, {}),
+    "ycck": (29, 22, 4, {}),
+}
+
+
+def _progressive(name: str, quality: int) -> bytes:
+    h, w, c, opts = CUT_LAYOUTS[name]
+    img = smooth(len(name) + quality, h, w, c)
+    if c < 4:
+        return pillow_jpeg(img, quality=quality, progressive=True, **opts)
+    buf = io.BytesIO()
+    Image.fromarray(img, "CMYK").save(buf, "JPEG", quality=quality, progressive=True)
+    data = buf.getvalue()
+    return jpeg_adobe_transform(data, 2) if name == "ycck" else data
+
+
+@pytest.mark.parametrize("quality", [50, 90])
+@pytest.mark.parametrize("name", list(CUT_LAYOUTS))
+def test_progression_cut_after_every_scan_equals_pillow(name, quality):
+    """The file cut after each scan from the first to the last but one:
+    the decode, smoothed as libjpeg-turbo smooths it, equals Pillow's value
+    for value (its ``convert("RGB")`` for CMYK and YCCK)."""
+    full = _progressive(name, quality)
+    n = scan_count(full)
+    assert n >= 6
+    changed = 0
+    for scans in range(1, n):
+        data = progression_cut(full, scans)
+        got = jpeg.decode_jpeg(data)
+        with Image.open(io.BytesIO(data)) as im:
+            want = np.asarray(im)
+            rgb = np.asarray(im.convert("RGB"))
+        np.testing.assert_array_equal(got, want.reshape(got.shape), err_msg=f"cut {scans}")
+        if got.shape[2] == 4:
+            np.testing.assert_array_equal(jpeg.cmyk_to_rgb(got), rgb)
+        changed += int(not np.array_equal(got, jpeg.decode_jpeg(full)))
+    assert changed == n - 1     # each cut decodes to another image than the full file
+
+
+def test_smoothing_applies_only_where_libjpeg_smooths(monkeypatch):
+    """A baseline file and a complete progression are not smoothed; a cut
+    one is, and its DC-only cut has its DC interpolated too."""
+    frames = []
+    reconstruct = jpeg._reconstruct
+    monkeypatch.setattr(jpeg, "_reconstruct",
+                        lambda frame, *a: frames.append(frame) or reconstruct(frame, *a))
+
+    def frame_of(data):
+        jpeg.decode_jpeg(data)
+        return frames[-1]
+
+    img = smooth(4, 24, 32)
+    assert not jpeg._smoothing_ok(frame_of(pillow_jpeg(img, quality=75)))
+    full = pillow_jpeg(img, quality=75, progressive=True)
+    assert not jpeg._smoothing_ok(frame_of(full))
+    for scans in (1, 2, scan_count(full) - 1):
+        frame = frame_of(progression_cut(full, scans))
+        assert jpeg._smoothing_ok(frame)
+        assert all(b == -1 for b in frame.comps[0].coef_bits[1:10]) == (scans == 1)
+
+
+def test_neighbourhoods_replicate_edges_as_libjpeg():
+    """Columns clamp at the row's ends; rows follow libjpeg-turbo's iMCU
+    rows: at 4:2:0 with 3 luma block rows (2 iMCU rows, the last holding
+    one real row) row 1 reads the padding row 3 two below, and row 2 reads
+    row 1 for both rows above."""
+    np.testing.assert_array_equal(jpeg._neighbour_cols(2), [[0, 0, 0, 1, 1], [0, 0, 1, 1, 1]])
+    np.testing.assert_array_equal(jpeg._neighbour_rows(3, 2, 2),
+                                  [[0, 0, 0, 1, 2], [0, 0, 1, 2, 3], [1, 1, 2, 2, 2]])
+    np.testing.assert_array_equal(jpeg._neighbour_rows(4, 1, 4),
+                                  [[0, 0, 0, 1, 2], [0, 0, 1, 2, 3], [0, 1, 2, 3, 3],
+                                   [1, 2, 3, 3, 3]])
+    np.testing.assert_array_equal(jpeg._neighbour_rows(1, 2, 1), [[0, 0, 0, 0, 0]])
 
 
 @pytest.mark.parametrize("kind,match", [
-    ("progressive", "progressive"),
     ("cmyk", "CMYK"),
     ("arithmetic", "arithmetic"),
     ("12-bit", "12-bit"),
@@ -398,9 +487,7 @@ def _progression_cut(data: bytes, scans: int) -> bytes:
 def test_unsupported_files_raise_naming_what_they_are(tmp_path, kind, match):
     img = smooth(5, 24, 24)
     base = pillow_jpeg(img, quality=75)
-    if kind == "progressive":       # refinement-incomplete: libjpeg would smooth it
-        data = _progression_cut(pillow_jpeg(img, quality=75, progressive=True), 4)
-    elif kind == "cmyk":            # two components: Pillow has no mode for it
+    if kind == "cmyk":            # two components: Pillow has no mode for it
         buf = io.BytesIO()
         Image.fromarray(img).convert("CMYK").save(buf, "JPEG")
         data = _patched(buf.getvalue(), 9, 2)

@@ -120,6 +120,35 @@ def test_guided_probe_at_tiny_size_on_the_cpu(capsys):
     assert res["plain_s"] > 0 and res["guided_s"] > 0 and res["mean_abs_dz0"] > 0
     assert res["guided_ms_per_step"] == pytest.approx(1e3 * res["guided_s"] / 3)
     assert torch.equal(setup.guided(0.0), setup.plain())
+    secs = guided_probe.plain_energy_chains(setup, 50.0, steps=2)
+    assert len(secs) == 2 and all(t > 0 for t in secs)
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="--device cpu"):
             guided_probe.main([])
+
+
+@pytest.mark.parametrize("mode", [(False, False), (True, True)])
+def test_guided_probe_deterministic_mode_check_restores_the_mode(mode):
+    """``nondeterministic_ops`` runs one eager energy gradient under
+    PyTorch's deterministic mode (warnings only) and leaves the caller's
+    mode as it found it; the tiny CPU energy's ops are all deterministic."""
+    import torch
+
+    from cyclediffusion_tpu_torch.models.clip import CLIPConfig
+    from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec
+    from cyclediffusion_tpu_torch.tools import guided_probe
+
+    clip = CLIPConfig(embed_dim=16, image_resolution=16, vision_width=32, vision_layers=1,
+                      vision_heads=2, patch_size=8, vocab_size=96, context_length=16,
+                      text_width=32, text_layers=1, text_heads=2)
+    setup = guided_probe.build(LatentCoreSpec.tiny("clip"), clip, steps=2, device="cpu",
+                               dtype=torch.float32)
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+    try:
+        assert guided_probe.nondeterministic_ops(setup) == []
+        assert (torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled()) == mode
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
