@@ -19,7 +19,7 @@ import torch
 from cyclediffusion_tpu_torch.convert.from_jax import flax_to_state_dict, from_openai_state_dict
 from cyclediffusion_tpu_torch.models.clip import CLIPConfig, CLIPModel, clip_preprocess
 from cyclediffusion_tpu_torch.models.nn import fill_random_, resolve_device
-from cyclediffusion_tpu_torch.runtime import graphs
+from cyclediffusion_tpu_torch.runtime import graphs, profiling
 
 
 def normalize(x):
@@ -53,9 +53,9 @@ class CLIPScorer:
         pool = graphs.GraphPool()
         self._graphed_image = graphs.GraphedCall(
             functools.partial(_embed_image, self.model, self.config.image_resolution, dtype),
-            pool)
+            pool, name="clip.image")
         self._graphed_text = graphs.GraphedCall(functools.partial(_embed_text, self.model),
-                                                pool)
+                                                pool, name="clip.text")
 
     @classmethod
     def random_init(cls, seed: int = 0, config: Optional[CLIPConfig] = None,
@@ -123,7 +123,10 @@ class CLIPScorer:
         return _embed_text(self.model, self._token_ids(token_ids))
 
     def _token_ids(self, token_ids) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(token_ids), dtype=torch.int64, device=self.device)
+        # a pageable host copy: the host waits for the device's queue
+        with profiling.span("sync.clip.token_ids"):
+            return torch.as_tensor(np.asarray(token_ids), dtype=torch.int64,
+                                   device=self.device)
 
 
 class DirectionalCLIP:

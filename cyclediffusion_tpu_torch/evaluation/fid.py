@@ -185,7 +185,7 @@ def _inception_features(images: np.ndarray, device) -> Optional[np.ndarray]:
     if key not in _INCEPTION_CACHE:
         _INCEPTION_CACHE.clear()
         model, native = _load_inception(path, device)
-        graphed = (graphs.GraphedCall(functools.partial(_native_features, model))
+        graphed = (graphs.GraphedCall(functools.partial(_native_features, model), name="fid")
                    if native else None)
         _INCEPTION_CACHE[key] = (model, native, graphed)
     model, native, graphed = _INCEPTION_CACHE[key]

@@ -113,6 +113,7 @@ def process_device(device) -> torch.device:
 def main(argv=None, *, device="cuda"):
     from cyclediffusion_tpu_torch.runtime.config import get_config
     from cyclediffusion_tpu_torch.runtime.driver import Driver
+    from cyclediffusion_tpu_torch.runtime.profiling import trace_if_enabled
     from cyclediffusion_tpu_torch.runtime.registry import (
         get_evaluator,
         get_model,
@@ -141,25 +142,27 @@ def main(argv=None, *, device="cuda"):
     if training_args.resume_from_checkpoint:
         driver.load_model(training_args.resume_from_checkpoint)
 
-    if training_args.do_train:
-        metrics = driver.train()
-        driver.save_model()
-        metrics["train_samples"] = len(dataset_splits["train"])
-        driver.log_metrics("train", metrics)
-        driver.save_metrics("train", metrics)
+    # CYCLEDIFFUSION_TRACE_DIR: a Chrome trace of the run with the program's spans
+    with trace_if_enabled():
+        if training_args.do_train:
+            metrics = driver.train()
+            driver.save_model()
+            metrics["train_samples"] = len(dataset_splits["train"])
+            driver.log_metrics("train", metrics)
+            driver.save_metrics("train", metrics)
 
-    logger.info("*** Evaluate ***")
-    metrics = driver.evaluate()
-    metrics["eval_samples"] = len(dataset_splits["dev"])
-    driver.log_metrics("eval", metrics)
-    driver.save_metrics("eval", metrics)
+        logger.info("*** Evaluate ***")
+        metrics = driver.evaluate()
+        metrics["eval_samples"] = len(dataset_splits["dev"])
+        driver.log_metrics("eval", metrics)
+        driver.save_metrics("eval", metrics)
 
-    if training_args.do_predict:
-        logger.info("*** Predict ***")
-        _, metrics = driver.predict(dataset_splits["test"])
-        metrics["predict_samples"] = len(dataset_splits["test"])
-        driver.log_metrics("predict", metrics)
-        driver.save_metrics("predict", metrics)
+        if training_args.do_predict:
+            logger.info("*** Predict ***")
+            _, metrics = driver.predict(dataset_splits["test"])
+            metrics["predict_samples"] = len(dataset_splits["test"])
+            driver.log_metrics("predict", metrics)
+            driver.save_metrics("predict", metrics)
     if joins and dist.is_initialized():
         # no rank leaves while another still talks to it (a rank that exits
         # with the group's threads alive aborts)

@@ -6,7 +6,9 @@ one model call on the concatenated ``[uncond; cond]`` batch followed by the
 guidance combine.  A Python-number scale takes the 0/1 shortcuts; a tensor
 scale (per-candidate sweeps) always runs the dual batch, whose combine is
 exact for 0 and 1 too.  :func:`cfg_model_fn_pair` is the same for the
-encoder-caching fast mode.
+encoder-caching fast mode.  The dual batch and the combine are
+``sampler.cfg_dual`` and ``sampler.cfg_combine`` spans
+(``runtime.profiling``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import torch
+
+from cyclediffusion_tpu_torch.runtime import profiling
 
 # model_fn(x, t, cond) -> eps
 ModelFn = Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
@@ -25,7 +29,9 @@ def _is_static(scale) -> bool:
 
 def dual_batch_inputs(x, t):
     """Duplicate (x, t) into the [uncond; cond] dual batch."""
-    return torch.cat([x, x], dim=0), torch.cat([t, t], dim=0)
+    with (profiling.span("sampler.cfg_dual") as s,
+          s.device(x, profiling.SAMPLE_EVERY)):
+        return torch.cat([x, x], dim=0), torch.cat([t, t], dim=0)
 
 
 def make_cfg_combine(uncond, cond, scale):
@@ -34,8 +40,10 @@ def make_cfg_combine(uncond, cond, scale):
     c_in = torch.cat([uncond, cond], dim=0)
 
     def combine(out):
-        e_uncond, e_cond = torch.chunk(out, 2, dim=0)
-        return e_uncond + scale * (e_cond - e_uncond)
+        with (profiling.span("sampler.cfg_combine") as s,
+              s.device(out, profiling.SAMPLE_EVERY)):
+            e_uncond, e_cond = torch.chunk(out, 2, dim=0)
+            return e_uncond + scale * (e_cond - e_uncond)
 
     return c_in, combine
 

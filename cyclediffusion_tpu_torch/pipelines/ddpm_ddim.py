@@ -61,7 +61,8 @@ class DDPMDDIMPipeline:
         self.device = resolve_device(device)
         self.dtype = dtype
         self.model = model.to(self.device, dtype).eval().requires_grad_(False)
-        self._graphed = graphs.GraphedCall(functools.partial(_pixel_eps, self.model, dtype))
+        self._graphed = graphs.GraphedCall(functools.partial(_pixel_eps, self.model, dtype),
+                                           name="pixel_eps")
         self.sample_type = sample_type
         self.custom_steps = custom_steps
         self.es_steps = es_steps

@@ -40,7 +40,7 @@ from cyclediffusion_tpu_torch.models.unet_gd import GDUNet, GDUNetConfig
 from cyclediffusion_tpu_torch.ops import schedule
 from cyclediffusion_tpu_torch.ops.fold import SplitInputParams, split_first_stage_apply
 from cyclediffusion_tpu_torch.parallel import tp
-from cyclediffusion_tpu_torch.runtime import graphs, yaml_subset
+from cyclediffusion_tpu_torch.runtime import graphs, profiling, yaml_subset
 from cyclediffusion_tpu_torch.samplers import (
     ddim_decode,
     ddim_decode_cached,
@@ -289,17 +289,20 @@ class LatentDiffusionCore:
         # so the pool is the largest capture's, not the sum of them
         pool = graphs.GraphPool()
         self._graphed_apply = graphs.GraphedCall(
-            functools.partial(_unet_eps, self.unet, dtype), pool)
+            functools.partial(_unet_eps, self.unet, dtype), pool, name="unet")
         self._graphed_key = graphs.GraphedCall(
-            functools.partial(_unet_cached, self.unet, dtype), pool)
+            functools.partial(_unet_cached, self.unet, dtype), pool, name="unet.key")
         self._graphed_reuse = graphs.GraphedCall(
-            functools.partial(_unet_reuse, self.unet, dtype), pool)
+            functools.partial(_unet_reuse, self.unet, dtype), pool, name="unet.reuse")
         self._graphed_encode = graphs.GraphedCall(
-            functools.partial(_encode_first_stage, self.first_stage, spec, dtype), pool)
+            functools.partial(_encode_first_stage, self.first_stage, spec, dtype), pool,
+            name="first_stage.encode")
         self._graphed_decode = graphs.GraphedCall(
-            functools.partial(_decode_first_stage, self.first_stage, spec, dtype), pool)
+            functools.partial(_decode_first_stage, self.first_stage, spec, dtype), pool,
+            name="first_stage.decode")
         self._graphed_cond = (None if self.cond_model is None
-                              else graphs.GraphedCall(self.cond_model, pool))
+                              else graphs.GraphedCall(self.cond_model, pool, name="text",
+                                                      time_device=True))
 
     def modules(self):
         return tuple(m for _, m in self._named_modules())
@@ -438,7 +441,10 @@ class LatentDiffusionCore:
     def _token_ids(self, token_ids) -> torch.Tensor:
         if self.cond_model is None:
             raise ValueError(f"{self.spec.name} has no conditioning model")
-        return torch.as_tensor(np.asarray(token_ids), dtype=torch.int64, device=self.device)
+        # a pageable host copy: the host waits for the device's queue
+        with profiling.span("sync.token_ids"):
+            return torch.as_tensor(np.asarray(token_ids), dtype=torch.int64,
+                                   device=self.device)
 
     def encode_first_stage(self, image_m11, noise=None):
         """[-1,1] NHWC image -> x0 latent (fp32), times the scale factor: the

@@ -39,6 +39,12 @@ rank.
 (``samplers.dpm_encode_cached`` / ``ddim_decode_cached`` through
 ``ops.cfg.cfg_model_fn_pair``): the UNet's encoder half runs at every
 ``fast_key_every``-th step only.  The noise draws are the exact path's.
+
+``runtime.profiling`` records the entry points as ``pipeline.encode``,
+``pipeline.generate``, ``pipeline.forward`` and ``pipeline.rank`` spans (the
+ranked candidates as rows), the host's waits on the device as ``sync.*``
+spans, and each launch's candidates, padding included and not, as the
+``rows.launched`` and ``rows.real`` counters.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from cyclediffusion_tpu_torch.energy.clean_clip import DirectionalCLIP, normaliz
 from cyclediffusion_tpu_torch.ops.cfg import cfg_model_fn, cfg_model_fn_pair
 from cyclediffusion_tpu_torch.parallel.mesh import all_gather_cat, batch_sharding, mesh_extent
 from cyclediffusion_tpu_torch.pipelines.latent import LatentDiffusionCore
+from cyclediffusion_tpu_torch.runtime import profiling
 from cyclediffusion_tpu_torch.samplers import (
     ddim_decode,
     ddim_decode_cached,
@@ -115,6 +122,8 @@ class StochasticTextPipeline:
         every launch up to a multiple of the data extent."""
         want = chunk if len(sub) < chunk and c0 > 0 else len(sub)
         want = -(-want // self._data_extent) * self._data_extent
+        profiling.count("rows.launched", want)
+        profiling.count("rows.real", len(sub))
         return sub + sub[-1:] * (want - len(sub))
 
     def _my_rows(self, padded: list) -> list:
@@ -152,7 +161,9 @@ class StochasticTextPipeline:
         """CFG eps model over K candidates folded into the batch axis: one
         ``fn(x, t)``, or in fast mode the ``(key_fn, reuse_fn)`` pair."""
         K = len(scales)
-        scale_f = torch.tensor(scales, dtype=torch.float32, device=self.core.device)
+        # a pageable host copy: the host waits for the device's queue
+        with profiling.span("sync.scales"):
+            scale_f = torch.tensor(scales, dtype=torch.float32, device=self.core.device)
         scale_f = scale_f.repeat_interleave(bsz).reshape(K * bsz, 1, 1, 1)
         uc, c = uc_ctx.repeat(K, 1, 1), c_ctx.repeat(K, 1, 1)
         if self._fast:
@@ -214,52 +225,54 @@ class StochasticTextPipeline:
         candidate ``xT_noises[i]`` (B,h,w,c) and ``posterior_noises[i]``
         (n_i,B,h,w,c) for its DPM-Encoder chain.
         """
-        image01 = torch.as_tensor(image01, dtype=torch.float32, device=self.core.device)
-        if not image01.shape[1] == image01.shape[2] == self.resolution:
-            raise ValueError(f"image {tuple(image01.shape)} is not "
-                             f"{self.resolution}x{self.resolution}")
-        bsz = image01.shape[0]
-        shape = self._latent_shape(bsz)
-        dev = self.core.device
+        with profiling.span("pipeline.encode"):
+            image01 = torch.as_tensor(image01, dtype=torch.float32, device=self.core.device)
+            if not image01.shape[1] == image01.shape[2] == self.resolution:
+                raise ValueError(f"image {tuple(image01.shape)} is not "
+                                 f"{self.resolution}x{self.resolution}")
+            bsz = image01.shape[0]
+            shape = self._latent_shape(bsz)
+            dev = self.core.device
 
-        def draw(s):
-            return torch.randn(s, generator=generator, device=dev)
+            def draw(s):
+                return torch.randn(s, generator=generator, device=dev)
 
-        if vae_noise is None:
-            vae_noise = draw(shape)
-        x0 = self.core.encode_first_stage((image01 - 0.5) * 2.0,
-                                          torch.as_tensor(vae_noise, device=dev))
-        c_ctx = self.get_condition(encode_text)
-        uc_ctx = self.uncond(bsz)
+            if vae_noise is None:
+                vae_noise = draw(shape)
+            x0 = self.core.encode_first_stage((image01 - 0.5) * 2.0,
+                                              torch.as_tensor(vae_noise, device=dev))
+            c_ctx = self.get_condition(encode_text)
+            uc_ctx = self.uncond(bsz)
 
-        combos = self._combos()
-        noises = []
-        for i, (_, _, sk) in enumerate(combos):
-            n = num_recovered_eps(self.sched.num_steps, self.white_box_steps, sk)
-            xn = draw(shape) if xT_noises is None else xT_noises[i]
-            pn = draw((n,) + shape) if posterior_noises is None else posterior_noises[i]
-            noises.append((torch.as_tensor(xn, device=dev), torch.as_tensor(pn, device=dev)))
+            combos = self._combos()
+            noises = []
+            for i, (_, _, sk) in enumerate(combos):
+                n = num_recovered_eps(self.sched.num_steps, self.white_box_steps, sk)
+                xn = draw(shape) if xT_noises is None else xT_noises[i]
+                pn = draw((n,) + shape) if posterior_noises is None else posterior_noises[i]
+                noises.append((torch.as_tensor(xn, device=dev),
+                               torch.as_tensor(pn, device=dev)))
 
-        results = {}
-        for skip in sorted(set(self.skip_steps)):
-            idxs = [i for i, (_, _, sk) in enumerate(combos) if sk == skip]
-            chunk = self.candidate_chunk or len(idxs)
-            for c0 in range(0, len(idxs), chunk):
-                sub = idxs[c0:c0 + chunk]
-                mine = self._my_rows(self._pad_launch(sub, chunk, c0))
-                xT, eps = self._encode_chains(
-                    x0, c_ctx, uc_ctx, [combos[i][1] for i in mine],
-                    [noises[i] for i in mine], skip)
-                xT, eps = self._gather(xT), self._gather(eps)
-                for j, i in enumerate(sub):
-                    results[i] = (xT[j], eps[j])
+            results = {}
+            for skip in sorted(set(self.skip_steps)):
+                idxs = [i for i, (_, _, sk) in enumerate(combos) if sk == skip]
+                chunk = self.candidate_chunk or len(idxs)
+                for c0 in range(0, len(idxs), chunk):
+                    sub = idxs[c0:c0 + chunk]
+                    mine = self._my_rows(self._pad_launch(sub, chunk, c0))
+                    xT, eps = self._encode_chains(
+                        x0, c_ctx, uc_ctx, [combos[i][1] for i in mine],
+                        [noises[i] for i in mine], skip)
+                    xT, eps = self._gather(xT), self._gather(eps)
+                    for j, i in enumerate(sub):
+                        results[i] = (xT[j], eps[j])
 
-        z_ensemble = []
-        for i in range(len(combos)):
-            xT, eps = results[i]
-            z = torch.cat([xT[None], eps], dim=0)          # (n+1, B, h, w, c)
-            z_ensemble.append(z.transpose(0, 1).reshape(bsz, -1))
-        return z_ensemble
+            z_ensemble = []
+            for i in range(len(combos)):
+                xT, eps = results[i]
+                z = torch.cat([xT[None], eps], dim=0)          # (n+1, B, h, w, c)
+                z_ensemble.append(z.transpose(0, 1).reshape(bsz, -1))
+            return z_ensemble
 
     def _unflatten(self, z, skip):
         spec = self.core.spec
@@ -276,43 +289,46 @@ class StochasticTextPipeline:
         take fresh noise: ``fresh_noises[i * D + d]`` ``(steps - skip - n, B,
         h, w, c)`` for z ``i`` under decoder scale ``d`` when given, else
         draws from ``generator``, per candidate in candidate order."""
-        bsz = z_ensemble[0].shape[0]
-        c_ctx = self.get_condition(decode_text)
-        uc_ctx = self.uncond(bsz)
-        D = len(self.dec_scales)
-        imgs: List[Optional[torch.Tensor]] = [None] * (len(z_ensemble) * D)
-        for skip in sorted(set(self.skip_steps)):
-            work = []  # (xT, eps with its fresh tail, scale, flat position)
-            for i in range(len(z_ensemble)):
-                if self.skip_steps[i % len(self.skip_steps)] != skip:
-                    continue
-                xT, eps = self._unflatten(z_ensemble[i], skip)
-                fresh = self.sched.num_steps - skip - eps.shape[0]
-                for d, ds in enumerate(self.dec_scales):
-                    full = eps
-                    if fresh > 0:
-                        tail = (torch.randn((fresh,) + tuple(xT.shape), generator=generator,
-                                            dtype=xT.dtype, device=xT.device)
-                                if fresh_noises is None else
-                                torch.as_tensor(fresh_noises[i * D + d], dtype=xT.dtype,
-                                                device=xT.device))
-                        full = torch.cat([eps, tail])
-                    work.append((xT, full, ds, i * D + d))
-            chunk = self.candidate_chunk or len(work)
-            for c0 in range(0, len(work), chunk):
-                sub = work[c0:c0 + chunk]
-                mine = self._my_rows(self._pad_launch(sub, chunk, c0))
-                samples = self._decode_chains(
-                    torch.stack([w[0] for w in mine]), torch.stack([w[1] for w in mine]),
-                    c_ctx, uc_ctx, [w[2] for w in mine], generator, skip)
-                flat = samples.reshape((-1,) + samples.shape[2:])
-                decoded = torch.cat([
-                    self.core.decode_first_stage(flat[i:i + _VAE_BATCH])
-                    for i in range(0, flat.shape[0], _VAE_BATCH)])
-                decoded = self._gather(decoded.reshape(samples.shape[:2] + decoded.shape[1:]))
-                for j, w in enumerate(sub):
-                    imgs[w[3]] = (decoded[j] + 1.0) / 2.0
-        return [im for im in imgs if im is not None]
+        with profiling.span("pipeline.generate"):
+            bsz = z_ensemble[0].shape[0]
+            c_ctx = self.get_condition(decode_text)
+            uc_ctx = self.uncond(bsz)
+            D = len(self.dec_scales)
+            imgs: List[Optional[torch.Tensor]] = [None] * (len(z_ensemble) * D)
+            for skip in sorted(set(self.skip_steps)):
+                work = []  # (xT, eps with its fresh tail, scale, flat position)
+                for i in range(len(z_ensemble)):
+                    if self.skip_steps[i % len(self.skip_steps)] != skip:
+                        continue
+                    xT, eps = self._unflatten(z_ensemble[i], skip)
+                    fresh = self.sched.num_steps - skip - eps.shape[0]
+                    for d, ds in enumerate(self.dec_scales):
+                        full = eps
+                        if fresh > 0:
+                            tail = (torch.randn((fresh,) + tuple(xT.shape),
+                                                generator=generator, dtype=xT.dtype,
+                                                device=xT.device)
+                                    if fresh_noises is None else
+                                    torch.as_tensor(fresh_noises[i * D + d], dtype=xT.dtype,
+                                                    device=xT.device))
+                            full = torch.cat([eps, tail])
+                        work.append((xT, full, ds, i * D + d))
+                chunk = self.candidate_chunk or len(work)
+                for c0 in range(0, len(work), chunk):
+                    sub = work[c0:c0 + chunk]
+                    mine = self._my_rows(self._pad_launch(sub, chunk, c0))
+                    samples = self._decode_chains(
+                        torch.stack([w[0] for w in mine]), torch.stack([w[1] for w in mine]),
+                        c_ctx, uc_ctx, [w[2] for w in mine], generator, skip)
+                    flat = samples.reshape((-1,) + samples.shape[2:])
+                    decoded = torch.cat([
+                        self.core.decode_first_stage(flat[i:i + _VAE_BATCH])
+                        for i in range(0, flat.shape[0], _VAE_BATCH)])
+                    decoded = self._gather(
+                        decoded.reshape(samples.shape[:2] + decoded.shape[1:]))
+                    for j, w in enumerate(sub):
+                        imgs[w[3]] = (decoded[j] + 1.0) / 2.0
+            return [im for im in imgs if im is not None]
 
     # ---- ranking ------------------------------------------------------------ #
 
@@ -322,48 +338,52 @@ class StochasticTextPipeline:
         best candidate per sample (B,)).  The text features and the
         original's are computed once; candidates are embedded in
         micro-batches."""
-        if self.directional_clip is None:
-            raise ValueError("ranking needs a DirectionalCLIP scorer (directional_clip)")
-        dclip = self.directional_clip
-        enc_feat = dclip.text_features(encode_text)
-        dec_feat = dclip.text_features(decode_text)
-        orig_feat = dclip.scorer.embed_image(original_img01)
-        stacked = torch.stack(list(img_ensemble))          # (n, B, H, W, C)
-        n, bsz = stacked.shape[:2]
-        img_feat = dclip.scorer.embed_images_microbatched(
-            stacked.reshape((n * bsz,) + stacked.shape[2:])).reshape(n, bsz, -1)
-        img_dir = normalize(img_feat - orig_feat[None])
-        text_dir = normalize(dec_feat - enc_feat)
-        scores = torch.einsum("nbz,bz->bn", img_dir, text_dir)
-        return scores, torch.argmax(scores, dim=1)
+        with profiling.span("pipeline.rank", len(img_ensemble) * img_ensemble[0].shape[0]):
+            if self.directional_clip is None:
+                raise ValueError("ranking needs a DirectionalCLIP scorer (directional_clip)")
+            dclip = self.directional_clip
+            enc_feat = dclip.text_features(encode_text)
+            dec_feat = dclip.text_features(decode_text)
+            orig_feat = dclip.scorer.embed_image(original_img01)
+            stacked = torch.stack(list(img_ensemble))          # (n, B, H, W, C)
+            n, bsz = stacked.shape[:2]
+            img_feat = dclip.scorer.embed_images_microbatched(
+                stacked.reshape((n * bsz,) + stacked.shape[2:])).reshape(n, bsz, -1)
+            img_dir = normalize(img_feat - orig_feat[None])
+            text_dir = normalize(dec_feat - enc_feat)
+            scores = torch.einsum("nbz,bz->bn", img_dir, text_dir)
+            return scores, torch.argmax(scores, dim=1)
 
     def forward(self, z_ensemble, original_img01, encode_text, decode_text,
                 generator: Optional[torch.Generator] = None):
         """Decode every candidate, rank by DirectionalCLIP -> (best image
         (B, H, W, C), per-sample winning (enc_scale, dec_scale, skip))."""
-        img_ensemble = self.generate(z_ensemble, decode_text, generator)
-        n_expected = (len(self.dec_scales) * len(self.enc_scales)
-                      * len(self.skip_steps) * self.n_trials)
-        if len(img_ensemble) != n_expected:
-            raise ValueError(f"{len(img_ensemble)} candidates, expected {n_expected}")
-        original = torch.as_tensor(original_img01, dtype=torch.float32,
-                                   device=self.core.device)
-        _, best = self.rank(img_ensemble, original, encode_text, decode_text)
-        best = best.to(self.core.device)
-        img = torch.stack(img_ensemble, dim=1)[
-            torch.arange(best.shape[0], device=best.device), best]
-        # flat candidate order is trial -> enc_scale -> skip (encode) with the
-        # decoder scale innermost (generate's i*D + d), so a trial's inner
-        # index is ((e*S) + s)*D + d.  The reference's own report swaps the
-        # dec/skip strides (stable_diffusion_stochastic_text_wrapper.py:236-247);
-        # these are the JAX package's corrected tuples.
-        D, S = len(self.dec_scales), len(self.skip_steps)
-        n_inner = D * len(self.enc_scales) * S
-        combos = []
-        for bi in (int(j) % n_inner for j in best.tolist()):
-            combos.append((self.enc_scales[bi // (D * S)], self.dec_scales[bi % D],
-                           self.skip_steps[(bi // D) % S]))
-        return img, combos
+        with profiling.span("pipeline.forward"):
+            img_ensemble = self.generate(z_ensemble, decode_text, generator)
+            n_expected = (len(self.dec_scales) * len(self.enc_scales)
+                          * len(self.skip_steps) * self.n_trials)
+            if len(img_ensemble) != n_expected:
+                raise ValueError(f"{len(img_ensemble)} candidates, expected {n_expected}")
+            original = torch.as_tensor(original_img01, dtype=torch.float32,
+                                       device=self.core.device)
+            _, best = self.rank(img_ensemble, original, encode_text, decode_text)
+            best = best.to(self.core.device)
+            img = torch.stack(img_ensemble, dim=1)[
+                torch.arange(best.shape[0], device=best.device), best]
+            # flat candidate order is trial -> enc_scale -> skip (encode) with the
+            # decoder scale innermost (generate's i*D + d), so a trial's inner
+            # index is ((e*S) + s)*D + d.  The reference's own report swaps the
+            # dec/skip strides (stable_diffusion_stochastic_text_wrapper.py:236-247);
+            # these are the JAX package's corrected tuples.
+            D, S = len(self.dec_scales), len(self.skip_steps)
+            n_inner = D * len(self.enc_scales) * S
+            with profiling.span("sync.best"):
+                best_ids = best.tolist()
+            combos = []
+            for bi in (int(j) % n_inner for j in best_ids):
+                combos.append((self.enc_scales[bi // (D * S)], self.dec_scales[bi % D],
+                               self.skip_steps[(bi // D) % S]))
+            return img, combos
 
     def __call__(self, z_ensemble, original_img01, encode_text, decode_text,
                  generator: Optional[torch.Generator] = None):

@@ -41,6 +41,14 @@ Python, so a replay would count nothing: a capture records what it added
 to ``launch_counts`` (and takes it back, since capturing launches
 nothing), and each replay adds it once.
 
+Each call records a ``graph.<name>`` span (``runtime.profiling``) over its
+copy-in, replay and copy-out (or its warm-up and capture) on the host, and
+with ``time_device`` over the replay alone on the device, with the first
+tensor's leading dimension as its rows, and counts
+``graph.captures.<name>`` at a capture and ``graph.replays.<name>`` at a
+replay; ``name`` is given at construction (``unet``, ``first_stage.decode``,
+...).
+
 Gradients: a replay cannot be differentiated.  In grad mode an input that
 requires a gradient is refused (on every device, as the kernels refuse
 one), and the call runs under ``torch.no_grad()``.  A function that takes
@@ -62,6 +70,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from cyclediffusion_tpu_torch.ops import flash_attention as fa
+from cyclediffusion_tpu_torch.runtime import profiling
 
 
 def backend_flags() -> tuple:
@@ -227,14 +236,21 @@ def capture(fn: Callable, args=(), pool: Optional[GraphPool] = None) -> Captured
 
 class GraphedCall:
     """``fn(*args)``, replayed as one CUDA graph per signature on CUDA
-    tensors (see the module's docstring); ``plain`` is ``fn`` itself."""
+    tensors (see the module's docstring); ``plain`` is ``fn`` itself,
+    ``name`` names its span and counters, and ``time_device`` times each
+    replay on the device while spans record."""
 
     warm_up_calls = 1
 
-    def __init__(self, fn: Callable, pool: Optional[GraphPool] = None):
+    def __init__(self, fn: Callable, pool: Optional[GraphPool] = None, *, name: str,
+                 time_device: bool = False):
         self.plain = fn
+        self.time_device = time_device
         self.pool = GraphPool() if pool is None else pool
         self.graphs: Dict[tuple, Captured] = {}
+        self._span = f"graph.{name}"
+        self._captures = f"graph.captures.{name}"
+        self._replays = f"graph.replays.{name}"
 
     def __call__(self, *args):
         key, leaves = signature(args)
@@ -246,7 +262,9 @@ class GraphedCall:
             raise ValueError(f"a graphed call takes its tensors on one device, not "
                              f"{sorted(map(str, devices))}")
         device = devices.pop()
-        with torch.no_grad():
+        first = leaves[0] if leaves else None
+        rows = first.shape[0] if first is not None and first.dim() else 0
+        with torch.no_grad(), profiling.span(self._span, rows) as span:
             if device.type == "cpu":
                 return self.plain(*args)
             if device.type != "cuda":
@@ -254,6 +272,7 @@ class GraphedCall:
             with torch.cuda.device(device):
                 graph = self.graphs.get(key)
                 if graph is None:
+                    profiling.count(self._captures)
                     t0 = time.perf_counter()
                     out = warm_up(self.plain, args, self.warm_up_calls)
                     warm_s = time.perf_counter() - t0
@@ -262,7 +281,9 @@ class GraphedCall:
                     return out
                 for static, t in zip(graph.inputs, leaves):
                     static.copy_(t)
-                graph.replay()
+                with span.device(first if self.time_device else None):
+                    graph.replay()
+                profiling.count(self._replays)
                 return map_tensors(torch.clone, graph.output)
 
     @property
@@ -295,5 +316,6 @@ class GraphedGrad(GraphedCall):
 
     warm_up_calls = 2
 
-    def __init__(self, fn: Callable, wrt: int, pool: Optional[GraphPool] = None):
-        super().__init__(functools.partial(input_grad, fn, wrt), pool)
+    def __init__(self, fn: Callable, wrt: int, pool: Optional[GraphPool] = None, *,
+                 name: str):
+        super().__init__(functools.partial(input_grad, fn, wrt), pool, name=name)

@@ -8,7 +8,8 @@ chain kind shared by the exact and the cached variant (they differ only in
 how a step's eps is computed).  The model call inside is what the JAX
 program compiles and the host cannot keep up with: the pipelines' model
 functions replay it as a CUDA graph on the card (``runtime.graphs``), and
-the step arithmetic around it stays eager.  The per-step
+the step arithmetic around it stays eager, each piece a ``sampler.*`` span
+(``runtime.profiling``) and each step one ``sampler.steps``.  The per-step
 coefficients are gathered on the host into time-major tables of 0-d fp32
 tensors.  Randomness comes from an explicit ``torch.Generator``, and every
 draw can be replaced by pre-drawn noise (the seam the parity tests use to
@@ -25,6 +26,7 @@ import torch
 
 from cyclediffusion_tpu_torch.ops import steps
 from cyclediffusion_tpu_torch.ops.schedule import DDIMSchedule
+from cyclediffusion_tpu_torch.runtime import profiling
 
 # fn(x: (B,H,W,C) fp32, t: (B,) int64) -> eps (B,H,W,C) fp32
 EpsModel = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -136,13 +138,18 @@ def _encode_chain(step: _StepFn, sched, x0, generator, white_box_steps, skip_ste
     eps = torch.empty((n,) + tuple(x0.shape), dtype=x0.dtype, device=x0.device)
     xt = xT
     for i in range(n):
-        xt_next = steps.sample_xt_next(
-            x0, xt, tb.a_t[i], tb.a_prev[i], tb.sigma[i], posterior_noises[i],
-            tb.index_is_zero[i])
+        profiling.count("sampler.steps")
+        with (profiling.span("sampler.sample_xt_next") as s,
+              s.device(xt, profiling.SAMPLE_EVERY)):
+            xt_next = steps.sample_xt_next(
+                x0, xt, tb.a_t[i], tb.a_prev[i], tb.sigma[i], posterior_noises[i],
+                tb.index_is_zero[i])
         e_t = step(i, xt, _t_vec(tb.t[i], bsz, x0.device))
-        eps[i] = steps.compute_eps(
-            xt, xt_next, e_t, tb.a_t[i], tb.a_prev[i], tb.sigma[i], tb.s1ma[i],
-            temperature)
+        with (profiling.span("sampler.compute_eps") as s,
+              s.device(xt, profiling.SAMPLE_EVERY)):
+            eps[i] = steps.compute_eps(
+                xt, xt_next, e_t, tb.a_t[i], tb.a_prev[i], tb.sigma[i], tb.s1ma[i],
+                temperature)
         xt = xt_next
     return xT, eps
 
@@ -157,10 +164,13 @@ def _decode_chain(step: _StepFn, sched, x_T, eps, generator, skip_steps, tempera
     bsz = x_T.shape[0]
     x = x_T
     for i in range(refine_steps):
+        profiling.count("sampler.steps")
         e_t = step(i, x, _t_vec(tb.t[i], bsz, x.device))
-        x, _ = steps.ddim_step(
-            x, e_t, tb.a_t[i], tb.a_prev[i], tb.sigma[i], tb.s1ma[i],
-            eps_full[i], temperature)
+        with (profiling.span("sampler.ddim_step") as s,
+              s.device(x, profiling.SAMPLE_EVERY)):
+            x, _ = steps.ddim_step(
+                x, e_t, tb.a_t[i], tb.a_prev[i], tb.sigma[i], tb.s1ma[i],
+                eps_full[i], temperature)
     return x
 
 

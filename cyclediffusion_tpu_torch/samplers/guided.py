@@ -28,7 +28,7 @@ import torch
 
 from cyclediffusion_tpu_torch.ops import steps
 from cyclediffusion_tpu_torch.ops.schedule import DDIMSchedule
-from cyclediffusion_tpu_torch.runtime import graphs
+from cyclediffusion_tpu_torch.runtime import graphs, profiling
 from cyclediffusion_tpu_torch.samplers.ddim import (
     EpsModel,
     _chain_tables,
@@ -66,7 +66,8 @@ class GraphedEnergy:
     def __init__(self, fn: EnergyFn, setting: Optional[Callable[[], object]] = None):
         self.fn = fn
         self.setting = setting
-        self._graphed_grad = graphs.GraphedGrad(functools.partial(_with_setting, fn), 1)
+        self._graphed_grad = graphs.GraphedGrad(functools.partial(_with_setting, fn), 1,
+                                                name="energy.grad")
 
     def __call__(self, x_t, pred_x0, t):
         return self.fn(x_t, pred_x0, t)
@@ -119,16 +120,22 @@ def energy_guided_decode(
     refine_steps = sched.num_steps - skip_steps
     if refine_steps < 1:
         raise ValueError(f"empty chain: refine_steps={refine_steps}")
-    eps_full = _eps_with_fresh_tail(eps, refine_steps, x_T, generator)
-    tb = _chain_tables(sched, refine_steps, refine_steps)
-    bsz = x_T.shape[0]
-    x = x_T
-    for i in range(refine_steps):
-        t = _t_vec(tb.t[i], bsz, x.device)
-        e_t = model_fn(x, t)
-        pred_x0 = steps.pred_x0_from_eps(x, e_t, tb.a_t[i], tb.s1ma[i])
-        grad = energy.grad(x, pred_x0, t)
-        e_t = e_t + guidance_weight * (torch.sqrt(tb.a_t[i]) / tb.s1ma[i]) * grad
-        x, _ = steps.ddim_step(x, e_t, tb.a_t[i], tb.a_prev[i], tb.sigma[i], tb.s1ma[i],
-                               eps_full[i], temperature)
+    with profiling.span("chain.guided"):
+        eps_full = _eps_with_fresh_tail(eps, refine_steps, x_T, generator)
+        tb = _chain_tables(sched, refine_steps, refine_steps)
+        bsz = x_T.shape[0]
+        x = x_T
+        for i in range(refine_steps):
+            profiling.count("sampler.steps")
+            t = _t_vec(tb.t[i], bsz, x.device)
+            e_t = model_fn(x, t)
+            with (profiling.span("sampler.pred_x0") as s,
+                  s.device(x, profiling.SAMPLE_EVERY)):
+                pred_x0 = steps.pred_x0_from_eps(x, e_t, tb.a_t[i], tb.s1ma[i])
+            grad = energy.grad(x, pred_x0, t)
+            with (profiling.span("sampler.guided_step") as s,
+                  s.device(x, profiling.SAMPLE_EVERY)):
+                e_t = e_t + guidance_weight * (torch.sqrt(tb.a_t[i]) / tb.s1ma[i]) * grad
+                x, _ = steps.ddim_step(x, e_t, tb.a_t[i], tb.a_prev[i], tb.sigma[i],
+                                       tb.s1ma[i], eps_full[i], temperature)
     return x

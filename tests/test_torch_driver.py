@@ -261,13 +261,17 @@ def test_trace_if_enabled_writes_a_torch_profiler_trace(tmp_path, monkeypatch):
         torch.ones(8).sum()
     assert os.path.getsize(tmp_path / "trace.json") > 0
     monkeypatch.delenv("CYCLEDIFFUSION_TRACE_DIR")
+    profiling.reset()
     with profiling.trace_if_enabled():
-        pass
-    c = profiling.PhaseCounters()
-    with c.phase("encode", units=4):
+        with profiling.span("encode", rows=4):
+            time.sleep(0.01)
+    # no trace: recording stays off, and the span records nothing
+    assert profiling.recorded().spans == {}
+    with profiling.recording(), profiling.span("encode", rows=4):
         time.sleep(0.01)
-    s = c.summary()
-    assert s["encode_s"] > 0 and s["encode_units_per_s"] > 0
+    rec = profiling.recorded().spans[("encode", None)]
+    assert (rec.calls, rec.rows) == (1, 4) and rec.host_ns >= 10_000_000
+    profiling.reset()
 
 
 def test_save_load_with_a_latent_core(tmp_path):

@@ -192,7 +192,7 @@ def test_a_tensor_parallel_core_calls_its_unet_eagerly(tiny_core, monkeypatch):
 
 
 def test_graphed_call_refuses_what_it_cannot_replay():
-    call = graphs.GraphedCall(lambda a, b: a + b)
+    call = graphs.GraphedCall(lambda a, b: a + b, name="add")
     x = torch.ones(2)
     assert torch.equal(call(x, x), 2 * x)
     with pytest.raises(RuntimeError, match="no backward"):

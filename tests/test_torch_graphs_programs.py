@@ -89,7 +89,7 @@ def test_graphed_grad_takes_the_named_argument():
     give (an input that requires a gradient, in grad mode)."""
     fn = lambda a, b, c: torch.sum(a * b ** 2 + c)          # noqa: E731
     a, b, c = _rand((3, 4), 3), _rand((3, 4), 4), _rand((3, 4), 5)
-    g = graphs.GraphedGrad(fn, 1)
+    g = graphs.GraphedGrad(fn, 1, name="grad")
     with torch.no_grad():
         assert _equal(g(a, b, c), 2 * a * b)
     assert _equal(graphs.input_grad(fn, 0, a, b, c), b ** 2)
