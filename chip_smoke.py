@@ -34,6 +34,13 @@ Phases (each prints its results; any failure exits non-zero):
    and never on the path; each kernel's bound from its work at the
    main-path shape, and beside K1/K2's the floor that their exponentials
    alone set.
+3b. GroupNorm: builds ``csrc/group_norm.cu`` (ptxas's registers, spills and
+   stack frames), then the kernels with the SiLU fused against the plain
+   version at the KL-f8 decoder's (1, 128, 512, 512) and the SD UNet's
+   (8, 320, 64, 64) in bf16, channels-last: forward and backward (the
+   input's gradient), max abs error relative to max|plain|, median ms of
+   the kernel, the plain version and ``F.silu(F.group_norm(...))``
+   (``library_ms``), the byte bound; two launches equal bit for bit.
 4. The translate slice: SD-v1 at 512 px (full widths, seeded random
    weights, bf16), 2 translate requests through ``StochasticTextPipeline``
    — 50 DDIM steps, eta 0.1, encoder scale 1, decoder scale 5 — with the
@@ -264,6 +271,28 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+# the attention kernels K1-K4 and the GroupNorm kernels, by their names in
+# ``ops.launches.counts``
+ATTENTION_KERNELS = ("flash_attention_packed", "flash_attention_bhtd",
+                     "qout_self_attention_block", "fused_self_attention_block")
+GROUP_NORM_KERNELS = ("group_norm", "group_norm_backward")
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to zero."""
+    from cyclediffusion_tpu_torch.ops import launches
+
+    launches.reset()
+
+
+def launched(names=ATTENTION_KERNELS) -> dict:
+    """The launches of the kernels ``names`` (K1-K4 by default) counted
+    since the last reset."""
+    from cyclediffusion_tpu_torch.ops import launches
+
+    return {name: launches.counts[name] for name in names}
 
 
 # the device memory peak since the last reset_peak, kept across the resets
@@ -736,9 +765,108 @@ def phase_kernels(torch, fa):
     return record
 
 
+# the GroupNorm kernels' main-path shapes (bf16, channels-last): the KL-f8
+# decoder's 512 px level at batch 1 (the energy's decode) and the SD UNet's
+# 64x64 level at batch 8 (4 images x the CFG pair)
+GN_CASES = (("decoder 512 px", (1, 128, 512, 512)), ("unet 64x64", (8, 320, 64, 64)))
+
+
+def group_norm_bound_ms(shape, backward: bool) -> float:
+    """Least ms of a bf16 GroupNorm call on the card: x read and y written
+    once (forward), x and dy read and dx written once (backward)."""
+    return 1e3 * (3 if backward else 2) * math.prod(shape) * 2 / PEAK_BYTES
+
+
+def device_ms(torch, fn, calls: int = 10) -> float:
+    """Device ms per call of ``fn``: the kernels' own time under
+    torch.profiler over ``calls`` calls (host gaps left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / calls
+
+
+def phase_group_norm(torch) -> list:
+    """Phase 3b: the GroupNorm kernels with the SiLU fused against the plain
+    version and ``F.silu(F.group_norm(...))`` (``library_ms``) at
+    ``GN_CASES``, forward and backward (the input's gradient), each beside
+    its byte bound."""
+    from cyclediffusion_tpu_torch.ops import group_norm as gn
+
+    F = torch.nn.functional
+    info = gn.load_kernels()
+    say(f"build: {info.path.name} {'built' if info.built else 'found'} in "
+        f"{info.seconds:.2f} s")
+    for line in info.log.splitlines():
+        if "registers" in line or "spill" in line or "stack frame" in line:
+            say(f"build: {line.strip()}")
+    bf16 = torch.bfloat16
+    record = []
+    for label, shape in GN_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        c = shape[1]
+
+        def rand(scale=1.0, shift=0.0, shp=shape):
+            t = torch.randn(shp, generator=gen, device="cuda") * scale + shift
+            return t.to(bf16).contiguous(memory_format=torch.channels_last) if len(shp) == 4 \
+                else t.to(bf16)
+
+        x, dy = rand(2.0, 0.7), rand()
+        w, b = rand(0.1, 1.0, (c,)), rand(0.1, 0.0, (c,))
+        fns = {"kernel": lambda t: gn.group_norm(t, w, b, 32, 1e-6, silu=True),
+               "plain": lambda t: gn.group_norm_reference(t, w, b, 32, 1e-6, silu=True),
+               "library": lambda t: F.silu(F.group_norm(t, 32, w, b, 1e-6))}
+        outs, grads, ms = {}, {}, {}
+        for kind, fn in fns.items():
+            outs[kind] = fn(x)
+            ms[("forward", kind)] = cuda_time_ms(functools.partial(fn, x))
+            ms[("forward", kind, "device")] = device_ms(torch, functools.partial(fn, x))
+            xg = x.detach().requires_grad_(True)
+            y = fn(xg)
+            grad = functools.partial(torch.autograd.grad, y, xg, dy, retain_graph=True)
+            grads[kind] = grad()[0]
+            ms[("backward", kind)] = cuda_time_ms(grad)
+            ms[("backward", kind, "device")] = device_ms(torch, grad)
+            del y, grad
+        torch.cuda.synchronize()
+        for pass_, got, want in (("forward", outs["kernel"], outs["plain"]),
+                                 ("backward", grads["kernel"], grads["plain"])):
+            rel = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+            bound_ms = group_norm_bound_ms(shape, pass_ == "backward")
+            rec = {"shape": list(shape), "case": label, "pass": pass_, "dtype": "bf16",
+                   "ms": ms[(pass_, "kernel")], "plain_ms": ms[(pass_, "plain")],
+                   "library_ms": ms[(pass_, "library")], "bound_ms": bound_ms,
+                   "bound_by": "bytes", "rel_err": rel,
+                   **{f"{k}device_ms": ms[(pass_, kind, "device")]
+                      for k, kind in (("", "kernel"), ("plain_", "plain"),
+                                      ("library_", "library"))}}
+            say(f"kernel GroupNorm+SiLU [{label}] bf16 shape={shape} {pass_}: kernel "
+                f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), plain "
+                f"{rec['plain_ms']:.4f} ms (device {rec['plain_device_ms']:.4f}), library "
+                f"{rec['library_ms']:.4f} ms (device {rec['library_device_ms']:.4f}); least "
+                f"time {bound_ms:.4f} ms (bytes); max_abs_err / max|plain| {rel:.3e}")
+            if not rel <= (1 if pass_ == "forward" else 2) * BF16_REL_BOUND:
+                fail(f"group_norm {label} {pass_}: max_abs_err / max|plain| = {rel}")
+            record.append(rec)
+        again = gn.group_norm(x, w, b, 32, 1e-6, silu=True)
+        if not torch.equal(again, outs["kernel"]):
+            fail(f"group_norm {label}: two launches differ")
+        del outs, grads
+    return record
+
+
 def phase_slice(torch, fa, attention, HashTokenizer, LatentCoreSpec,
                 LatentDiffusionCore, StochasticTextPipeline):
     """Phase 4 (+5): the SD-v1 translate path at 512 px."""
+    from cyclediffusion_tpu_torch.models.nn import GroupNorm
+
     t0 = time.perf_counter()
     spec = LatentCoreSpec.sd_v1()
     core = LatentDiffusionCore.random_init(spec, seed=0, device="cuda",
@@ -782,7 +910,29 @@ def phase_slice(torch, fa, attention, HashTokenizer, LatentCoreSpec,
         return apply_model(*a)
 
     core.apply_model = counted
-    fa.reset_launch_counts()
+    # the GroupNorms of each model, and the GroupNorm launches of each call
+    # of the first stage (a first call of a graph's signature warms up
+    # eagerly, so it may run the model more than once)
+    norms = {name: sum(isinstance(m, GroupNorm) for m in mod.modules())
+             for name, mod in (("unet", core.unet), ("encode_first_stage",
+                                                      core.first_stage.encoder),
+                               ("decode_first_stage", core.first_stage.decoder))}
+    stage_fns = {name: getattr(core, name)
+                 for name in ("encode_first_stage", "decode_first_stage")}
+    stage_launches = {name: [] for name in stage_fns}
+
+    def counting(name):
+        def call(*a):
+            before = launched(GROUP_NORM_KERNELS)
+            out = stage_fns[name](*a)
+            after = launched(GROUP_NORM_KERNELS)
+            stage_launches[name].append({k: after[k] - before[k] for k in after})
+            return out
+        return call
+
+    for name in stage_fns:
+        setattr(core, name, counting(name))
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     z = pipe.encode(images, src, gen)
@@ -791,8 +941,10 @@ def phase_slice(torch, fa, attention, HashTokenizer, LatentCoreSpec,
     out = pipe.generate(z, dst, gen)
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
-    counts = dict(fa.launch_counts)
+    counts, gn_counts = launched(), launched(GROUP_NORM_KERNELS)
     core.apply_model = apply_model
+    for name, fn in stage_fns.items():
+        setattr(core, name, fn)
     peak = torch.cuda.max_memory_allocated()
 
     say(f"slice: 2 requests in {t_all:.3f} s (encode {t_enc:.3f} s, generate "
@@ -822,6 +974,19 @@ def phase_slice(torch, fa, attention, HashTokenizer, LatentCoreSpec,
     if counts["qout_self_attention_block"] or counts["fused_self_attention_block"]:
         fail(f"default mode launched a folded kernel: {counts}")
     say(f"slice: launches {counts} = 5 per UNet call of K1 and of K2")
+    # every GroupNorm of the UNet (graph replays: once a call) and of each
+    # first-stage call (a whole number of runs of the model) through the
+    # kernel, and no gradient
+    stage = {name: [d["group_norm"] for d in ds] for name, ds in stage_launches.items()}
+    gn_want = unet_calls[0] * norms["unet"] + sum(map(sum, stage.values()))
+    if (not all(stage.values()) or gn_counts != {"group_norm": gn_want, "group_norm_backward": 0}
+            or any(n <= 0 or n % norms[name] for name, ns in stage.items() for n in ns)):
+        fail(f"slice: GroupNorm launches {gn_counts}; expected {gn_want} forwards and no "
+             f"gradient ({norms} GroupNorms, {unet_calls[0]} UNet calls, first-stage "
+             f"calls' launches {stage})")
+    say(f"slice: GroupNorm launches {gn_counts} = {unet_calls[0]} UNet calls x "
+        f"{norms['unet']} + the first stage's calls {stage} (runs of {norms}): every "
+        f"GroupNorm of the path through the kernel")
 
     # per-UNet-step time at the CFG dual batch of the 2 requests
     step_ms = cuda_time_ms(lambda: core.apply_model(x_warm, t_warm, ctx), reps=10)
@@ -893,7 +1058,7 @@ def phase_slice(torch, fa, attention, HashTokenizer, LatentCoreSpec,
         fail(f"fast-mode round trip error {err} > {ROUND_TRIP_BOUND}")
     del core, pipe, fast
     torch.cuda.empty_cache()
-    return counts, folded_counts
+    return counts, folded_counts, gn_counts
 
 
 def phase_folded_modes(torch, fa, spec, LatentDiffusionCore, x, t, ctx, eps_default,
@@ -907,10 +1072,10 @@ def phase_folded_modes(torch, fa, spec, LatentDiffusionCore, x, t, ctx, eps_defa
                                                dtype=torch.bfloat16, folded_attn=mode)
         core.apply_model(x, t, ctx)      # warm-up, off the counted call
         torch.cuda.synchronize()
-        fa.reset_launch_counts()
+        reset_launches()
         eps = core.apply_model(x, t, ctx)
         torch.cuda.synchronize()
-        counts[mode] = dict(fa.launch_counts)
+        counts[mode] = launched()
         c = counts[mode]
         others = {"qout_self_attention_block", "fused_self_attention_block"} - {kernel}
         if (c[kernel] != 5 or c["flash_attention_bhtd"] != 5
@@ -1119,12 +1284,12 @@ def phase_ensemble(torch, fa, Args, TextUnsupervisedTranslation, num_recovered_e
         counted, spy_generate, spy_rank, spy_forward)
     torch.cuda.synchronize()
     reset_peak(torch)
-    fa.reset_launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
     (_, img), _, _ = model.forward([0], image.cpu().numpy(), src, dst)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = dict(fa.launch_counts)
+    counts = launched()
     for name in ("generate", "rank", "forward"):
         delattr(pipe, name)      # the spies were instance attributes
     core.apply_model = apply_model
@@ -1307,7 +1472,7 @@ def phase_cli(torch, fa, ref_core, root, num_recovered_eps, cfg_name, head_dims,
     fa.flash_attention_bhtd = spy_bhtd
     torch.cuda.synchronize()
     reset_peak(torch)
-    fa.reset_launch_counts()
+    reset_launches()
     scorer = context.get_directional_clip(required=False)
     scorers = [] if scorer is None else [scorer.scorer]
     known = first_calls(scorers)
@@ -1320,7 +1485,7 @@ def phase_cli(torch, fa, ref_core, root, num_recovered_eps, cfg_name, head_dims,
         TextUnsupervisedTranslation.forward = forward
         fa.flash_attention_bhtd = bhtd
     secs = time.perf_counter() - t0
-    counts = dict(fa.launch_counts)
+    counts = launched()
     peak = torch.cuda.max_memory_allocated()
 
     if len(seen["cores"]) != 1:
@@ -1461,18 +1626,18 @@ def phase_fast(torch, fa, core, StochasticTextPipeline, HashTokenizer, num_recov
         apply_model, apply_model_cached = core.apply_model, core.apply_model_cached
 
         def counted(kind, fn, *args):
-            before = dict(fa.launch_counts)
+            before = launched()
             out = fn(*args)
             calls[kind] += 1
             for name in ROUTE_KERNELS.values():
-                launches[kind][name] += fa.launch_counts[name] - before[name]
+                launches[kind][name] += launched()[name] - before[name]
             return out
 
         core.apply_model = lambda *a: counted("full", apply_model, *a)
         core.apply_model_cached = lambda x, t, ctx, cache=None: counted(
             "key" if cache is None else "reuse", apply_model_cached, x, t, ctx, cache)
         g = torch.Generator(device="cuda").manual_seed(31)
-        fa.reset_launch_counts()
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
@@ -1782,7 +1947,7 @@ def phase_unpaired(torch, fa, root, num_recovered_eps):
     fa.flash_attention_bhtd = spy_bhtd
     torch.cuda.synchronize()
     reset_peak(torch)
-    fa.reset_launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
     try:
         metrics = cli.main(argv)
@@ -1792,7 +1957,7 @@ def phase_unpaired(torch, fa, root, num_recovered_eps):
         UnsupervisedTranslation.forward = forward
         fa.flash_attention_bhtd = bhtd
     secs = time.perf_counter() - t0
-    counts = dict(fa.launch_counts)
+    counts = launched()
     peak = torch.cuda.max_memory_allocated()
 
     if len(seen["cores"]) != 2:
@@ -2124,7 +2289,7 @@ def phase_afhq(torch, fa, root):
     DDPMDDIMPipeline.from_torch_ckpt = spy_from_ckpt
     UnsupervisedTranslation.forward = spy_forward
     torch.cuda.synchronize()
-    fa.reset_launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
     try:
         with torch_default_backends(torch):
@@ -2134,7 +2299,7 @@ def phase_afhq(torch, fa, root):
         DDPMDDIMPipeline.from_torch_ckpt = from_ckpt
         UnsupervisedTranslation.forward = forward
     secs = time.perf_counter() - t0
-    counts = dict(fa.launch_counts)
+    counts = launched()
     peak = torch.cuda.max_memory_allocated()
 
     if len(seen["pipes"]) != 2:
@@ -2315,6 +2480,10 @@ WEIGHT0_REL_BOUND = 1e-6
 # are printed beside the gated one
 FD_REL_BOUND = 1e-2
 FD_STEP = 1e-3
+# the same fp32 gradient with the models' GroupNorm through the plain version
+# (autograd) instead of the kernels, max abs diff / max: the statistics'
+# summation order alone differs
+PLAIN_GN_GRAD_REL_BOUND = 1e-4
 # the FFHQ plain pipeline with K1 against plain attention (fp32, TF32 off),
 # x_T and the sampled latent, max abs diff / max|plain|: 50 inversion and 50
 # sampling steps each carry K1's ~1e-6 fp32 summation-order difference.  The
@@ -2329,6 +2498,51 @@ CODE_FLIP_BOUND = 1e-3
 # weights cancel in fp32 and the result rounds once to bf16
 ONE_TILE_REL_BOUND = 1e-5
 TILED_SPLIT = {"ks": (32, 32), "stride": (16, 16)}   # 3 x 3 patches of a 64x64 latent
+
+
+@contextlib.contextmanager
+def plain_group_norm():
+    """The models' GroupNorm through the plain version (autograd's
+    gradient), not the kernels, inside the block."""
+    from cyclediffusion_tpu_torch.models import nn as tnn
+    from cyclediffusion_tpu_torch.ops.group_norm import group_norm_reference
+
+    kernel = tnn.group_norm
+    tnn.group_norm = group_norm_reference
+    try:
+        yield
+    finally:
+        tnn.group_norm = kernel
+
+
+def fp32_gradient_check(torch, spec, clip) -> dict:
+    """The guided energy's gradient with core and scorer in fp32 (TF32 off)
+    at the fp32 chain's own first pred_x0 (a point that no bf16 rounding
+    moves): its gap to the same gradient with the plain GroupNorm, and the
+    directional checks at FD_STEP |p| and 10x either side."""
+    from cyclediffusion_tpu_torch.samplers.guided import energy_grad
+    from cyclediffusion_tpu_torch.tools import guided_probe
+
+    g32 = guided_probe.build(spec, clip, steps=STEPS, device="cuda", dtype=torch.float32)
+    x, p32, t = guided_probe.first_step_point(g32)
+    efn = g32.energy_fn
+    grad32 = energy_grad(efn, x, p32, t)
+    with plain_group_norm():
+        grad_plain = energy_grad(efn, x, p32, t)
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    v = torch.randn(p32.shape, generator=gen, device="cuda")
+    v = v / v.norm()
+    h = FD_STEP * float(p32.norm())
+    with torch.no_grad():
+        energy = lambda q: efn(x, q, t)         # noqa: E731
+        checks = {m: directional_check(energy, grad32, p32, v, m * h) for m in (10, 1, 0.1)}
+        e_p = float(energy(p32))
+    out = {"energy": e_p, "grad_max": float(grad32.abs().max()), "h": h, "checks": checks,
+           "plain_rel": rel_diff(torch, [grad32], [grad_plain])}
+    del g32, efn, grad32, grad_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def guided_launches(spec, attention_route, unet_calls: int) -> dict:
@@ -2387,8 +2601,6 @@ def phase_guided(torch, fa, attention):
     """Phase 12 (a-c): guided sampling on SD v1, the plain-inversion
     pipeline on the FFHQ LDM, the tiled decode -> the launch counts of one
     guided chain and of the FFHQ pipeline's run with the kernels."""
-    from cyclediffusion_tpu_torch.energy.clean_clip import CLIPScorer
-    from cyclediffusion_tpu_torch.energy.clip_energy import clip_energy_fn
     from cyclediffusion_tpu_torch.models.clip import CLIPConfig
     from cyclediffusion_tpu_torch.ops.fold import SplitInputParams
     from cyclediffusion_tpu_torch.pipelines.factory import LATENT_MODELS
@@ -2396,7 +2608,6 @@ def phase_guided(torch, fa, attention):
     from cyclediffusion_tpu_torch.pipelines.latentdiff_plain import LatentDiffPlainPipeline
     from cyclediffusion_tpu_torch.ops.cfg import cfg_model_fn
     from cyclediffusion_tpu_torch.samplers.guided import energy_grad, energy_guided_decode
-    from cyclediffusion_tpu_torch.text import HashTokenizer
     from cyclediffusion_tpu_torch.tools import guided_probe
 
     cudnn = torch.backends.cudnn
@@ -2419,11 +2630,11 @@ def phase_guided(torch, fa, attention):
     x, p, t = guided_probe.first_step_point(g)
     energy_grad(g.energy_fn, x, p, t)
     torch.cuda.synchronize()
-    fa.reset_launch_counts()
+    reset_launches()
     grad = energy_grad(g.energy_fn, x, p, t)
     torch.cuda.synchronize()
-    if any(fa.launch_counts.values()):
-        fail(f"guided: the energy's forward and backward launched {fa.launch_counts}")
+    if any(launched().values()):
+        fail(f"guided: the energy's forward and backward launched {launched()}")
     if not torch.isfinite(grad).all():
         fail("guided: non-finite energy gradient")
     flagged = guided_probe.nondeterministic_ops(g)
@@ -2462,7 +2673,7 @@ def phase_guided(torch, fa, attention):
     times, out, counts = {"plain": [], "guided": [], "eager energy": []}, {}, {}
     for name in ("plain", "guided", "eager energy", "eager energy", "guided", "plain"):
         calls[0] = 0
-        fa.reset_launch_counts()
+        reset_launches()
         if name == "eager energy":        # the guided chain with the energy eager
             g.energy_fn.grad = g.energy_fn.grad_eager
         torch.cuda.synchronize()
@@ -2471,7 +2682,7 @@ def phase_guided(torch, fa, attention):
         torch.cuda.synchronize()
         times[name].append(time.perf_counter() - t0)
         g.energy_fn.__dict__.pop("grad", None)
-        counts.setdefault(name, (calls[0], dict(fa.launch_counts)))
+        counts.setdefault(name, (calls[0], launched()))
         out.setdefault(name, []).append(z0)
     chains_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = guided_launches(spec, fa.attention_route, STEPS)
@@ -2579,32 +2790,21 @@ def phase_guided(torch, fa, attention):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the gradient against a central difference, core and scorer in fp32
-    core32 = LatentDiffusionCore.random_init(spec, 0, "cuda", torch.float32)
-    scorer32 = CLIPScorer.random_init(1, clip, "cuda", torch.float32)
-    text = scorer32.embed_text(HashTokenizer(clip.vocab_size, clip.context_length)(
-        [guided_probe.PROMPT]))
-    efn = clip_energy_fn(core32, scorer32, text)
-    p32 = p.float()
-    grad32 = energy_grad(efn, x, p32, t)
-    gen = torch.Generator(device="cuda").manual_seed(81)
-    v = torch.randn(p32.shape, generator=gen, device="cuda")
-    v = v / v.norm()
-    h = FD_STEP * float(p32.norm())
-    with torch.no_grad():
-        energy = lambda q: efn(x, q, t)
-        checks = {m: directional_check(energy, grad32, p32, v, m * h) for m in (10, 1, 0.1)}
-        e_p = float(energy(p32))
-    gv, fd, rel = checks[1]
-    say(f"guided fp32: E(p) {e_p:.6e}, max|dE/dp| {float(grad32.abs().max()):.3e}, "
-        f"<dE/dp, v> {gv:.6e}; central difference at h = {h:.4g} ({FD_STEP} |p|): {fd:.6e}, "
-        f"relative gap {rel:.3e} (bound {FD_REL_BOUND:.0e}); at 10h {checks[10][1]:.6e} "
-        f"({checks[10][2]:.3e}), at h/10 {checks[0.1][1]:.6e} ({checks[0.1][2]:.3e})")
+    # the gradient in fp32 against the plain GroupNorm's and a central difference
+    fp32 = fp32_gradient_check(torch, spec, clip)
+    checks, rel = fp32["checks"], fp32["checks"][1][2]
+    say(f"guided fp32: at the fp32 chain's first pred_x0, E(p) {fp32['energy']:.6e}, "
+        f"max|dE/dp| {fp32['grad_max']:.3e}; against the plain GroupNorm's gradient "
+        f"{fp32['plain_rel']:.3e} of max (bound {PLAIN_GN_GRAD_REL_BOUND:.0e}); "
+        f"<dE/dp, v> {checks[1][0]:.6e}; central difference at h = {fp32['h']:.4g} "
+        f"({FD_STEP} |p|): {checks[1][1]:.6e}, relative gap {rel:.3e} (bound "
+        f"{FD_REL_BOUND:.0e}); at 10h {checks[10][1]:.6e} ({checks[10][2]:.3e}), at h/10 "
+        f"{checks[0.1][1]:.6e} ({checks[0.1][2]:.3e})")
+    if not fp32["plain_rel"] <= PLAIN_GN_GRAD_REL_BOUND:
+        fail(f"guided: the fp32 energy gradient differs from the plain GroupNorm's by "
+             f"{fp32['plain_rel']} of max")
     if not rel <= FD_REL_BOUND:
         fail(f"guided: the energy gradient misses the central difference by {rel}")
-    del core32, scorer32, efn
-    gc.collect()
-    torch.cuda.empty_cache()
 
     # (b) the plain-inversion pipeline on the FFHQ LDM, K1 against plain
     # attention, fp32
@@ -2625,13 +2825,13 @@ def phase_guided(torch, fa, attention):
             core_f.apply_model = core_f.apply_model_eager
         try:
             with attention(mode):
-                fa.reset_launch_counts()
+                reset_launches()
                 t0 = time.perf_counter()
                 zp = pipe.encode(images)
                 img = pipe.generate(zp)
                 torch.cuda.synchronize()
                 runs[mode] = (zp, samples[0], img, time.perf_counter() - t0)
-                plain_counts[mode] = dict(fa.launch_counts)
+                plain_counts[mode] = launched()
         finally:
             del core_f.decode_first_stage
             core_f.__dict__.pop("apply_model", None)
@@ -3051,13 +3251,13 @@ def child_cli(torch, rank, world, work, extra) -> dict:
     fa.load_kernels()
     context.set_directional_clip(sd_assets.seeded_scorer(
         1, CLIPBPETokenizer(os.environ["CYCLEDIFFUSION_CLIP_BPE"]), "cuda"))
-    fa.reset_launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
     metrics = cli.main(["--cfg", cfg, "--output_dir", f"{out}{rank}", "--seed", "42",
                         "--do_eval", "--per_device_eval_batch_size", "1"], device="cuda:0")
     torch.cuda.synchronize()
     return {"metrics": {k: float(v) for k, v in metrics.items()},
-            "launches": dict(fa.launch_counts), "seconds": time.perf_counter() - t0}
+            "launches": launched(), "seconds": time.perf_counter() - t0}
 
 
 def child_nccl(torch, rank, world, work, extra) -> dict:
@@ -3112,10 +3312,10 @@ def child_tp(torch, rank, world, work, extra) -> dict:
         eps = call()
         ms_whole = cuda_time_ms(call, reps=5, warmup=1)
         n_sharded = shard_params_tp(data_model_mesh(1, 2, "cuda"), core.unet, TP_MIN_SIZE)
-        fa.reset_launch_counts()
+        reset_launches()
         eps_tp = call()
         torch.cuda.synchronize()
-        launches = dict(fa.launch_counts)
+        launches = launched()
         ms_tp = cuda_time_ms(call, reps=5, warmup=1)
     return {"n_sharded": n_sharded, "params_whole": n_whole,
             "params_local": sum(p.numel() for p in core.unet.parameters()),
@@ -3586,7 +3786,7 @@ def phase_inputs(torch, fa, root, card, num_recovered_eps) -> dict:
 
     TextUnsupervisedTranslation.forward = spy_forward
     torch.cuda.synchronize()
-    fa.reset_launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
     try:
         metrics = cli.main(["--cfg", cfg, "--output_dir", out_dir, "--seed", "42",
@@ -3595,7 +3795,7 @@ def phase_inputs(torch, fa, root, card, num_recovered_eps) -> dict:
     finally:
         TextUnsupervisedTranslation.forward = forward
     secs = time.perf_counter() - t0
-    counts = dict(fa.launch_counts)
+    counts = launched()
     context.reset()
     want_images = expected_inputs()
     if sorted(seen["images"]) != list(range(n)):
@@ -3716,9 +3916,12 @@ def main() -> None:
     build_report(infos)
 
     record = phase_kernels(torch, fa)
-    slice_counts, k4_counts = phase_slice(torch, fa, attention, HashTokenizer,
-                                          LatentCoreSpec, LatentDiffusionCore,
-                                          StochasticTextPipeline)
+    gn_record = phase_group_norm(torch)
+    slice_counts, k4_counts, gn_launches = phase_slice(torch, fa, attention, HashTokenizer,
+                                                       LatentCoreSpec, LatentDiffusionCore,
+                                                       StochasticTextPipeline)
+    for rec in gn_record:       # the GroupNorm launches of the translate slice
+        rec["launches"] = gn_launches
     with tempfile.TemporaryDirectory(prefix="cd_smoke_") as root:
         ref_core = write_assets(torch, root)
         ens_counts = phase_ensemble(torch, fa, Args, TextUnsupervisedTranslation,
@@ -3768,7 +3971,7 @@ def main() -> None:
                 "replaces": KERNELS[name][2], "launches": launches[name], **record[name]}
                for name in KERNELS]
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "group_norm": gn_record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,10 +2,12 @@
 ``AutoencoderKL`` and ``VQModel`` in ``cyclediffusion_tpu.models.autoencoder``).
 
 The conv Encoder/Decoder backbones (ResnetBlock without time embedding,
-vanilla single-head AttnBlock, asymmetric-pad Downsample) run NCHW inside;
-:meth:`AutoencoderKL.encode_moments` and :meth:`AutoencoderKL.decode` take
-and return NHWC.  The VAE posterior sample is part of the CycleDiffusion
-latent code, so :class:`DiagonalGaussian` samples with explicit noise.
+vanilla single-head AttnBlock, asymmetric-pad Downsample) run on (N, C, H, W)
+views of channels-last memory inside, their conv weights channels-last from
+construction (see ``models.nn``); :meth:`AutoencoderKL.encode_moments` and
+:meth:`AutoencoderKL.decode` take and return NHWC.  The VAE posterior sample
+is part of the CycleDiffusion latent code, so :class:`DiagonalGaussian`
+samples with explicit noise.
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ from torch import nn
 from cyclediffusion_tpu_torch.models.nn import (
     GroupNorm,
     SpatialSelfAttention,
+    channels_last_,
     nhwc_to_nchw,
-    silu,
 )
 from cyclediffusion_tpu_torch.models.unet_ddpm import Downsample, Upsample
 
@@ -68,8 +70,8 @@ class AEResnetBlock(nn.Module):
             else nn.Conv2d(in_channels, out_channels, 1))
 
     def forward(self, x):
-        h = self.conv1(silu(self.norm1(x)))
-        h = self.conv2(silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x, silu=True))
+        h = self.conv2(self.norm2(h, silu=True))
         return self.nin_shortcut(x) + h
 
 
@@ -136,7 +138,7 @@ class Encoder(nn.Module):
             if hasattr(level, "downsample"):
                 h = level.downsample(h)
         h = self.mid(h)
-        return self.conv_out(silu(self.norm_out(h)))
+        return self.conv_out(self.norm_out(h, silu=True))
 
 
 class Decoder(nn.Module):
@@ -170,7 +172,7 @@ class Decoder(nn.Module):
             h = _apply_level(level, h)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
-        return self.conv_out(silu(self.norm_out(h)))
+        return self.conv_out(self.norm_out(h, silu=True))
 
 
 class DiagonalGaussian:
@@ -199,6 +201,7 @@ class AutoencoderKL(nn.Module):
         self.decoder = Decoder(cfg)
         self.quant_conv = nn.Conv2d(2 * cfg.z_channels, 2 * embed_dim, 1)
         self.post_quant_conv = nn.Conv2d(embed_dim, cfg.z_channels, 1)
+        channels_last_(self)
 
     def encode_moments(self, x):
         h = self.encoder(nhwc_to_nchw(x))
@@ -254,6 +257,7 @@ class VQModel(nn.Module):
         self.quantize = VectorQuantizer(n_embed, embed_dim)
         self.quant_conv = nn.Conv2d(cfg.z_channels, embed_dim, 1)
         self.post_quant_conv = nn.Conv2d(embed_dim, cfg.z_channels, 1)
+        channels_last_(self)
 
     def encode(self, x):
         return self.quant_conv(self.encoder(nhwc_to_nchw(x))).permute(0, 2, 3, 1)

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from cyclediffusion_tpu_torch.data.device_transforms import resize_nhwc
+from cyclediffusion_tpu_torch.models.nn import channels_last_
 from cyclediffusion_tpu_torch.models.text_encoders import (
     causal_mask_bias,
     masked_multi_head_attention,
@@ -80,7 +81,9 @@ class CLIPVisionTower(nn.Module):
         super().__init__()
         w = cfg.vision_width
         grid = cfg.image_resolution // cfg.patch_size
-        self.conv1 = nn.Conv2d(3, w, cfg.patch_size, stride=cfg.patch_size, bias=False)
+        # channels-last, as its NHWC input's view: cuDNN then converts neither
+        self.conv1 = channels_last_(
+            nn.Conv2d(3, w, cfg.patch_size, stride=cfg.patch_size, bias=False))
         self.class_embedding = nn.Parameter(torch.zeros(w))
         self.positional_embedding = nn.Parameter(torch.zeros(grid * grid + 1, w))
         self.ln_pre = nn.LayerNorm(w, eps=1e-5)

@@ -3,6 +3,12 @@
 GroupNorm epsilons differ by family: CompVis blocks (VAE, the
 SpatialTransformer's norm) use 1e-6, guided-diffusion blocks (GDResBlock,
 GDAttentionBlock, the UNet's ``out.0``) use 1e-5.
+
+The conv models take NHWC at their public functions and run on
+``(N, C, H, W)`` views of channels-last memory inside: :func:`nhwc_to_nchw`
+makes the first view, their conv weights are channels-last
+(:func:`channels_last_`), and :class:`GroupNorm` reads and writes that
+layout (``ops/group_norm.py``), so cuDNN's NHWC kernels convert nothing.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cyclediffusion_tpu_torch.ops.flash_attention import multi_head_attention_fused
+from cyclediffusion_tpu_torch.ops.group_norm import group_norm
 
 
 def ddpm_timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -82,8 +89,11 @@ def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().permute(0, 3, 1, 2)
 
 
-def silu(x):
-    return F.silu(x)
+def channels_last_(module: nn.Module) -> nn.Module:
+    """``module``'s conv weights (its 4-d parameters) converted to
+    channels-last in place, one at a time; later loads (``load_state_dict``,
+    ``fill_random_``), casts and moves keep that layout."""
+    return module.to(memory_format=torch.channels_last)
 
 
 def nearest_upsample_2x(x):
@@ -98,8 +108,11 @@ def avg_pool_2x(x):
 
 class GroupNorm(nn.Module):
     """GroupNorm over the channel axis (dim 1) with fp32 statistics, the
-    result rounded once to the input dtype.  The group count is clamped to
-    the channel count, as in the JAX module (tiny test configs)."""
+    result rounded once to the input dtype (``ops.group_norm``: the
+    hand-written kernels on the card), a channels-last view; ``silu=True``
+    applies SiLU to that rounded result in the same pass.  The group count
+    is clamped to the channel count, as in the JAX module (tiny test
+    configs)."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float):
         super().__init__()
@@ -110,10 +123,8 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
-    def forward(self, x):
-        # F.group_norm accumulates half inputs in fp32 and rounds once
-        return F.group_norm(x, self.num_groups, self.weight.to(x.dtype),
-                            self.bias.to(x.dtype), self.eps)
+    def forward(self, x, silu: bool = False):
+        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, silu=silu)
 
 
 def multi_head_attention(q, k, v, num_heads: int):
@@ -141,7 +152,8 @@ class SpatialSelfAttention(nn.Module):
         q, k, v = (m(hn).flatten(2) for m in (self.q, self.k, self.v))  # (b,c,hw)
         logits = torch.bmm(q.float().transpose(1, 2), k.float()) * (c ** -0.5)
         wgt = torch.softmax(logits, dim=-1).to(v.dtype)                 # (b,q,k)
-        out = torch.bmm(v, wgt.transpose(1, 2)).reshape(b, c, h, w)
+        # token-major (b, hw, c): its NCHW view is channels-last, as proj_out's input
+        out = torch.bmm(wgt, v.transpose(1, 2)).transpose(1, 2).unflatten(2, (h, w))
         return x + self.proj_out(out)
 
 

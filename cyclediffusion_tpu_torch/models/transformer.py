@@ -105,7 +105,9 @@ class BasicTransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
-    """NCHW in and out; the blocks run over token-major (B, h*w, C)."""
+    """(B, C, h, w) in and out, views of channels-last memory; the blocks
+    run over its token-major (B, h*w, C) view, taken and given back without
+    a copy."""
 
     def __init__(self, in_channels: int, heads: int, dim_head: int,
                  depth: int = 1, context_dim: Optional[int] = None,
@@ -120,11 +122,10 @@ class SpatialTransformer(nn.Module):
         self.proj_out = nn.Conv2d(inner, in_channels, 1)
 
     def forward(self, x, context=None):
-        b, _, h, w = x.shape
+        h, w = x.shape[2:]
         hidden = self.proj_in(self.norm(x))
-        inner = hidden.shape[1]
         hidden = hidden.flatten(2).transpose(1, 2)           # (b, h*w, inner)
         for block in self.transformer_blocks:
             hidden = block(hidden, context=context)
-        hidden = hidden.transpose(1, 2).reshape(b, inner, h, w)
+        hidden = hidden.transpose(1, 2).unflatten(2, (h, w))
         return x + self.proj_out(hidden)

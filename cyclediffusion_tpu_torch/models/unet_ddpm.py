@@ -5,7 +5,9 @@ resampling layers, which the VAE shares (counterpart of
 Module names are the reference's (``temb.dense.0``, ``down.0.block.1``,
 ``down.3.attn.0``, ``down.0.downsample.conv``, ``mid.block_1``,
 ``mid.attn_1``, ``up.2.upsample.conv``), so a CompVis state dict loads as
-it is.  Public ``forward`` takes NHWC; the modules run NCHW.
+it is.  Public ``forward`` takes NHWC; the modules run on (N, C, H, W) views
+of channels-last memory, the conv weights channels-last from construction
+(see ``models.nn``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch import nn
 from cyclediffusion_tpu_torch.models.nn import (
     GroupNorm,
     SpatialSelfAttention,
+    channels_last_,
     ddpm_timestep_embedding,
     nearest_upsample_2x,
     nhwc_to_nchw,
@@ -79,9 +82,9 @@ class ResnetBlock(nn.Module):
             self.nin_shortcut = nn.Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x, temb):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(self.norm1(x, silu=True))
         h = h + self.temb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(self.norm2(h, silu=True))
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
         return x + h
@@ -152,6 +155,7 @@ class DDPMUNet(nn.Module):
 
         self.norm_out = GroupNorm(32, ch, 1e-6)
         self.conv_out = nn.Conv2d(ch, cfg.out_ch, 3, padding=1)
+        channels_last_(self)
 
     def forward(self, x, t):
         cfg = self.config
@@ -179,4 +183,4 @@ class DDPMUNet(nn.Module):
                     h = level.attn[i](h)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
-        return self.conv_out(F.silu(self.norm_out(h))).permute(0, 2, 3, 1)
+        return self.conv_out(self.norm_out(h, silu=True)).permute(0, 2, 3, 1)

@@ -31,6 +31,7 @@ from cyclediffusion_tpu_torch.models.nn import (
     GDAttentionBlock,
     GroupNorm,
     avg_pool_2x,
+    channels_last_,
     gd_timestep_embedding,
     nearest_upsample_2x,
     nhwc_to_nchw,
@@ -127,7 +128,9 @@ class GDResBlock(nn.Module):
     first conv, or with ``use_scale_shift_norm`` applied to the second norm
     as ``norm(h) * (1 + scale) + shift``; ``up`` / ``down`` resample both
     ``h`` (after the first norm and SiLU, before the first conv) and the
-    skip input."""
+    skip input.  Each norm runs its SiLU in the same pass (``silu=True``),
+    except the second one under scale and shift; the ``nn.SiLU`` slots keep
+    the reference's module indices."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_dim: int,
                  norm_eps: float = 1e-5, use_scale_shift_norm: bool = False,
@@ -148,7 +151,7 @@ class GDResBlock(nn.Module):
             else nn.Conv2d(in_channels, out_channels, 1))
 
     def forward(self, x, emb):
-        h = self.in_layers[1](self.in_layers[0](x))
+        h = self.in_layers[0](x, silu=True)
         if self.resample is not None:
             h, x = self.resample(h), self.resample(x)
         h = self.in_layers[2](h)
@@ -158,7 +161,7 @@ class GDResBlock(nn.Module):
             h = self.out_layers[0](h) * (1 + scale) + shift
             h = self.out_layers[3](self.out_layers[1](h))
         else:
-            h = self.out_layers(h + emb_out)
+            h = self.out_layers[3](self.out_layers[0](h + emb_out, silu=True))
         return self.skip_connection(x) + h
 
 
@@ -205,9 +208,13 @@ class GDUNet(nn.Module):
     ``encoder_cache`` / ``return_cache`` are the encoder-propagation fast
     mode (Faster Diffusion, arXiv 2312.09608): ``return_cache=True`` returns
     ``(eps, cache)`` with ``cache = (h_middle, hs)``, the middle block's
-    output and the input blocks' skip activations (NCHW, in the UNet's
-    dtype); a call given that cache skips the input and middle blocks and
-    runs the decoder half on it, with the current timestep's embedding."""
+    output and the input blocks' skip activations ((B, C, H, W) views of
+    channels-last memory, in the UNet's dtype); a call given that cache
+    skips the input and middle blocks and runs the decoder half on it, with
+    the current timestep's embedding.
+
+    The conv weights are channels-last from construction (see
+    ``models.nn``)."""
 
     def __init__(self, cfg: GDUNetConfig, folded_attn: Optional[str] = None):
         super().__init__()
@@ -282,6 +289,7 @@ class GDUNet(nn.Module):
 
         self.out = nn.Sequential(
             GroupNorm(32, ch, 1e-5), nn.SiLU(), _conv3x3(ch, cfg.out_channels))
+        channels_last_(self)
 
     def encode(self, x, emb, context):
         """The input and middle blocks on NHWC ``x`` -> ``(h_middle, hs)``."""
@@ -297,7 +305,7 @@ class GDUNet(nn.Module):
         hs = list(hs)
         for layers in self.output_blocks:
             h = _apply_layers(layers, torch.cat([h, hs.pop()], dim=1), emb, context)
-        return self.out(h).permute(0, 2, 3, 1)
+        return self.out[2](self.out[0](h, silu=True)).permute(0, 2, 3, 1)
 
     def forward(self, x, t, context=None, encoder_cache=None, return_cache=False, y=None):
         emb = self.time_embed(

@@ -25,7 +25,7 @@ Each wrapper takes its plain PyTorch version (:func:`attention_reference`,
 :func:`fused_self_attention_reference`, :func:`linear_reference`) for tensors
 on the CPU, and only there: for a CUDA tensor it launches its kernel or
 raises.  Each call of K1-K4 that launches adds one to the wrapper's entry in
-:data:`launch_counts` (:func:`linear`, a part of K3/K4, counts none); a
+:data:`ops.launches.counts` (:func:`linear`, a part of K3/K4, counts none); a
 call captured into a CUDA graph launches nothing, and each replay of the
 graph adds what its capture counted (``runtime.graphs``).
 None of them has a backward: in grad mode each refuses an input that
@@ -48,7 +48,7 @@ from typing import List
 
 import torch
 
-from cyclediffusion_tpu_torch.ops import cuda_build
+from cyclediffusion_tpu_torch.ops import cuda_build, launches
 
 # K1/K2: the SD-v1 levels' head dims (40, 80), the FFHQ/CelebA LDM's (32)
 # and the ragged test shape's (64); K3/K4 (the SD UNet's folded modes) keep
@@ -62,12 +62,6 @@ LINEAR_MAX_K = 448
 # the shortest query axis that goes to a kernel (K1; K2 from twice this),
 # as in the JAX dispatcher
 MIN_FLASH_TOKENS = 1024
-
-# kernel launches per wrapper since the last reset (plain-version calls on
-# CPU tensors are not launches and do not count; runtime.graphs takes a
-# capture's counts back out and adds them at each replay)
-launch_counts = {"flash_attention_packed": 0, "flash_attention_bhtd": 0,
-                 "qout_self_attention_block": 0, "fused_self_attention_block": 0}
 
 _VP, _CI, _CF, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # the CUDA libraries: name -> (sources under csrc/, headers hashed and .cu
@@ -85,11 +79,6 @@ _LIBRARIES = {
         "cd_linear": [_VP] * 4 + [_CI] * 3 + [_VP],
     }),
 }
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 @functools.cache
@@ -205,7 +194,7 @@ def flash_attention_packed(q, k, v, num_heads: int, sm_scale: float):
             int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error("flash_attention_packed", rc)
-    launch_counts["flash_attention_packed"] += 1
+    launches.counts["flash_attention_packed"] += 1
     return out
 
 
@@ -233,7 +222,7 @@ def flash_attention_bhtd(q, k, v, sm_scale: float):
             float(sm_scale), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error("flash_attention_bhtd", rc)
-    launch_counts["flash_attention_bhtd"] += 1
+    launches.counts["flash_attention_bhtd"] += 1
     return out
 
 
@@ -354,7 +343,7 @@ def qout_self_attention_block(x, wq, k, v, wo, bo, num_heads: int):
             int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_error("qout_self_attention_block", rc)
-    launch_counts["qout_self_attention_block"] += 1
+    launches.counts["qout_self_attention_block"] += 1
     return out
 
 
@@ -386,7 +375,7 @@ def fused_self_attention_block(x, wq, wk, wv, wo, bo, num_heads: int):
             d ** -0.5, int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_error("fused_self_attention_block", rc)
-    launch_counts["fused_self_attention_block"] += 1
+    launches.counts["fused_self_attention_block"] += 1
     return out
 
 

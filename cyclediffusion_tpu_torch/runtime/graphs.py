@@ -19,11 +19,12 @@ is what is captured.  :class:`GraphedCall` wraps ``fn(*args)``:
   result; then the call is captured once into a ``torch.cuda.CUDAGraph``.
   Every later call of the signature copies its tensor arguments into the
   graph's static inputs and replays it.  A capture that fails raises.
-* Every tensor argument is an input of the graph, copied at each replay,
-  so nothing that changes between calls (the latent, the timesteps, a text
-  context, a fast-mode cache) is read by address from the call that was
-  captured: JAX's rule that parameters are traced arguments, not
-  closures.  Model weights are read by address: they must be updated in
+* Every tensor argument is an input of the graph (a copy in the
+  argument's own memory layout, so a channels-last activation stays one),
+  copied at each replay, so nothing that changes between calls (the
+  latent, the timesteps, a text context, a fast-mode cache) is read by
+  address from the call that was captured: JAX's rule that parameters are
+  traced arguments, not closures.  Model weights are read by address: they must be updated in
   place (``load_state_dict`` does), never replaced.
 * Results are copies of the graph's static outputs, made as the replay's
   last step, so a result outlives the next replay of the same graph (the
@@ -36,10 +37,10 @@ is what is captured.  :class:`GraphedCall` wraps ``fn(*args)``:
   of the signature field by field, as JAX reads ``split_input_params`` at
   trace time: another setting is another graph.
 
-The kernel wrappers of ``ops.flash_attention`` count their launches in
-Python, so a replay would count nothing: a capture records what it added
-to ``launch_counts`` (and takes it back, since capturing launches
-nothing), and each replay adds it once.
+The kernel wrappers count their launches in Python (``ops.launches``), so
+a replay would count nothing: a capture records what it added to
+``launches.counts`` (and takes it back, since capturing launches nothing),
+and each replay adds it once.
 
 Each call records a ``graph.<name>`` span (``runtime.profiling``) over its
 copy-in, replay and copy-out (or its warm-up and capture) on the host, and
@@ -69,7 +70,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from cyclediffusion_tpu_torch.ops import flash_attention as fa
+from cyclediffusion_tpu_torch.ops import launches as kernel_launches
 from cyclediffusion_tpu_torch.runtime import profiling
 
 
@@ -132,7 +133,7 @@ def map_tensors(fn: Callable, obj):
 
 
 def count_delta(before: Dict[str, int], after: Dict[str, int]) -> Dict[str, int]:
-    """The launches counted between two snapshots of ``launch_counts``."""
+    """The launches counted between two snapshots of ``launches.counts``."""
     return {name: after[name] - before[name] for name in after}
 
 
@@ -172,7 +173,7 @@ class Captured:
     def replay(self) -> None:
         """Replay on the current stream; counts its kernels' launches."""
         self.graph.replay()
-        add_counts(fa.launch_counts, self.launches)
+        add_counts(kernel_launches.counts, self.launches)
         self.replays += 1
 
 
@@ -209,16 +210,16 @@ def warm_up(fn: Callable, args=(), calls: int = 1):
 
 def capture(fn: Callable, args=(), pool: Optional[GraphPool] = None) -> Captured:
     """``fn(*args)`` captured into a CUDA graph whose static inputs are
-    fresh contiguous copies of ``args``' tensors (a closure's tensors are
-    read by address).  The launches it counted are taken back out of
-    ``launch_counts`` and kept as a replay's.  The capture runs on the side
-    stream, as ``torch.cuda.graph`` runs one, but neither waits for the
-    device nor empties the allocator's cache first: a chain's first call of
-    each program is set-up that the next eager work should not pay for."""
+    fresh copies of ``args``' tensors in their memory layouts (a closure's
+    tensors are read by address).  The launches it counted are taken back
+    out of ``launches.counts`` and kept as a replay's.  The capture runs on
+    the side stream, as ``torch.cuda.graph`` runs one, but neither waits for
+    the device nor empties the allocator's cache first: a chain's first call
+    of each program is set-up that the next eager work should not pay for."""
     t0 = time.perf_counter()
     key, leaves = signature(args)
-    inputs = [t.detach().clone(memory_format=torch.contiguous_format) for t in leaves]
-    before = dict(fa.launch_counts)
+    inputs = [t.detach().clone() for t in leaves]
+    before = dict(kernel_launches.counts)
     graph = torch.cuda.CUDAGraph()
     current, side = torch.cuda.current_stream(), _side_stream()
     side.wait_stream(current)
@@ -229,8 +230,8 @@ def capture(fn: Callable, args=(), pool: Optional[GraphPool] = None) -> Captured
         finally:
             graph.capture_end()
     current.wait_stream(side)
-    launches = count_delta(before, fa.launch_counts)
-    fa.launch_counts.update(before)
+    launches = count_delta(before, kernel_launches.counts)
+    kernel_launches.counts.update(before)
     return Captured(graph, inputs, output, launches, time.perf_counter() - t0)
 
 

@@ -64,6 +64,16 @@ def test_kernel_work_and_bounds_at_the_main_path_shapes(smoke, name, shape, gflo
     assert by == "operations" and ms == pytest.approx(1e3 * flops / 989e12)
 
 
+@pytest.mark.parametrize("backward,bound_ms", [(False, 0.0401), (True, 0.0601)])
+def test_group_norm_bound_counts_each_byte_once(smoke, backward, bound_ms):
+    """Phase 3b's GroupNorm bound at the KL-f8 decoder's 512 px level in
+    bf16: x read and y written once (67.1 MB each), the backward's dy read
+    too, at 3.35 TB/s."""
+    assert smoke.group_norm_bound_ms((1, 128, 512, 512), backward) == pytest.approx(
+        bound_ms, abs=5e-5)
+    assert [shape for _, shape in smoke.GN_CASES] == [(1, 128, 512, 512), (8, 320, 64, 64)]
+
+
 @pytest.mark.parametrize("shape,gflop,mb,bound_ms", [
     ((16384, 320, 320, True), 3.355, 21.18, 0.0063),    # q, with the bias of the output
     ((16384, 960, 320, False), 10.07, 42.56, 0.0127),   # K4's [q | k | v]
@@ -560,6 +570,34 @@ def test_directional_check_on_a_toy_function(smoke, h):
     assert off == pytest.approx(0.05 / 1.05, rel=0.05)
     assert smoke.directional_check(lambda q: q.sum() * 0, torch.zeros(3), torch.zeros(3),
                                    torch.ones(3), h)[2] == 0.0      # no division by zero
+
+
+def test_plain_group_norm_swaps_the_models_group_norm_for_the_block(smoke):
+    """Inside ``plain_group_norm()`` the models' GroupNorm is the plain
+    version; after it, the kernels' wrapper again, also when the block raises."""
+    from cyclediffusion_tpu_torch.models import nn as tnn
+    from cyclediffusion_tpu_torch.ops import group_norm as gn
+
+    with smoke.plain_group_norm():
+        assert tnn.group_norm is gn.group_norm_reference
+    assert tnn.group_norm is gn.group_norm
+    with pytest.raises(KeyError), smoke.plain_group_norm():
+        raise KeyError
+    assert tnn.group_norm is gn.group_norm
+
+
+def test_launched_reads_the_one_launch_count_dict(smoke, monkeypatch):
+    """``launched()`` gives K1-K4's counts by default and the GroupNorm
+    kernels' when asked; ``reset_launches()`` zeroes them all."""
+    from cyclediffusion_tpu_torch.ops import launches
+
+    monkeypatch.setattr(launches, "counts", dict.fromkeys(launches.counts, 3))
+    assert smoke.launched() == dict.fromkeys(smoke.ATTENTION_KERNELS, 3)
+    assert smoke.launched(smoke.GROUP_NORM_KERNELS) == {"group_norm": 3,
+                                                       "group_norm_backward": 3}
+    smoke.reset_launches()
+    assert set(launches.counts.values()) == {0}
+    assert set(launches.counts) == set(smoke.ATTENTION_KERNELS + smoke.GROUP_NORM_KERNELS)
 
 
 def test_afhq_cats_are_the_jpeg_fixtures(smoke, tmp_path, monkeypatch):

@@ -14,6 +14,7 @@ import torch
 
 from cyclediffusion_tpu.ops import flash_attention as jfa
 from cyclediffusion_tpu_torch.ops import flash_attention as fa
+from cyclediffusion_tpu_torch.ops import launches
 from test_torch_common import to_torch
 
 
@@ -40,7 +41,7 @@ def test_bhtd_plain_matches_pallas_fp32(tq, tk, d):
                                     scale, interpret=True)
     got = fa.flash_attention_bhtd(to_torch(q), to_torch(k), to_torch(v), scale)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
-    assert fa.launch_counts["flash_attention_bhtd"] == 0   # plain, not a launch
+    assert launches.counts["flash_attention_bhtd"] == 0   # plain, not a launch
 
 
 # (1000, 1100, 40, 8): chip_smoke.py's ragged K2 shape, off the 128-row tiles
@@ -55,7 +56,7 @@ def test_packed_plain_matches_pallas_fp32(tq, tk, d, heads):
                                       heads, scale, interpret=True)
     got = fa.flash_attention_packed(to_torch(q), to_torch(k), to_torch(v), heads, scale)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
-    assert fa.launch_counts["flash_attention_packed"] == 0
+    assert launches.counts["flash_attention_packed"] == 0
 
 
 def test_bhtd_takes_strided_head_views():

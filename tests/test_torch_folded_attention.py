@@ -22,6 +22,7 @@ from cyclediffusion_tpu_torch.convert.from_jax import load_flax_params
 from cyclediffusion_tpu_torch.models.transformer import BasicTransformerBlock, CrossAttention
 from cyclediffusion_tpu_torch.models.unet_gd import GDUNet, GDUNetConfig
 from cyclediffusion_tpu_torch.ops import flash_attention as fa
+from cyclediffusion_tpu_torch.ops import launches
 from test_torch_common import fill_flax_tree, to_torch
 
 
@@ -55,7 +56,7 @@ def test_fused_plain_matches_pallas_fp32(t, c, heads, d, bq, bk):
     got = fa.fused_self_attention_block(to_torch(x), _linear(wq), _linear(wk),
                                         _linear(wv), _linear(wo), to_torch(bo), heads)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
-    assert fa.launch_counts["fused_self_attention_block"] == 0   # plain, not a launch
+    assert launches.counts["fused_self_attention_block"] == 0   # plain, not a launch
 
 
 @pytest.mark.parametrize("t,tk,c,heads,d,bq,bk", [
@@ -73,7 +74,7 @@ def test_qout_plain_matches_pallas_fp32(t, tk, c, heads, d, bq, bk):
     got = fa.qout_self_attention_block(to_torch(x), _linear(wq), to_torch(k), to_torch(v),
                                        _linear(wo), to_torch(bo), heads)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
-    assert fa.launch_counts["qout_self_attention_block"] == 0
+    assert launches.counts["qout_self_attention_block"] == 0
 
 
 def test_plain_versions_round_where_the_kernels_do():
@@ -121,11 +122,11 @@ def test_linear_wrapper_on_cpu_is_its_plain_version(bias):
     x = torch.randn(2, 3, 64, generator=gen).to(torch.bfloat16)
     w = torch.randn(128, 64, generator=gen).to(torch.bfloat16)
     b = torch.randn(128, generator=gen).to(torch.bfloat16) if bias else None
-    before = dict(fa.launch_counts)
+    before = dict(launches.counts)
     got = fa.linear(x, w, b)
     assert got.shape == (2, 3, 128) and got.dtype == torch.bfloat16
     assert torch.equal(got, fa.linear_reference(x, w, b))
-    assert fa.launch_counts == before
+    assert launches.counts == before
 
 
 @pytest.mark.parametrize("bad", ["x", "bias"])

@@ -23,7 +23,7 @@ from cyclediffusion_tpu.pipelines import latent_text as jlatent_text
 from cyclediffusion_tpu.pipelines.factory import get_gan_wrapper as jget_gan_wrapper
 from cyclediffusion_tpu.runtime import context as jcontext
 from cyclediffusion_tpu.runtime.config import get_config as jget_config
-from cyclediffusion_tpu_torch.ops import flash_attention as fa
+from cyclediffusion_tpu_torch.ops import launches
 from cyclediffusion_tpu_torch.pipelines import factory, zoo
 from cyclediffusion_tpu_torch.pipelines.ddpm_ddim import DDPMDDIMPipeline
 from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec, LatentDiffusionCore
@@ -117,15 +117,16 @@ def test_rebuild_puts_the_leaves_back_in_place():
 def test_a_replay_adds_what_its_capture_counted(replays, monkeypatch):
     """The launches a capture counted (taken back out, since capturing
     launches nothing) are added once per replay: per capture x replays."""
-    counts = dict.fromkeys(fa.launch_counts, 0)
-    monkeypatch.setattr(fa, "launch_counts", counts)
+    counts = dict.fromkeys(launches.counts, 0)
+    monkeypatch.setattr(launches, "counts", counts)
     before = dict(counts)
     counts["flash_attention_bhtd"] += 5       # what the captured call's wrappers counted
     counts["flash_attention_packed"] += 5
     delta = graphs.count_delta(before, counts)
     counts.update(before)
     assert delta == {"flash_attention_packed": 5, "flash_attention_bhtd": 5,
-                     "qout_self_attention_block": 0, "fused_self_attention_block": 0}
+                     "qout_self_attention_block": 0, "fused_self_attention_block": 0,
+                     "group_norm": 0, "group_norm_backward": 0}
     fake = types.SimpleNamespace(replay=lambda: None)
     captured = graphs.Captured(fake, [], None, delta, 0.0)
     for _ in range(replays):
