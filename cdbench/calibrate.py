@@ -72,7 +72,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         idx = harness.check_requests(seed, 1)[0]
         req = driver.make_request(cfg, mix, seed, idx, "cuda")
-        names = getattr(driver, "PARTS", harness.PARTS)
+        names = harness.part_names(cfg, driver)
         control = harness.reference_parts(cfg, seed, "cuda", names, control=True)
         got = driver.reference_outputs(cfg, mix, control, req)
         del control

@@ -6,6 +6,8 @@ import math
 
 import torch
 
+from cdbench.reference.sampling import leaves
+
 
 def rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
     """The largest ||a_i - b_i|| / ||b_i|| over the leading index i, in
@@ -19,6 +21,20 @@ def rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
     num = torch.linalg.vector_norm(a - b, dim=1)
     den = torch.linalg.vector_norm(b, dim=1).clamp(min=1e-30)
     return float((num / den).max())
+
+
+def worst_rel_rms(a, b) -> float:
+    """The largest :func:`rel_rms` over the tensors of two conditionings of
+    one structure (a tensor, or a dict, list or tuple of them); inf where
+    the structures differ or ``a`` is no conditioning."""
+    try:
+        la = leaves(a)
+    except TypeError:
+        return math.inf
+    lb = leaves(b)
+    if [path for path, _ in la] != [path for path, _ in lb]:
+        return math.inf
+    return max(rel_rms(x, y) for (_, x), (_, y) in zip(la, lb))
 
 
 def judge(readings: dict, limits: dict) -> tuple:

@@ -2,9 +2,10 @@
 
 Operations are counted by ``torch.utils.flop_counter.FlopCounterMode`` over
 the plain reference on the meta device (a multiply-add is two
-operations), per unit of work: one UNet row at the configuration's latent
-size with a full-length context, one image through the first stage's
-encoder or decoder, one prompt through the text encoder.  The results are
+operations), per unit of work, as the configuration's model family defines
+it: for ``latent_text``, one UNet row at the configuration's latent size
+with a full-length context, one image through the first stage's encoder or
+decoder, one prompt through the text encoder.  The results are
 stored in each configuration's file under ``counts`` and checked against
 this function by a CPU test.
 
@@ -17,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from cdbench.registry import family
+
 # one NVIDIA H100 SXM: dense bf16 tensor-core rate and HBM3 bandwidth (data sheet)
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -28,42 +31,31 @@ def latent_size(cfg: dict) -> int:
 
 @torch.no_grad()
 def model_flops(cfg: dict) -> dict:
-    """{unit: operations} for ``unet_row``, ``encode_image``,
-    ``decode_image``, ``prompt`` and, with a scorer, ``energy_grad`` (the
-    CLIP energy's gradient through the decoder at one latent),
-    ``clip_image`` (an image at the configuration's resolution, resized
-    and embedded) and ``clip_text``."""
+    """{unit: operations} for the units of the configuration's model family
+    (``unit_calls`` of ``reference/<family>.py``: ``unet_row``,
+    ``encode_image``, ``decode_image``, ``prompt``) and, with a scorer,
+    ``energy_grad`` (the CLIP energy's gradient through the decoder at one
+    latent), ``clip_image`` (an image at the configuration's resolution,
+    resized and embedded) and ``clip_text``."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from cdbench.reference.guided import clip_energy_grad
-    from cdbench.reference.models import PARTS, build_parts
 
     arch = cfg["arch"]
-    names = PARTS + (("scorer",) if "scorer" in arch else ())
-    parts = {k: m for k, (_, m) in build_parts(arch, "meta", names).items()}
-    n, res = latent_size(cfg), cfg["resolution"]
-    c = arch["cond"]
-    zc = arch["first_stage"]["embed_dim"]
-    meta = dict(device="meta")
-    calls = {
-        "unet_row": lambda: parts["unet"](
-            torch.empty(1, n, n, arch["unet"]["in_channels"], **meta),
-            torch.zeros(1, dtype=torch.int64, **meta),
-            torch.empty(1, c["context_length"], arch["unet"]["context_dim"], **meta)),
-        "encode_image": lambda: parts["first_stage"].encode(
-            torch.empty(1, res, res, 3, **meta), torch.empty(1, n, n, zc, **meta)),
-        "decode_image": lambda: parts["first_stage"].decode(torch.empty(1, n, n, zc, **meta)),
-        "prompt": lambda: parts["cond"](
-            torch.zeros(1, c["context_length"], dtype=torch.int64, **meta)),
-    }
+    ref = family(cfg, "reference")
+    names = tuple(ref.PARTS) + (("scorer",) if "scorer" in arch else ())
+    parts = ref.build_parts(arch, "meta", names)
+    calls = ref.unit_calls(cfg, parts)
     if "scorer" in arch:
-        sc = arch["scorer"]
+        fs, scorer = parts["first_stage"][1], parts["scorer"][1]
+        n, res = latent_size(cfg), cfg["resolution"]
+        sc, zc = arch["scorer"], arch["first_stage"]["embed_dim"]
+        meta = dict(device="meta")
         calls["energy_grad"] = lambda: clip_energy_grad(
-            parts["first_stage"], parts["scorer"], torch.empty(1, n, n, zc, **meta),
+            fs, scorer, torch.empty(1, n, n, zc, **meta),
             torch.empty(1, sc["embed_dim"], **meta), arch["scale_factor"])
-        calls["clip_image"] = lambda: parts["scorer"].embed_image(
-            torch.empty(1, res, res, 3, **meta))
-        calls["clip_text"] = lambda: parts["scorer"].embed_text(
+        calls["clip_image"] = lambda: scorer.embed_image(torch.empty(1, res, res, 3, **meta))
+        calls["clip_text"] = lambda: scorer.embed_text(
             torch.zeros(1, sc["context_length"], dtype=torch.int64, **meta))
     out = {}
     for unit, call in calls.items():
@@ -75,26 +67,8 @@ def model_flops(cfg: dict) -> dict:
 
 def self_attention_shapes(cfg: dict) -> list:
     """(tokens, heads, head dim) of every self-attention of one UNet row,
-    in the order the UNet runs them."""
-    u = cfg["arch"]["unet"]
-    n, mc = latent_size(cfg), u["model_channels"]
-    shapes, ds = [], 1
-    mults = u["channel_mult"]
-    for level, mult in enumerate(mults):
-        if ds in u["attention_resolutions"]:
-            shapes += [((n // ds) ** 2, u["num_heads"], mult * mc // u["num_heads"])] \
-                * u["num_res_blocks"] * u["transformer_depth"]
-        if level != len(mults) - 1:
-            ds *= 2
-    mid = ((n // ds) ** 2, u["num_heads"], mults[-1] * mc // u["num_heads"])
-    ups = []
-    for level, mult in list(enumerate(mults))[::-1]:
-        if ds in u["attention_resolutions"]:
-            ups += [((n // ds) ** 2, u["num_heads"], mult * mc // u["num_heads"])] \
-                * (u["num_res_blocks"] + 1) * u["transformer_depth"]
-        if level:
-            ds //= 2
-    return shapes + [mid] * u["transformer_depth"] + ups
+    in the order the UNet runs them (the family's own count)."""
+    return family(cfg, "reference").self_attention_shapes(cfg)
 
 
 def attention_bound_s(rows: int, tokens: int, heads: int, d: int, elem_bytes: int = 2) -> float:

@@ -11,6 +11,7 @@ its images, prompts and noises come from ``--seed`` and its index.
 
 from __future__ import annotations
 
+import functools
 import math
 import random
 
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 
 from cdbench import compare, counts
 from cdbench.reference import sampling
+from cdbench.registry import family
 from cdbench.weights import derive_seed
 
 STYLES = ("a photo of a", "a painting of a", "a sketch of a", "an oil painting of a",
@@ -119,17 +121,20 @@ def program_outputs(out: dict, kept: list, mix: dict) -> dict:
             "images": out["images"]}
 
 
-def _contexts(cfg: dict, cond, req: dict) -> dict:
-    c = cfg["arch"]["cond"]
+def eps_model(cfg: dict, parts: dict):
+    """The configuration's reference eps model over ``parts``:
+    ``eps(x, t, cond)`` (its family's ``eps``)."""
+    return functools.partial(family(cfg, "reference").eps, cfg, parts)
+
+
+def _contexts(cfg: dict, parts: dict, req: dict) -> dict:
+    """The request's conditionings through its family's ``condition``."""
+    ref = family(cfg, "reference")
     dev = req["images"].device
-
-    def encode_text(texts):
-        return cond(torch.as_tensor(sampling.hash_tokens(texts, c["vocab_size"],
-                                                         c["context_length"]), device=dev))
-
     b = req["images"].shape[0]
-    ctx = {"source": encode_text(req["source"]), "empty_enc": encode_text([""] * b),
-           "target": encode_text(req["target"])}
+    ctx = {"source": ref.condition(cfg, parts, req["source"], dev),
+           "empty_enc": ref.condition(cfg, parts, [""] * b, dev),
+           "target": ref.condition(cfg, parts, req["target"], dev)}
     ctx["empty_dec"] = ctx["empty_enc"]
     return ctx
 
@@ -137,14 +142,14 @@ def _contexts(cfg: dict, cond, req: dict) -> dict:
 def reference_encode(cfg: dict, mix: dict, parts: dict, req: dict):
     """(schedule, contexts, x0, z) of a request through ``parts``."""
     arch = cfg["arch"]
-    unet, fs, cond = (parts[k][1] for k in ("unet", "first_stage", "cond"))
-    ctx = _contexts(cfg, cond, req)
+    fs = parts["first_stage"][1]
+    ctx = _contexts(cfg, parts, req)
     s = sampling.Schedule(arch["linear_start"], arch["linear_end"], arch["timesteps"],
                           mix["steps"], mix["eta"])
     x0 = fs.encode(req["images"] * 2.0 - 1.0, req["vae_noise"]) * arch["scale_factor"]
-    x_T, eps = sampling.dpm_encode(s, unet, x0, ctx["empty_enc"], ctx["source"],
-                                   mix["encoder_scale"], mix["skip"], req["xT_noise"],
-                                   req["posterior_noises"])
+    x_T, eps = sampling.dpm_encode(s, eps_model(cfg, parts), x0, ctx["empty_enc"],
+                                   ctx["source"], mix["encoder_scale"], mix["skip"],
+                                   req["xT_noise"], req["posterior_noises"])
     b = x0.shape[0]
     return s, ctx, x0, torch.cat([x_T[None], eps]).transpose(0, 1).reshape(b, -1)
 
@@ -160,7 +165,7 @@ def reference_outputs(cfg: dict, mix: dict, parts: dict, req: dict) -> dict:
     """The request through ``parts`` alone (the control in the program's
     place), in :func:`program_outputs`' form."""
     arch = cfg["arch"]
-    unet, fs = parts["unet"][1], parts["first_stage"][1]
+    model, fs = eps_model(cfg, parts), parts["first_stage"][1]
     s, ctx, x0, z = reference_encode(cfg, mix, parts, req)
     x_T, eps = split_code(z, refine_steps(mix))
     x_T, eps = x_T.reshape(x0.shape), eps.reshape((-1,) + tuple(x0.shape))
@@ -168,7 +173,7 @@ def reference_outputs(cfg: dict, mix: dict, parts: dict, req: dict) -> dict:
     for i in range(refine_steps(mix)):
         index = refine_steps(mix) - 1 - i
         states.append(x)
-        e = sampling.guided_eps(unet, x, int(s.t[index]), ctx["empty_dec"], ctx["target"],
+        e = sampling.guided_eps(model, x, int(s.t[index]), ctx["empty_dec"], ctx["target"],
                                 mix["decoder_scale"])
         x = sampling.replay_step(s, index, x, e, eps[i])
     images = (fs.decode(x / arch["scale_factor"]) + 1.0) / 2.0
@@ -183,9 +188,10 @@ NUMBERS = ("ctx", "x0", "code", "replay", "pixels")
 @torch.no_grad()
 def readings(cfg: dict, mix: dict, parts: dict, req: dict, outs: dict) -> dict:
     """The float32 reference (``parts``) against ``outs``, each the worst
-    relative RMS gap per image (per prompt for the contexts):
+    relative RMS gap per image (per prompt, and over the conditioning's
+    tensors, for the contexts):
 
-    * ``ctx``, ``x0``, ``code``: the text contexts, the first stage's
+    * ``ctx``, ``x0``, ``code``: the text conditionings, the first stage's
       posterior sample and the DPM-Encoder's code (x_T, eps), each the
       reference's own from the request's inputs;
     * ``replay``: every step of the decode chain from ``outs``' own state
@@ -195,7 +201,7 @@ def readings(cfg: dict, mix: dict, parts: dict, req: dict, outs: dict) -> dict:
       ``outs``' final latent.
     """
     arch = cfg["arch"]
-    unet, fs = parts["unet"][1], parts["first_stage"][1]
+    model, fs = eps_model(cfg, parts), parts["first_stage"][1]
     s, ctx, x0, z = reference_encode(cfg, mix, parts, req)
     n = refine_steps(mix)
     _, eps = split_code(outs["z"], n)
@@ -204,13 +210,13 @@ def readings(cfg: dict, mix: dict, parts: dict, req: dict, outs: dict) -> dict:
     for i in range(n if math.isfinite(replay) else 0):
         index = n - 1 - i
         x = outs["states"][i]
-        e = sampling.guided_eps(unet, x, int(s.t[index]), ctx["empty_dec"], ctx["target"],
+        e = sampling.guided_eps(model, x, int(s.t[index]), ctx["empty_dec"], ctx["target"],
                                 mix["decoder_scale"])
         nxt = outs["states"][i + 1] if i + 1 < n else outs["final"]
         replay = max(replay, compare.rel_rms(nxt, sampling.replay_step(s, index, x, e, eps[i])))
     images = (fs.decode(outs["final"] / arch["scale_factor"]) + 1.0) / 2.0
     return {
-        "ctx": max(compare.rel_rms(outs["contexts"][k], ctx[k]) for k in ctx),
+        "ctx": max(compare.worst_rel_rms(outs["contexts"][k], ctx[k]) for k in ctx),
         "x0": compare.rel_rms(outs["x0"], x0),
         "code": compare.rel_rms(outs["z"], z),
         "replay": replay,

@@ -23,7 +23,8 @@ from cdbench import compare
 from cdbench.drivers import edit
 from cdbench.reference import sampling
 
-PARTS = ("unet", "first_stage", "cond", "scorer")
+# the parts drawn besides the model family's
+EXTRA_PARTS = ("scorer",)
 
 
 def n_candidates(mix: dict) -> int:
@@ -53,7 +54,7 @@ class Program:
     def __init__(self, cfg: dict, mix: dict, seed: int, state_dict: dict, device, dtype,
                  recorder):
         from cdbench import program
-        from cdbench.drivers.guided import scorer_config
+        from cdbench.drivers.guided import scorer_config, scorer_tokenizer
         from cyclediffusion_tpu_torch.energy.clean_clip import CLIPScorer, DirectionalCLIP
         from cyclediffusion_tpu_torch.pipelines.latent_text import StochasticTextPipeline
 
@@ -61,12 +62,12 @@ class Program:
         scorer = CLIPScorer.from_openai_state_dict(
             {k[len("scorer."):]: v.float().cpu() for k, v in state_dict.items()
              if k.startswith("scorer.")}, scorer_config(cfg), device, dtype)
-        tok = program.tokenizer(cfg)
         recorder.wrap(scorer, "embed_image", "clip_image")
         recorder.wrap(scorer, "embed_text", "clip_text")
         self.pipe = StochasticTextPipeline(
-            self.core, tok, DirectionalCLIP(scorer, tok), custom_steps=mix["steps"],
-            eta=mix["eta"], white_box_steps=mix["white_box_steps"], skip_steps=[mix["skip"]],
+            self.core, program.tokenizer(cfg), DirectionalCLIP(scorer, scorer_tokenizer(cfg)),
+            custom_steps=mix["steps"], eta=mix["eta"], white_box_steps=mix["white_box_steps"],
+            skip_steps=[mix["skip"]],
             encoder_unconditional_guidance_scales=[mix["encoder_scale"]],
             decoder_unconditional_guidance_scales=list(mix["decoder_scales"]), n_trials=1,
             candidate_chunk=mix["candidate_chunk"])
@@ -138,19 +139,19 @@ def dclip_scores(emb: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return (img @ text[0]).float()
 
 
-def _chains(mix: dict, parts: dict, s, ctx, states_or_x_T, eps, free: bool):
+def _chains(cfg: dict, mix: dict, parts: dict, s, ctx, states_or_x_T, eps, free: bool):
     """Each candidate's decode chain, candidates folded into the batch:
     free-running from x_T (-> states, final) or, given the program's
     states, each step's reference next state (-> list per step)."""
-    unet = parts["unet"][1]
+    model = edit.eps_model(cfg, parts)
     n, k = edit.refine_steps(mix), n_candidates(mix)
     scales = torch.tensor(mix["decoder_scales"], dtype=torch.float32)
-    uc, c = ctx["empty_dec"].repeat(k, 1, 1), ctx["target"].repeat(k, 1, 1)
+    uc, c = sampling.repeat_rows(ctx["empty_dec"], k), sampling.repeat_rows(ctx["target"], k)
     out, x = [], states_or_x_T
     for i in range(n):
         index = n - 1 - i
         xi = x if free else states_or_x_T[i]
-        e = sampling.guided_eps(unet, xi, int(s.t[index]), uc, c, scales.to(xi.device))
+        e = sampling.guided_eps(model, xi, int(s.t[index]), uc, c, scales.to(xi.device))
         nxt = sampling.replay_step(s, index, xi, e, eps[i])
         out.append(xi if free else nxt)
         x = nxt
@@ -168,7 +169,7 @@ def reference_outputs(cfg: dict, mix: dict, parts: dict, req: dict) -> dict:
     k = n_candidates(mix)
     x_T = x_T.reshape(x0.shape).repeat(k, 1, 1, 1)
     eps = eps.reshape((-1,) + tuple(x0.shape)).repeat(1, k, 1, 1, 1)
-    states, final = _chains(mix, parts, s, ctx, x_T, eps, free=True)
+    states, final = _chains(cfg, mix, parts, s, ctx, x_T, eps, free=True)
     images = (fs.decode(final / cfg["arch"]["scale_factor"]) + 1.0) / 2.0
     emb = _embeddings(cfg, scorer, req, images)
     scores = dclip_scores(emb, scorer.visual.proj.dtype)
@@ -218,7 +219,7 @@ def readings(cfg: dict, mix: dict, parts: dict, req: dict, outs: dict) -> dict:
     eps = eps.reshape((n,) + tuple(x0.shape)).repeat(1, k, 1, 1, 1)
     replay = math.inf          # states of another shape than the request's
     if tuple(outs["states"].shape[:2]) == (n, k) and outs["final"].shape[0] == k:
-        nxt = _chains(mix, parts, s, ctx, outs["states"], eps, free=False)
+        nxt = _chains(cfg, mix, parts, s, ctx, outs["states"], eps, free=False)
         replay = max(compare.rel_rms(outs["states"][i + 1] if i + 1 < n else outs["final"],
                                      nxt[i]) for i in range(n))
     images = (fs.decode(outs["final"] / cfg["arch"]["scale_factor"]) + 1.0) / 2.0
@@ -231,7 +232,7 @@ def readings(cfg: dict, mix: dict, parts: dict, req: dict, outs: dict) -> dict:
     chosen = (float((outs["chosen"].float() - outs["images"][best].float()).abs().max())
               if ok else math.inf)
     return {
-        "ctx": max(compare.rel_rms(outs["contexts"][key], ctx[key]) for key in ctx),
+        "ctx": max(compare.worst_rel_rms(outs["contexts"][key], ctx[key]) for key in ctx),
         "x0": compare.rel_rms(outs["x0"], x0),
         "code": compare.rel_rms(outs["z"], z),
         "replay": replay,

@@ -16,12 +16,14 @@ import random
 import torch
 
 from cdbench import compare, counts
-from cdbench.drivers.edit import ADJECTIVES, STYLES, SUBJECTS
+from cdbench.drivers.edit import ADJECTIVES, STYLES, SUBJECTS, eps_model
 from cdbench.reference import guided as ref_guided
 from cdbench.reference import sampling
+from cdbench.registry import family
 from cdbench.weights import derive_seed
 
-PARTS = ("unet", "first_stage", "cond", "scorer")
+# the parts drawn besides the model family's
+EXTRA_PARTS = ("scorer",)
 
 
 def images_per_request(mix: dict) -> int:
@@ -53,6 +55,15 @@ def scorer_config(cfg: dict):
     return CLIPConfig(**cfg["arch"]["scorer"])
 
 
+def scorer_tokenizer(cfg: dict):
+    """The port's tokenizer of the scorer's prompts, as the reference's
+    ``sampling.hash_tokens`` over the scorer's vocabulary."""
+    from cyclediffusion_tpu_torch.text import HashTokenizer
+
+    sc = cfg["arch"]["scorer"]
+    return HashTokenizer(sc["vocab_size"], sc["context_length"])
+
+
 class Program:
     def __init__(self, cfg: dict, mix: dict, seed: int, state_dict: dict, device, dtype,
                  recorder):
@@ -67,7 +78,7 @@ class Program:
             {k[len("scorer."):]: v.float().cpu() for k, v in state_dict.items()
              if k.startswith("scorer.")}, scorer_config(cfg), device, dtype)
         self.tok = program.tokenizer(cfg)
-        text = self.scorer.embed_text(self.tok([run_prompt(seed)]))
+        text = self.scorer.embed_text(scorer_tokenizer(cfg)([run_prompt(seed)]))
         self.energy = clip_energy_fn(self.core, self.scorer, text)
         self.sched = self.core.make_ddim_schedule(mix["steps"], mix["eta"])
         for owner, attr, layer in ((self.core, "apply_model", "unet"),
@@ -107,19 +118,17 @@ def program_outputs(out: dict, kept: list, mix: dict) -> dict:
 
 
 def _setup(cfg: dict, mix: dict, parts: dict, req: dict):
-    """(schedule, contexts, the prompt's CLIP text feature) through ``parts``."""
+    """(schedule, conditionings, the prompt's CLIP text feature) through
+    ``parts``."""
     arch = cfg["arch"]
-    cond, scorer = parts["cond"][1], parts["scorer"][1]
+    ref, scorer = family(cfg, "reference"), parts["scorer"][1]
     dev = req["x_T"].device
-
-    def ids(texts, block):
-        return torch.as_tensor(sampling.hash_tokens(texts, block["vocab_size"],
-                                                    block["context_length"]), device=dev)
-
     b = len(req["prompts"])
-    ctx = {"prompt": cond(ids(req["prompts"], arch["cond"])),
-           "empty": cond(ids([""] * b, arch["cond"]))}
-    text = scorer.embed_text(ids(req["prompts"][:1], arch["scorer"]))
+    ctx = {"prompt": ref.condition(cfg, parts, req["prompts"], dev),
+           "empty": ref.condition(cfg, parts, [""] * b, dev)}
+    sc = arch["scorer"]
+    ids = sampling.hash_tokens(req["prompts"][:1], sc["vocab_size"], sc["context_length"])
+    text = scorer.embed_text(torch.as_tensor(ids, device=dev))
     s = sampling.Schedule(arch["linear_start"], arch["linear_end"], arch["timesteps"],
                           mix["steps"], mix["eta"])
     return s, ctx, text
@@ -127,11 +136,11 @@ def _setup(cfg: dict, mix: dict, parts: dict, req: dict):
 
 def _step(cfg, mix, parts, s, ctx, text, i, x, noise):
     """One guided step from x -> (pred_x0, energy gradient, next state)."""
-    unet, fs, scorer = parts["unet"][1], parts["first_stage"][1], parts["scorer"][1]
+    fs, scorer = parts["first_stage"][1], parts["scorer"][1]
     index = s.steps - 1 - i
     a = s.a[index]
-    e = sampling.guided_eps(unet, x, int(s.t[index]), ctx["empty"], ctx["prompt"],
-                            mix["cfg_scale"])
+    e = sampling.guided_eps(eps_model(cfg, parts), x, int(s.t[index]), ctx["empty"],
+                            ctx["prompt"], mix["cfg_scale"])
     pred_x0 = (x - torch.sqrt(1.0 - a) * e) / torch.sqrt(a)
     g = ref_guided.clip_energy_grad(fs, scorer, pred_x0, text, cfg["arch"]["scale_factor"])
     e = e + mix["weight"] * (torch.sqrt(a) / torch.sqrt(1.0 - a)) * g
@@ -161,12 +170,12 @@ NUMBERS = ("ctx", "grad", "replay", "pixels")
 @torch.no_grad()
 def readings(cfg: dict, mix: dict, parts: dict, req: dict, outs: dict) -> dict:
     """The float32 reference against ``outs``, each the worst relative RMS
-    gap per image: ``ctx`` the text contexts; ``grad`` each step's energy
-    gradient against the reference's at ``outs``' own pred_x0; ``replay``
-    each step from ``outs``' own state x_t against the reference's whole
-    step (UNet, guidance, energy gradient, DDIM replay with the request's
-    eps); ``pixels`` the images against the reference's decode of ``outs``'
-    final latent."""
+    gap per image: ``ctx`` the text conditionings (over their tensors);
+    ``grad`` each step's energy gradient against the reference's at
+    ``outs``' own pred_x0; ``replay`` each step from ``outs``' own state
+    x_t against the reference's whole step (UNet, guidance, energy
+    gradient, DDIM replay with the request's eps); ``pixels`` the images
+    against the reference's decode of ``outs``' final latent."""
     fs, scorer = parts["first_stage"][1], parts["scorer"][1]
     sf = cfg["arch"]["scale_factor"]
     s, ctx, text = _setup(cfg, mix, parts, req)
@@ -180,7 +189,7 @@ def readings(cfg: dict, mix: dict, parts: dict, req: dict, outs: dict) -> dict:
         replay = max(replay, compare.rel_rms(got, nxt))
     images = (fs.decode(outs["final"] / sf) + 1.0) / 2.0
     return {
-        "ctx": max(compare.rel_rms(outs["contexts"][k], ctx[k]) for k in ctx),
+        "ctx": max(compare.worst_rel_rms(outs["contexts"][k], ctx[k]) for k in ctx),
         "grad": grad, "replay": replay,
         "pixels": compare.rel_rms(outs["images"], images),
     }

@@ -20,9 +20,8 @@ import types
 import torch
 
 from cdbench import compare, guard, trace as tracing
-from cdbench.reference.models import PARTS, build_parts
 from cdbench.reference.numerics import set_reference_precision
-from cdbench.registry import Registry
+from cdbench.registry import Registry, family
 from cdbench.spans import Recorder
 from cdbench.weights import DTYPES, derive_seed, draw_state_dict
 
@@ -57,13 +56,20 @@ def check_requests(seed: int, completed: int) -> list:
     return sorted(rng.sample(pool, min(CHECK_REQUESTS, len(pool))))
 
 
-def reference_parts(cfg: dict, seed: int, device, parts=PARTS, control: bool = False) -> dict:
-    """The reference's modules ``parts`` with the run's weights, float32
-    (or the float8 control)."""
+def part_names(cfg: dict, driver=None) -> tuple:
+    """The parts a cell draws and compares: its model family's ``PARTS``,
+    then those its driver adds (``EXTRA_PARTS``: the scorer)."""
+    return tuple(family(cfg, "reference").PARTS) + tuple(getattr(driver, "EXTRA_PARTS", ()))
+
+
+def reference_parts(cfg: dict, seed: int, device, parts=None, control: bool = False) -> dict:
+    """The reference's modules ``parts`` (by default the family's) with
+    the run's weights, float32 (or the float8 control)."""
     from cdbench.reference.numerics import to_fp8_control
 
-    sd = draw_state_dict(cfg["arch"], seed, device, DTYPES[cfg["dtype"]], parts)
-    parts = build_parts(cfg["arch"], device, parts)
+    names = parts or part_names(cfg)
+    sd = draw_state_dict(cfg, seed, device, DTYPES[cfg["dtype"]], names)
+    parts = family(cfg, "reference").build_parts(cfg["arch"], device, names)
     for prefix, module in parts.values():
         module.load_state_dict({k[len(prefix):]: v for k, v in sd.items()
                                 if k.startswith(prefix)}, strict=True)
@@ -85,8 +91,8 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, t0: fl
 
     # ---- set-up ---------------------------------------------------------- #
     recorder = Recorder(device)
-    parts = getattr(driver, "PARTS", PARTS)
-    sd = draw_state_dict(cfg["arch"], seed, device, dtype, parts)
+    parts = part_names(cfg, driver)
+    sd = draw_state_dict(cfg, seed, device, dtype, parts)
     program = driver.Program(cfg, mix, seed, sd, device, dtype, recorder)
     del sd
     gc.collect()

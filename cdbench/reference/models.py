@@ -1,20 +1,20 @@
-"""Plain PyTorch models under the published state-dict names.
+"""Plain PyTorch models, each under its published state-dict names.
 
 * :class:`UNet`: CompVis ``openaimodel.UNetModel`` with spatial
-  transformers (SD v1, LDM text2img-large): ``model.diffusion_model.*``.
-* :class:`AutoencoderKL`: CompVis ``AutoencoderKL`` (KL-f8):
-  ``first_stage_model.*``.
+  transformers (SD v1, LDM text2img-large).
+* :class:`AutoencoderKL`: CompVis ``AutoencoderKL`` (KL-f8).
 * :class:`CLIPText`: Hugging Face ``CLIPTextModel`` (ViT-L/14's text tower,
-  SD v1's conditioning): ``cond_stage_model.transformer.text_model.*``.
+  SD v1's conditioning).
 * :class:`LDMBert`: the x-transformer ``TransformerWrapper(Encoder)`` of
-  LDM text2img-large: ``cond_stage_model.transformer.*`` (its unused
-  ``to_logits`` head left out).
+  LDM text2img-large (its unused ``to_logits`` head left out).
 
-Images and latents are NHWC at the boundary and NCHW inside.  Departures
-from the published code, each shared with the measured system's
-definition: the GEGLU feed-forward of the spatial transformer uses GELU's
-tanh form.  Attention is plain: softmax over the full logits, in blocks of
-batch rows so that 4,096-token maps fit.
+The blocks a model family's reference (``reference/<family>.py``) builds
+its parts from; the family gives each part its state-dict prefix.  Images
+and latents are NHWC at the boundary and NCHW inside.  Departures from the
+published code, each shared with the measured system's definition: the
+GEGLU feed-forward of the spatial transformer uses GELU's tanh form.
+Attention is plain: softmax over the full logits, in blocks of batch rows
+so that 4,096-token maps fit.
 """
 
 from __future__ import annotations
@@ -176,48 +176,49 @@ class Sequence_(nn.ModuleList):
 class UNet(nn.Module):
     """``forward(x NHWC, t (B,), context (B, T, ctx))`` -> eps NHWC."""
 
-    def __init__(self, cfg: dict):
+    def __init__(self, in_channels: int, out_channels: int, model_channels: int,
+                 channel_mult, num_res_blocks: int, attention_resolutions, num_heads: int,
+                 transformer_depth: int, context_dim: int):
         super().__init__()
-        mc, heads = cfg["model_channels"], cfg["num_heads"]
+        mc = model_channels
         emb_dim = 4 * mc
         self.model_channels = mc
         self.time_embed = nn.Sequential(Linear(mc, emb_dim), nn.SiLU(), Linear(emb_dim, emb_dim))
 
         def attn(ch):
-            return SpatialTransformer(ch, heads, ch // heads, cfg["transformer_depth"],
-                                      cfg["context_dim"])
+            return SpatialTransformer(ch, num_heads, ch // num_heads, transformer_depth,
+                                      context_dim)
 
         ch = mc
-        self.input_blocks = nn.ModuleList([Sequence_([Conv2d(cfg["in_channels"], mc, 3, padding=1)])])
+        self.input_blocks = nn.ModuleList([Sequence_([Conv2d(in_channels, mc, 3, padding=1)])])
         chans, ds = [ch], 1
-        mults = cfg["channel_mult"]
-        for level, mult in enumerate(mults):
-            for _ in range(cfg["num_res_blocks"]):
+        for level, mult in enumerate(channel_mult):
+            for _ in range(num_res_blocks):
                 layers = [ResBlock(ch, mult * mc, emb_dim)]
                 ch = mult * mc
-                if ds in cfg["attention_resolutions"]:
+                if ds in attention_resolutions:
                     layers.append(attn(ch))
                 self.input_blocks.append(Sequence_(layers))
                 chans.append(ch)
-            if level != len(mults) - 1:
+            if level != len(channel_mult) - 1:
                 self.input_blocks.append(Sequence_([Downsample(ch)]))
                 chans.append(ch)
                 ds *= 2
         self.middle_block = Sequence_([ResBlock(ch, ch, emb_dim), attn(ch),
                                        ResBlock(ch, ch, emb_dim)])
         self.output_blocks = nn.ModuleList()
-        for level, mult in list(enumerate(mults))[::-1]:
-            for i in range(cfg["num_res_blocks"] + 1):
+        for level, mult in list(enumerate(channel_mult))[::-1]:
+            for i in range(num_res_blocks + 1):
                 layers = [ResBlock(ch + chans.pop(), mult * mc, emb_dim)]
                 ch = mult * mc
-                if ds in cfg["attention_resolutions"]:
+                if ds in attention_resolutions:
                     layers.append(attn(ch))
-                if level and i == cfg["num_res_blocks"]:
+                if level and i == num_res_blocks:
                     layers.append(Upsample(ch))
                     ds //= 2
                 self.output_blocks.append(Sequence_(layers))
         self.out = nn.Sequential(group_norm(ch, 1e-5), nn.SiLU(),
-                                 Conv2d(ch, cfg["out_channels"], 3, padding=1))
+                                 Conv2d(ch, out_channels, 3, padding=1))
 
     def forward(self, x, t, context):
         dtype = self.time_embed[0].weight.dtype
@@ -478,32 +479,3 @@ class LDMBert(nn.Module):
         for norm, fn in self.attn_layers.layers:
             x = x + fn(norm(x))
         return self.norm(x).float()
-
-
-# ---- the three parts of a latent text-to-image model ------------------------------ #
-
-PREFIXES = {"unet": "model.diffusion_model.", "first_stage": "first_stage_model.",
-            "cond": {"clip": "cond_stage_model.transformer.text_model.",
-                     "bert": "cond_stage_model.transformer."},
-            "scorer": "scorer."}
-PARTS = ("unet", "first_stage", "cond")
-
-
-def build_parts(arch: dict, device="cpu", names=PARTS) -> dict:
-    """{part: (state-dict prefix, module)} for the parts ``names`` of a
-    configuration's ``arch`` block, on ``device`` (``"meta"`` for shapes):
-    ``unet``, ``first_stage``, ``cond`` and, where ``arch`` has one, the
-    ``scorer`` (OpenAI CLIP, its names under ``scorer.``)."""
-    from cdbench.reference.clip import CLIP
-
-    makers = {"unet": lambda: UNet(arch["unet"]),
-              "first_stage": lambda: AutoencoderKL(arch["first_stage"]),
-              "cond": lambda: {"clip": CLIPText, "bert": LDMBert}[arch["cond"]["kind"]](
-                  arch["cond"]),
-              "scorer": lambda: CLIP(arch["scorer"])}
-    prefixes = dict(PREFIXES, cond=PREFIXES["cond"][arch["cond"]["kind"]])
-    parts = {}
-    with torch.device(device):
-        for name in names:
-            parts[name] = (prefixes[name], makers[name]().eval().requires_grad_(False))
-    return parts

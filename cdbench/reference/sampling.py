@@ -1,6 +1,12 @@
 """The DDIM schedule, the DPM-Encoder, the eps replay and classifier-free
 guidance, written from CycleDiffusion's and CompVis's ``DDIMSampler``
-equations, and the hashed tokenizer the cells' prompts go through."""
+equations, and the hashed tokenizer the cells' prompts go through.
+
+The eps model is a model family's ``eps`` bound to its configuration and
+parts, ``eps(x, t, cond)``, and a conditioning is whatever the family's
+``condition`` gives: a tensor, or a dict, list or tuple of them, each
+leaf's rows the batch's.  The sampler only stacks and repeats its rows.
+"""
 
 from __future__ import annotations
 
@@ -63,18 +69,55 @@ def replay_step(s: Schedule, index: int, x, e, noise):
     return mean + sg * noise
 
 
-def guided_eps(unet, x, t: int, uncond, cond, scale):
-    """e_u + scale (e_c - e_u) from one call on the [uncond; cond] batch;
-    ``scale`` a number or a (B,) tensor."""
+def leaves(cond) -> list:
+    """[(path, tensor)] of a conditioning's tensors, a dict's keys in sorted
+    order."""
+    if torch.is_tensor(cond):
+        return [((), cond)]
+    if isinstance(cond, dict):
+        items = [(k, cond[k]) for k in sorted(cond)]
+    elif isinstance(cond, (list, tuple)):
+        items = list(enumerate(cond))
+    else:
+        raise TypeError(f"not a conditioning: {type(cond).__name__}")
+    return [((k,) + path, t) for k, sub in items for path, t in leaves(sub)]
+
+
+def map_leaves(fn, *conds):
+    """``fn`` over the matching tensors of conditionings of one structure."""
+    first = conds[0]
+    if torch.is_tensor(first):
+        return fn(*conds)
+    if isinstance(first, dict):
+        return {k: map_leaves(fn, *(c[k] for c in conds)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(map_leaves(fn, *subs) for subs in zip(*conds))
+    raise TypeError(f"not a conditioning: {type(first).__name__}")
+
+
+def cat_rows(a, b):
+    """The rows of ``a`` then those of ``b``, leaf by leaf."""
+    return map_leaves(lambda u, v: torch.cat([u, v]), a, b)
+
+
+def repeat_rows(cond, k: int):
+    """The whole batch ``k`` times over, leaf by leaf."""
+    return map_leaves(lambda u: u.repeat(k, *(1,) * (u.dim() - 1)), cond)
+
+
+def guided_eps(eps_model, x, t: int, uncond, cond, scale):
+    """e_u + scale (e_c - e_u) from one call of ``eps_model`` on the
+    [uncond; cond] batch; ``scale`` a number or a (B,) tensor."""
     b = x.shape[0]
     tt = torch.full((2 * b,), t, dtype=torch.int64, device=x.device)
-    out = unet(torch.cat([x, x]), tt, torch.cat([uncond, cond]))
+    out = eps_model(torch.cat([x, x]), tt, cat_rows(uncond, cond))
     e_u, e_c = out.chunk(2)
     scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device).reshape(-1, 1, 1, 1)
     return e_u + scale * (e_c - e_u)
 
 
-def dpm_encode(s: Schedule, unet, x0, uncond, cond, scale, skip: int, xT_noise, post_noises):
+def dpm_encode(s: Schedule, eps_model, x0, uncond, cond, scale, skip: int, xT_noise,
+               post_noises):
     """-> (x_T, eps (n, B, h, w, c)) over the chain's ``steps - skip`` steps."""
     refine = s.steps - skip
     xt = q_sample(x0, s.a[refine - 1], xT_noise)
@@ -82,7 +125,7 @@ def dpm_encode(s: Schedule, unet, x0, uncond, cond, scale, skip: int, xT_noise, 
     for i in range(refine):
         index = refine - 1 - i
         nxt = posterior_step(s, index, x0, xt, post_noises[i])
-        e = guided_eps(unet, xt, int(s.t[index]), uncond, cond, scale)
+        e = guided_eps(eps_model, xt, int(s.t[index]), uncond, cond, scale)
         eps.append(recover_eps(s, index, xt, nxt, e))
         xt = nxt
     return x_T, torch.stack(eps)

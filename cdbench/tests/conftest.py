@@ -20,7 +20,8 @@ from cdbench import counts
 REPO = Path(__file__).resolve().parents[2]
 
 TINY_CONFIG = {
-    "name": "tiny-clip-32", "source": "a CPU miniature of sd14-512", "preset": "tiny",
+    "name": "tiny-clip-32", "source": "a CPU miniature of sd14-512", "family": "latent_text",
+    "preset": "tiny",
     "dtype": "float32", "resolution": 32,
     "arch": {
         "unet": {"in_channels": 4, "out_channels": 4, "model_channels": 32,

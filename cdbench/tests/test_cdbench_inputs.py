@@ -37,9 +37,9 @@ def test_every_request_has_the_same_sizes():
 
 
 def test_weights_repeat_per_seed():
-    a = draw_state_dict(TINY_CONFIG["arch"], BIG, "cpu", torch.bfloat16)
-    b = draw_state_dict(TINY_CONFIG["arch"], BIG, "cpu", torch.bfloat16)
-    c = draw_state_dict(TINY_CONFIG["arch"], BIG + 1, "cpu", torch.bfloat16)
+    a = draw_state_dict(TINY_CONFIG, BIG, "cpu", torch.bfloat16)
+    b = draw_state_dict(TINY_CONFIG, BIG, "cpu", torch.bfloat16)
+    c = draw_state_dict(TINY_CONFIG, BIG + 1, "cpu", torch.bfloat16)
     assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
     assert not all(torch.equal(a[k], c[k]) for k in a)
     assert all(v.dtype == torch.bfloat16 for v in a.values())

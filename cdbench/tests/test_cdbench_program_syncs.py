@@ -14,7 +14,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from cdbench.reference.models import PARTS
+from cdbench.harness import part_names
 from cdbench.registry import Registry
 from cdbench.spans import Recorder
 from cdbench.weights import DTYPES, draw_state_dict
@@ -38,8 +38,7 @@ def test_every_sync_of_a_request_is_in_a_sync_span(tiny_root, card, cell, syncs)
     cfg, mix = reg.config(spec["config"]), reg.traffic(spec["traffic"])
     driver = reg.driver(mix["driver"])
     seed = 2 ** 32 + 11
-    sd = draw_state_dict(cfg["arch"], seed, card, DTYPES[cfg["dtype"]],
-                         getattr(driver, "PARTS", PARTS))
+    sd = draw_state_dict(cfg, seed, card, DTYPES[cfg["dtype"]], part_names(cfg, driver))
     program = driver.Program(cfg, mix, seed, sd, card, DTYPES[cfg["dtype"]], Recorder(card))
     del sd
     gc.collect()

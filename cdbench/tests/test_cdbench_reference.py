@@ -8,9 +8,9 @@ import json
 import pytest
 import torch
 
-from cdbench import harness, program
+from cdbench import harness
 from cdbench.drivers import edit, ensemble, guided
-from cdbench.reference.models import build_parts
+from cdbench.registry import family
 from cdbench.tests.conftest import (REPO, TINY_BERT, TINY_CONFIG, TINY_ENSEMBLE_MIX,
                                     TINY_GUIDED, TINY_GUIDED_MIX, TINY_MIX)
 from cdbench.weights import draw_state_dict
@@ -26,9 +26,9 @@ def rel(a, b):
 
 @pytest.mark.parametrize("cfg", [TINY_CONFIG, TINY_BERT], ids=["clip", "bert"])
 def test_modules_match_the_port(cfg):
-    sd = draw_state_dict(cfg["arch"], SEED, "cpu", torch.float32)
-    core = program.load_core(cfg, sd, "cpu", torch.float32)
-    parts = build_parts(cfg["arch"], "cpu")
+    sd = draw_state_dict(cfg, SEED, "cpu", torch.float32)
+    core = family(cfg, "cores").load_core(cfg, sd, "cpu", torch.float32)
+    parts = family(cfg, "reference").build_parts(cfg["arch"], "cpu")
     for prefix, m in parts.values():
         m.load_state_dict({k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)})
     unet, fs, cond = (parts[k][1] for k in ("unet", "first_stage", "cond"))
@@ -49,7 +49,7 @@ def test_spec_matches_the_presets():
     for name, preset in (("sd14-512", LatentCoreSpec.sd_v1()),
                          ("ldm-t2i-large-256", LatentCoreSpec.ldm_text2img_large())):
         cfg = json.loads((REPO / "cdbench" / "configs" / f"{name}.json").read_text())
-        assert program.core_spec(cfg) == preset
+        assert family(cfg, "cores").core_spec(cfg) == preset
         assert cfg["preset"] == preset.name
 
 
@@ -61,7 +61,7 @@ def test_control_fails_the_cells_limits(cfg, mix, cell):
     """The float8 control in the program's place, on the tiny request,
     reads above the cell's limits on at least one number."""
     driver = {"edit": edit, "guided": guided, "ensemble": ensemble}[mix["driver"]]
-    names = getattr(driver, "PARTS", None) or ("unet", "first_stage", "cond")
+    names = harness.part_names(cfg, driver)
     req = driver.make_request(cfg, mix, SEED, 0, "cpu")
     got = driver.reference_outputs(
         cfg, mix, harness.reference_parts(cfg, SEED, "cpu", names, control=True), req)

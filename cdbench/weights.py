@@ -1,8 +1,9 @@
 """Seeded weights for a configuration, drawn on the device under the
 published state-dict names, and the per-run seeds derived from ``--seed``.
 
-The names and shapes are the reference's (``reference.models.build_parts``
-on the meta device).  Each part's values come from one normal draw on the
+The names and shapes are the reference's: the ``build_parts`` of the
+configuration's model family (``reference/<family>.py``) on the meta
+device.  Each part's values come from one normal draw on the
 device in the served dtype, cut into the leaves in name order and scaled
 by this rule: a matrix or kernel by 1/sqrt(fan_in) (fan_in: the size of
 one output row), a 1-D weight (a norm's scale) as 1 + 0.1 z, a bias as
@@ -17,7 +18,7 @@ from typing import Dict
 
 import torch
 
-from cdbench.reference.models import PARTS, build_parts
+from cdbench.registry import family
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
 
@@ -29,13 +30,16 @@ def derive_seed(seed: int, *labels) -> int:
 
 
 @torch.no_grad()
-def draw_state_dict(arch: dict, seed: int, device, dtype: torch.dtype,
-                    parts=PARTS) -> Dict[str, torch.Tensor]:
-    """The weights of the configuration's ``parts``, published names ->
-    tensors on ``device`` in ``dtype``; the same ``seed`` gives the same
-    values, each part drawn apart from the others."""
+def draw_state_dict(cfg: dict, seed: int, device, dtype: torch.dtype,
+                    parts=None) -> Dict[str, torch.Tensor]:
+    """The weights of the configuration's ``parts`` (by default its
+    family's ``PARTS``), published names -> tensors on ``device`` in
+    ``dtype``; the same ``seed`` gives the same values, each part drawn
+    apart from the others."""
+    ref = family(cfg, "reference")
     out = {}
-    for part, (prefix, module) in build_parts(arch, "meta", parts).items():
+    for part, (prefix, module) in ref.build_parts(cfg["arch"], "meta",
+                                                  parts or ref.PARTS).items():
         leaves = list(module.named_parameters())
         total = sum(p.numel() for _, p in leaves)
         gen = torch.Generator(device=device).manual_seed(derive_seed(seed, "weights", part))
