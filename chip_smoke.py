@@ -21,7 +21,8 @@ Phases (each prints its results; any failure exits non-zero):
    inputs, at the main-path shapes in bf16 (and K2 at the encode chain's
    batch 2, K1 at LDM text2img-large's 32x32 level, d = 40, and at the
    FFHQ/CelebA LDM's, d = 32 over 14 heads, head views of token-major
-   tensors, also in fp32), at ragged
+   tensors, also in fp32; K1 and K2 at SDXL base's 1024 px levels, the
+   CFG pair at d = 64: 20 heads over 1,024 tokens, 10 over 4,096), at ragged
    shapes (K1/K2 at every supported head dim, in bf16 and fp32, the
    sequence lengths off the kernel's 128-row tiles, one key axis shorter
    than a tile; K3/K4 off the tiles in bf16), and in fp32 with TF32 off;
@@ -671,6 +672,9 @@ def phase_kernels(torch, fa):
         ("flash_attention_packed", "encode chain", bf16, (2, 4096, 4096, 8, 40)),
         ("flash_attention_bhtd", "ldm 32x32", bf16, (4, 8, 1024, 1024, 40)),
         ("flash_attention_bhtd", "ffhq 32x32", bf16, (3, 14, 1024, 1024, 32)),
+        # SDXL base at 1024 px, the CFG pair: 20 heads of 64 at 32x32, 10 at 64x64
+        ("flash_attention_bhtd", "sdxl 32x32", bf16, (2, 20, 1024, 1024, 64)),
+        ("flash_attention_packed", "sdxl 64x64", bf16, (2, 4096, 4096, 10, 64)),
         *[(name, "ragged", dtype, shp) for dtype in (bf16, f32) for name, shp in ragged_flash],
         ("qout_self_attention_block", "ragged", bf16, (2, 300, 200, 256, 4)),
         ("fused_self_attention_block", "ragged", bf16, (2, 300, 256, 4)),

@@ -35,6 +35,16 @@ alternate attention and feed-forward: ``attn_layers.layers.{2j}.{0,1}`` ->
 ``ff_norm.j``, its ``1.net.0.0`` -> ``ff_in.j`` and ``1.net.2`` ->
 ``ff_out.j``; ``pos_emb.emb.weight`` -> ``pos_emb``; the unused
 ``to_logits`` head is skipped.
+
+SDXL's checkpoint (generative-models' ``DiffusionEngine``, e.g.
+``sd_xl_base_1.0``) holds the UNet and the first stage under the same
+prefixes and its two text towers under ``conditioner.``:
+``embedders.0.transformer.text_model.*`` (HF's CLIP ViT-L/14, mapped as
+SD's tower under ``clip_l.``) and ``embedders.1.model.*`` (OpenCLIP
+ViT-bigG/14's text tower, whose names the port's ``OpenCLIPTextEncoder``
+carries under ``open_clip.``; its ``logit_scale`` is no weight of the
+core).  The UNet's ``label_emb.0.0`` / ``label_emb.0.2`` and its linear
+``proj_in`` / ``proj_out`` map as they are.
 A key that maps to no parameter, a parameter that no key sets, or a shape
 that disagrees raises, naming the key.  Values are cast to the module's
 dtype as they are copied into it.
@@ -51,6 +61,7 @@ from torch import nn
 UNET_PREFIX = "model.diffusion_model."
 FIRST_STAGE_PREFIX = "first_stage_model."
 COND_PREFIX = "cond_stage_model."
+CONDITIONER_PREFIX = "conditioner."
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -87,15 +98,18 @@ def select_ema_weights(sd: StateDict, prefix: str = UNET_PREFIX) -> StateDict:
     return out
 
 
-def split_latent_diffusion_state(sd: StateDict, use_ema: bool = False):
-    """-> (unet, first stage, cond stage) state dicts, prefixes stripped."""
+def split_latent_diffusion_state(sd: StateDict, use_ema: bool = False,
+                                 cond_prefix: str = COND_PREFIX):
+    """-> (unet, first stage, cond stage) state dicts, prefixes stripped;
+    the cond stage is under ``cond_prefix`` (``CONDITIONER_PREFIX`` for
+    SDXL)."""
     if use_ema:
         sd = select_ema_weights(sd)
 
     def sub(prefix):
         return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
-    return sub(UNET_PREFIX), sub(FIRST_STAGE_PREFIX), sub(COND_PREFIX)
+    return sub(UNET_PREFIX), sub(FIRST_STAGE_PREFIX), sub(cond_prefix)
 
 
 def _to_module(sd: StateDict, module: nn.Module, rename, label: str,
@@ -200,3 +214,24 @@ def ldm_bert_name(key: str):
 def convert_ldm_bert(cond_sd: StateDict, module: nn.Module) -> StateDict:
     """The cond stage's x-transformer weights -> the port's LDMBertEncoder."""
     return _to_module(cond_sd, module, ldm_bert_name, "ldm-bert", COND_PREFIX)
+
+
+_SDXL_TOWERS = (("embedders.0.transformer.", "clip_l.", clip_text_name),
+                ("embedders.1.model.", "open_clip.", lambda k: None if k == "logit_scale" else k))
+
+
+def sdxl_conditioner_name(key: str):
+    """A key under SDXL's ``conditioner.`` -> the port's ``SDXLConditioner``
+    name (None for OpenCLIP's ``logit_scale`` and HF's ``position_ids``);
+    an unknown key maps to itself, which no parameter has."""
+    for prefix, port, rename in _SDXL_TOWERS:
+        if key.startswith(prefix):
+            name = rename(key[len(prefix):])
+            return None if name is None else port + name
+    return key
+
+
+def convert_sdxl_conditioner(cond_sd: StateDict, module: nn.Module) -> StateDict:
+    """SDXL's ``conditioner.*`` text towers -> the port's SDXLConditioner."""
+    return _to_module(cond_sd, module, sdxl_conditioner_name, "sdxl-conditioner",
+                      CONDITIONER_PREFIX)

@@ -5,7 +5,13 @@ the folded self-attention kernels K3/K4 when ``folded_attn`` asks for them).
 ``CrossAttention``: bias-free q/k/v, 1/sqrt(d) scale, biased output
 projection.  ``BasicTransformerBlock``: pre-LayerNorm self-attention ->
 cross-attention -> GEGLU feed-forward, each residual.  ``SpatialTransformer``:
-GroupNorm -> 1x1 in -> blocks over (h w) tokens -> 1x1 out, residual.
+GroupNorm -> 1x1 in -> blocks over (h w) tokens -> 1x1 out, residual;
+``LinearSpatialTransformer`` (SDXL's ``use_linear_in_transformer``):
+GroupNorm -> tokens -> linear in -> blocks -> linear out -> back, residual.
+
+The GEGLU's GELU is the tanh form (``geglu_approximate="tanh"``: SD v1 and
+LDM, as the JAX package computes it) or the exact erf form (``"none"``:
+SDXL, as generative-models' ``sgm/modules/attention.py``).
 """
 
 from __future__ import annotations
@@ -64,23 +70,24 @@ class CrossAttention(nn.Module):
 
 
 class GEGLU(nn.Module):
-    def __init__(self, dim_in: int, dim_out: int):
+    def __init__(self, dim_in: int, dim_out: int, approximate: str = "tanh"):
         super().__init__()
         self.proj = nn.Linear(dim_in, dim_out * 2)
+        # jax.nn.gelu defaults to the tanh approximation
+        self.approximate = approximate
 
     def forward(self, x):
         h, gate = self.proj(x).chunk(2, dim=-1)
-        # jax.nn.gelu defaults to the tanh approximation
-        return h * F.gelu(gate, approximate="tanh")
+        return h * F.gelu(gate, approximate=self.approximate)
 
 
 class FeedForward(nn.Module):
     """GEGLU feed-forward with 4x expansion (``net.1`` is the reference's
     dropout slot)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, geglu_approximate: str = "tanh"):
         super().__init__()
-        self.net = nn.Sequential(GEGLU(dim, dim * 4), nn.Identity(),
+        self.net = nn.Sequential(GEGLU(dim, dim * 4, geglu_approximate), nn.Identity(),
                                  nn.Linear(dim * 4, dim))
 
     def forward(self, x):
@@ -89,10 +96,11 @@ class FeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int,
-                 context_dim: Optional[int] = None, folded_attn: Optional[str] = None):
+                 context_dim: Optional[int] = None, folded_attn: Optional[str] = None,
+                 geglu_approximate: str = "tanh"):
         super().__init__()
         self.attn1 = CrossAttention(dim, heads, dim_head, folded_attn=folded_attn)
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, geglu_approximate)
         self.attn2 = CrossAttention(dim, heads, dim_head, context_dim)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
@@ -111,15 +119,20 @@ class SpatialTransformer(nn.Module):
 
     def __init__(self, in_channels: int, heads: int, dim_head: int,
                  depth: int = 1, context_dim: Optional[int] = None,
-                 folded_attn: Optional[str] = None):
+                 folded_attn: Optional[str] = None, geglu_approximate: str = "tanh"):
         super().__init__()
         inner = heads * dim_head
         self.norm = GroupNorm(32, in_channels, 1e-6)
-        self.proj_in = nn.Conv2d(in_channels, inner, 1)
+        self.proj_in = self._projection(in_channels, inner)
         self.transformer_blocks = nn.ModuleList(
-            BasicTransformerBlock(inner, heads, dim_head, context_dim, folded_attn)
+            BasicTransformerBlock(inner, heads, dim_head, context_dim, folded_attn,
+                                  geglu_approximate)
             for _ in range(depth))
-        self.proj_out = nn.Conv2d(inner, in_channels, 1)
+        self.proj_out = self._projection(inner, in_channels)
+
+    @staticmethod
+    def _projection(cin: int, cout: int) -> nn.Module:
+        return nn.Conv2d(cin, cout, 1)
 
     def forward(self, x, context=None):
         h, w = x.shape[2:]
@@ -129,3 +142,20 @@ class SpatialTransformer(nn.Module):
             hidden = block(hidden, context=context)
         hidden = hidden.transpose(1, 2).unflatten(2, (h, w))
         return x + self.proj_out(hidden)
+
+
+class LinearSpatialTransformer(SpatialTransformer):
+    """:class:`SpatialTransformer` with linear ``proj_in`` / ``proj_out``
+    (generative-models' ``use_linear``: SDXL), applied to the token-major
+    view of the normalised input and of the blocks' output."""
+
+    @staticmethod
+    def _projection(cin: int, cout: int) -> nn.Module:
+        return nn.Linear(cin, cout)
+
+    def forward(self, x, context=None):
+        h, w = x.shape[2:]
+        hidden = self.proj_in(self.norm(x).flatten(2).transpose(1, 2))
+        for block in self.transformer_blocks:
+            hidden = block(hidden, context=context)
+        return x + self.proj_out(hidden).transpose(1, 2).unflatten(2, (h, w))

@@ -10,7 +10,15 @@ unconditional FFHQ/CelebA-HQ LDM, ``ldm_ffhq256``; no context).
 timestep by scale and shift, ``resblock_updown`` resamples inside ResBlocks
 in place of the conv ``GDDownsample`` / ``GDUpsample`` layers, and
 ``num_classes`` adds the class-label embedding (``y``; the AFHQ preset is
-``afhq256``).  The reference's stateful
+``afhq256``), or with ``"sequential"`` SDXL's vector conditioning
+(``adm_in_channels`` -> Linear -> SiLU -> Linear, ``label_emb.0.0`` /
+``label_emb.0.2``; ``y`` the (B, adm_in_channels) vector), added to the
+timestep embedding.  ``transformer_depth`` is one depth or one per level
+(SDXL's ``[1, 2, 10]``; the middle block takes the last level's, as
+generative-models' default), ``use_linear_in_transformer`` makes the
+spatial transformers' projections linear, and ``geglu_approximate`` is their
+GEGLU's GELU form (``"tanh"``, or ``"none"`` for the exact one).  The
+reference's stateful
 head-count selection (``num_heads`` reassigned inside the layer loop when
 ``num_head_channels`` is set) is kept in :func:`_attn_layout`, and the
 output blocks' attention blocks take ``num_heads_upsample`` (by default the
@@ -22,7 +30,7 @@ Module names mirror the reference (``input_blocks.3.0.in_layers.2``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -36,7 +44,10 @@ from cyclediffusion_tpu_torch.models.nn import (
     nearest_upsample_2x,
     nhwc_to_nchw,
 )
-from cyclediffusion_tpu_torch.models.transformer import SpatialTransformer
+from cyclediffusion_tpu_torch.models.transformer import (
+    LinearSpatialTransformer,
+    SpatialTransformer,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,16 +58,25 @@ class GDUNetConfig:
     num_res_blocks: int = 2
     attention_resolutions: Tuple[int, ...] = (16,)  # downsample factors (ds)
     channel_mult: Tuple[float, ...] = (1, 2, 4, 8)
-    num_classes: Optional[int] = None
+    num_classes: Optional[Union[int, str]] = None   # a label count, or "sequential"
+    adm_in_channels: Optional[int] = None           # the vector's width ("sequential")
     num_heads: int = -1
     num_head_channels: int = -1
     num_heads_upsample: int = -1
     use_scale_shift_norm: bool = False
     resblock_updown: bool = False
     use_spatial_transformer: bool = False
-    transformer_depth: int = 1
+    transformer_depth: Union[int, Tuple[int, ...]] = 1   # one, or one per level
+    use_linear_in_transformer: bool = False
+    geglu_approximate: str = "tanh"
     context_dim: Optional[int] = None
     legacy: bool = True
+
+    def depth_at(self, level: int) -> int:
+        """The spatial transformers' depth at ``level`` of ``channel_mult``
+        (the middle block's is the last level's)."""
+        d = self.transformer_depth
+        return d if isinstance(d, int) else d[level]
 
     @staticmethod
     def afhq256() -> "GDUNetConfig":
@@ -85,6 +105,21 @@ class GDUNetConfig:
         return dataclasses.replace(GDUNetConfig.sd_v1(), context_dim=1280)
 
     @staticmethod
+    def sdxl_base() -> "GDUNetConfig":
+        """SDXL base 1.0's UNet (generative-models
+        ``configs/inference/sd_xl_base.yaml``): attention at ds 2 and 4,
+        depths 2 and 10 (10 in the middle), heads of 64 channels, linear
+        projections, exact GELU, a 2048-d context and a 2816-d vector."""
+        return GDUNetConfig(
+            in_channels=4, model_channels=320, out_channels=4, num_res_blocks=2,
+            attention_resolutions=(4, 2), channel_mult=(1, 2, 4),
+            num_classes="sequential", adm_in_channels=2816, num_head_channels=64,
+            use_spatial_transformer=True, transformer_depth=(1, 2, 10),
+            use_linear_in_transformer=True, geglu_approximate="none", context_dim=2048,
+            legacy=False,
+        )
+
+    @staticmethod
     def ldm_ffhq256() -> "GDUNetConfig":
         """Unconditional FFHQ/CelebA-HQ latent UNet (ffhq-ldm-vq-4.yaml)."""
         return GDUNetConfig(
@@ -92,6 +127,17 @@ class GDUNetConfig:
             attention_resolutions=(8, 4, 2), channel_mult=(1, 2, 3, 4),
             num_head_channels=32,
         )
+
+    @staticmethod
+    def tiny_sdxl(context_dim: int, adm_in_channels: int) -> "GDUNetConfig":
+        """The CPU-runnable miniature of :meth:`sdxl_base`'s shape: three
+        levels, attention at ds 2 and 4 with depths 2 and 3 (3 in the
+        middle), heads of 8 channels, linear projections, exact GELU and
+        the vector conditioning."""
+        return dataclasses.replace(
+            GDUNetConfig.sdxl_base(), model_channels=32, num_res_blocks=1,
+            num_head_channels=8, transformer_depth=(1, 2, 3), context_dim=context_dim,
+            adm_in_channels=adm_in_channels)
 
     @staticmethod
     def tiny(context_dim: Optional[int] = 24) -> "GDUNetConfig":
@@ -198,9 +244,10 @@ def _apply_layers(layers, h, emb, context):
 
 class GDUNet(nn.Module):
     """``forward(x (B,H,W,C) NHWC, t (B,), context (B,T,ctx) or None, y=
-    (B,) class labels or None)`` -> the model output NHWC (eps, or eps and
-    the variance values for a 2C ``out_channels``); the context only with
-    spatial transformers, the labels exactly when ``num_classes`` is set.
+    (B,) class labels, (B, adm_in_channels) vectors or None)`` -> the model
+    output NHWC (eps, or eps and the variance values for a 2C
+    ``out_channels``); the context only with spatial transformers, ``y``
+    exactly when ``num_classes`` is set.
 
     ``folded_attn`` (``None``, ``"qo"`` or ``"1"``) goes to every spatial
     transformer's self-attention (see ``transformer.CrossAttention``).
@@ -225,7 +272,11 @@ class GDUNet(nn.Module):
         emb_dim = mc * 4
         self.time_embed = nn.Sequential(
             nn.Linear(mc, emb_dim), nn.SiLU(), nn.Linear(emb_dim, emb_dim))
-        if cfg.num_classes is not None:
+        if cfg.num_classes == "sequential":
+            self.label_emb = nn.Sequential(nn.Sequential(
+                nn.Linear(cfg.adm_in_channels, emb_dim), nn.SiLU(),
+                nn.Linear(emb_dim, emb_dim)))
+        elif cfg.num_classes is not None:
             self.label_emb = nn.Embedding(cfg.num_classes, emb_dim)
 
         def resblock(cin, cout, **updown):
@@ -238,16 +289,18 @@ class GDUNet(nn.Module):
         heads_upsample = (cfg.num_heads_upsample if cfg.num_heads_upsample != -1
                           else cfg.num_heads)
 
-        def make_attn(ch, upsample=False):
+        transformer = (LinearSpatialTransformer if cfg.use_linear_in_transformer
+                       else SpatialTransformer)
+
+        def make_attn(ch, depth, upsample=False):
             nonlocal num_heads
             num_heads, dim_head = _attn_layout(cfg, ch, num_heads)
             if not cfg.use_spatial_transformer:
                 return GDAttentionBlock(ch, heads_upsample if upsample else num_heads,
                                         dim_head)
-            return SpatialTransformer(ch, num_heads, dim_head,
-                                      depth=cfg.transformer_depth,
-                                      context_dim=cfg.context_dim,
-                                      folded_attn=folded_attn)
+            return transformer(ch, num_heads, dim_head, depth=depth,
+                               context_dim=cfg.context_dim, folded_attn=folded_attn,
+                               geglu_approximate=cfg.geglu_approximate)
 
         ch = int(cfg.channel_mult[0] * mc)
         self.input_blocks = nn.ModuleList(
@@ -260,7 +313,7 @@ class GDUNet(nn.Module):
                 layers = [resblock(ch, out)]
                 ch = out
                 if ds in cfg.attention_resolutions:
-                    layers.append(make_attn(ch))
+                    layers.append(make_attn(ch, cfg.depth_at(level)))
                 self.input_blocks.append(nn.ModuleList(layers))
                 input_chans.append(ch)
             if level != len(cfg.channel_mult) - 1:
@@ -271,7 +324,8 @@ class GDUNet(nn.Module):
                 ds *= 2
 
         self.middle_block = nn.ModuleList(
-            [resblock(ch, ch), make_attn(ch), resblock(ch, ch)])
+            [resblock(ch, ch), make_attn(ch, cfg.depth_at(len(cfg.channel_mult) - 1)),
+             resblock(ch, ch)])
 
         self.output_blocks = nn.ModuleList()
         for level, mult in list(enumerate(cfg.channel_mult))[::-1]:
@@ -280,7 +334,7 @@ class GDUNet(nn.Module):
                 layers = [resblock(ch + input_chans.pop(), out)]
                 ch = out
                 if ds in cfg.attention_resolutions:
-                    layers.append(make_attn(ch, upsample=True))
+                    layers.append(make_attn(ch, cfg.depth_at(level), upsample=True))
                 if level and i == cfg.num_res_blocks:
                     layers.append(resblock(ch, ch, up=True) if cfg.resblock_updown
                                   else GDUpsample(ch, ch))

@@ -9,6 +9,11 @@ exact for 0 and 1 too.  :func:`cfg_model_fn_pair` is the same for the
 encoder-caching fast mode.  The dual batch and the combine are
 ``sampler.cfg_dual`` and ``sampler.cfg_combine`` spans
 (``runtime.profiling``).
+
+A conditioning is one tensor (SD v1's and LDM's text context) or a dict of
+tensors whose rows are the batch's (SDXL's ``{"context", "vector"}``):
+:func:`cat_rows` and :func:`repeat_rows` handle it leaf by leaf, and on a
+plain tensor are the one ``torch.cat`` or ``repeat`` they stand for.
 """
 
 from __future__ import annotations
@@ -21,6 +26,24 @@ from cyclediffusion_tpu_torch.runtime import profiling
 
 # model_fn(x, t, cond) -> eps
 ModelFn = Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
+
+
+def map_rows(fn: Callable, *conds):
+    """``fn`` over the matching tensors of conditionings of one structure."""
+    first = conds[0]
+    if isinstance(first, dict):
+        return {k: map_rows(fn, *(c[k] for c in conds)) for k in first}
+    return fn(*conds)
+
+
+def cat_rows(a, b):
+    """The rows of conditioning ``a`` then those of ``b``."""
+    return map_rows(lambda u, v: torch.cat([u, v], dim=0), a, b)
+
+
+def repeat_rows(cond, k: int):
+    """The whole batch of a conditioning ``k`` times over."""
+    return map_rows(lambda u: u.repeat(k, *(1,) * (u.dim() - 1)), cond)
 
 
 def _is_static(scale) -> bool:
@@ -37,7 +60,7 @@ def dual_batch_inputs(x, t):
 def make_cfg_combine(uncond, cond, scale):
     """-> (c_in, combine): the [uncond; cond] context batch and the guidance
     combine ``e_uc + scale * (e_c - e_uc)`` over a dual-batch output."""
-    c_in = torch.cat([uncond, cond], dim=0)
+    c_in = cat_rows(uncond, cond)
 
     def combine(out):
         with (profiling.span("sampler.cfg_combine") as s,

@@ -3,9 +3,10 @@ of ``cyclediffusion_tpu.pipelines.factory``).
 
 ``source_*`` keys feed the source wrapper and ``target_*`` keys are renamed
 to ``source_*`` when ``target=True``; ``gan_type`` picks what is built.  This
-port builds the two text gan_types, ``SDStochasticText`` (CLIP-conditioned)
-and ``LatentDiffStochasticText`` (LDM-BERT-conditioned), and the
-unconditional ``LatentDiffStochastic`` (unpaired translation):
+port builds the text gan_types, ``SDStochasticText`` (CLIP-conditioned),
+``LatentDiffStochasticText`` (LDM-BERT-conditioned) and the port's own
+``SDXLStochasticText`` (SDXL base's two towers), and the unconditional
+``LatentDiffStochastic`` (unpaired translation):
 
 * ``source_model_type = tiny*``: the CPU-runnable miniature of that
   conditioning with seeded random weights (``source_init_seed``), the hashed
@@ -17,8 +18,11 @@ unconditional ``LatentDiffStochastic`` (unpaired translation):
   BPE merges file that ``CYCLEDIFFUSION_CLIP_BPE`` names; LDM text2img-large
   (``text2img-large``, the only LDM text model) from
   ``ckpts/ldm_models/text2img-large/model.ckpt``, tokenised with the
-  WordPiece ``vocab.txt`` that ``CYCLEDIFFUSION_BERT_VOCAB`` names.  A
-  missing file raises.  The scorer is the shared one from
+  WordPiece ``vocab.txt`` that ``CYCLEDIFFUSION_BERT_VOCAB`` names; SDXL
+  base (``LatentCoreSpec.sdxl_base``) from
+  ``ckpts/stable_diffusion_xl/<source_model_type>`` (a torch-saved state
+  dict under generative-models' names), both towers reading the ids of the
+  CLIP BPE tokenizer.  A missing file raises.  The scorer is the shared one from
   ``runtime.context`` (``CYCLEDIFFUSION_CLIP_CKPT``, or one a caller
   installed); without it the pipeline is built and its ranking raises.
 
@@ -61,6 +65,7 @@ from cyclediffusion_tpu_torch.pipelines.latent_text import (
     StochasticTextPipeline,
     latentdiff_stochastic_text_pipeline,
     sd_stochastic_text_pipeline,
+    sdxl_stochastic_text_pipeline,
 )
 from cyclediffusion_tpu_torch.pipelines.zoo import PIXEL_ZOO, tiny_pixel_spec
 from cyclediffusion_tpu_torch.runtime import context
@@ -72,7 +77,11 @@ FOLDED_ATTN_ENV = "CYCLEDIFFUSION_FOLDED_ATTN"
 _TEXT_GAN_TYPES = {
     "SDStochasticText": ("clip", sd_stochastic_text_pipeline),
     "LatentDiffStochasticText": ("bert", latentdiff_stochastic_text_pipeline),
+    "SDXLStochasticText": ("sdxl", sdxl_stochastic_text_pipeline),
 }
+# the published text models by conditioning: (spec, checkpoint directory)
+_TEXT_MODELS = {"clip": (LatentCoreSpec.sd_v1, ("ckpts", "stable_diffusion")),
+                "sdxl": (LatentCoreSpec.sdxl_base, ("ckpts", "stable_diffusion_xl"))}
 LDM_TEXT_MODEL = "text2img-large"
 # LatentDiffStochastic's published models, loaded with their EMA weights
 LATENT_MODELS = {"ffhq256": LatentCoreSpec.ldm_ffhq256,
@@ -113,7 +122,7 @@ def _resolve_ckpt(path: str) -> str:
 
 def _tokenizer(cond_kind: str):
     """The published model's tokenizer, from the file its variable names."""
-    if cond_kind == "clip":
+    if cond_kind in ("clip", "sdxl"):
         bpe = os.environ.get("CYCLEDIFFUSION_CLIP_BPE")
         if not bpe:
             raise FileNotFoundError("SD text pipelines need the CLIP BPE merges file: set "
@@ -128,8 +137,9 @@ def _tokenizer(cond_kind: str):
 
 def _published(cond_kind: str, model_type: str):
     """-> (spec, checkpoint path under the checkpoint root)."""
-    if cond_kind == "clip":
-        return LatentCoreSpec.sd_v1(), os.path.join("ckpts", "stable_diffusion", model_type)
+    if cond_kind in _TEXT_MODELS:
+        spec, directory = _TEXT_MODELS[cond_kind]
+        return spec(), os.path.join(*directory, model_type)
     if model_type != LDM_TEXT_MODEL:
         raise ValueError(f"unknown LDM text model {model_type!r}: the port has "
                          f"{LDM_TEXT_MODEL!r}")

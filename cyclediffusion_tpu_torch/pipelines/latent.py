@@ -1,8 +1,16 @@
 """LatentDiffusion core: UNet + first stage (KL or VQ) + optional text
-conditioning, CLIP (SD v1) or LDM-BERT (LDM text2img-large), and the
-unconditional stochastic latent pipeline of unpaired translation (FFHQ ->
-CelebA-HQ) (counterpart of ``LatentCoreSpec``, ``LatentDiffusionCore`` and
-``LatentDiffStochasticPipeline`` in ``cyclediffusion_tpu.pipelines.latent``).
+conditioning, CLIP (SD v1), LDM-BERT (LDM text2img-large) or SDXL's two
+towers and vector, and the unconditional stochastic latent pipeline of
+unpaired translation (FFHQ -> CelebA-HQ) (counterpart of ``LatentCoreSpec``,
+``LatentDiffusionCore`` and ``LatentDiffStochasticPipeline`` in
+``cyclediffusion_tpu.pipelines.latent``; SDXL is the port's own).
+
+SDXL's conditioning is a dict ``{"context": (B, T, 2048), "vector": (B,
+2816)}``: the UNet takes the context as its cross-attention input and the
+vector as ``y``.  Its unconditional branch is zeros in the context and the
+pooled part of the vector, the size embeddings kept, as generative-models
+(``force_uc_zero_embeddings``) and diffusers (``force_zeros_for_empty_prompt``)
+make it: no prompt is encoded for it.
 
 The modules run in the core's dtype (bf16 on the card); the sampler around
 them stays fp32: :meth:`LatentDiffusionCore.apply_model` casts the latent
@@ -35,6 +43,9 @@ from cyclediffusion_tpu_torch.models.text_encoders import (
     CLIPTextEncoder,
     LDMBertConfig,
     LDMBertEncoder,
+    OpenCLIPTextConfig,
+    SDXLConditioner,
+    SDXLConditionerConfig,
 )
 from cyclediffusion_tpu_torch.models.unet_gd import GDUNet, GDUNetConfig
 from cyclediffusion_tpu_torch.ops import schedule
@@ -54,7 +65,7 @@ from cyclediffusion_tpu_torch.samplers import (
 class LatentCoreSpec:
     """One latent diffusion model: UNet + first stage (``fs_kind`` ``"kl"``
     or ``"vq"``) + optional conditioning (``cond_kind`` ``"clip"``,
-    ``"bert"`` or None)."""
+    ``"bert"``, ``"sdxl"`` or None)."""
 
     name: str
     unet: GDUNetConfig
@@ -67,7 +78,7 @@ class LatentCoreSpec:
     num_timesteps: int = 1000
     n_embed: int = 8192            # vq codebook size
     cond_kind: Optional[str] = None
-    cond_cfg: Optional[object] = None   # CLIPTextConfig or LDMBertConfig
+    cond_cfg: Optional[object] = None   # CLIPTextConfig, LDMBertConfig, SDXLConditionerConfig
     resolution: int = 256          # pixel-space resolution
 
     @property
@@ -97,6 +108,18 @@ class LatentCoreSpec:
             scale_factor=0.18215, linear_start=0.00085, linear_end=0.012,
             cond_kind="bert", cond_cfg=LDMBertConfig.text2img_large(),
             resolution=256,
+        )
+
+    @staticmethod
+    def sdxl_base() -> "LatentCoreSpec":
+        """SDXL base 1.0 at 1024 px (generative-models
+        ``configs/inference/sd_xl_base.yaml``): eps on SD's discrete
+        schedule, KL-f8 at scale 0.13025, two text towers and a vector."""
+        return LatentCoreSpec(
+            name="sdxl_base", unet=GDUNetConfig.sdxl_base(), first_stage=DDConfig.sd_f8(),
+            fs_kind="kl", embed_dim=4, scale_factor=0.13025,
+            linear_start=0.00085, linear_end=0.012,
+            cond_kind="sdxl", cond_cfg=SDXLConditionerConfig.sdxl_base(), resolution=1024,
         )
 
     @staticmethod
@@ -179,8 +202,21 @@ class LatentCoreSpec:
         """CPU-runnable miniature — the JAX package's ``LatentCoreSpec.tiny``:
         text-conditioned (``cond_kind``) or, with None, the unconditional
         UNet's attention blocks; ``fs_kind="vq"`` miniaturises the
-        FFHQ/CelebA first stage (single z, codebook of 64, scale 1)."""
-        if cond_kind == "clip":
+        FFHQ/CelebA first stage (single z, codebook of 64, scale 1).
+        ``"sdxl"`` (the port's own) is SDXL base's shape: two towers, a
+        vector, depth by level, linear projections, exact GELU."""
+        unet = GDUNetConfig.tiny(context_dim=None if cond_kind is None else 24)
+        if cond_kind == "sdxl":
+            cond_cfg = SDXLConditionerConfig(
+                clip=CLIPTextConfig(vocab_size=96, hidden_size=16, num_layers=3, num_heads=2,
+                                    max_positions=16, intermediate_size=32),
+                clip_layer=2,
+                open_clip=OpenCLIPTextConfig(vocab_size=96, width=24, layers=3, heads=4,
+                                             mlp=48, context_length=16, embed_dim=16),
+                size_embed_dim=8,
+                micro_conditioning=(resolution, resolution, 0, 0, resolution, resolution))
+            unet = GDUNetConfig.tiny_sdxl(cond_cfg.context_dim, cond_cfg.vector_dim)
+        elif cond_kind == "clip":
             cond_cfg = CLIPTextConfig(vocab_size=96, hidden_size=24, num_layers=2,
                                       num_heads=4, max_positions=16, intermediate_size=48)
         elif cond_kind == "bert":
@@ -189,12 +225,12 @@ class LatentCoreSpec:
         elif cond_kind is None:
             cond_cfg = None
         else:
-            raise ValueError(f"cond_kind={cond_kind!r} is not 'clip', 'bert' or None")
+            raise ValueError(f"cond_kind={cond_kind!r} is not 'clip', 'bert', 'sdxl' or None")
         if fs_kind not in ("kl", "vq"):
             raise ValueError(f"fs_kind={fs_kind!r} is not 'kl' or 'vq'")
         return LatentCoreSpec(
             name=f"tiny_latent_{cond_kind}_{fs_kind}",
-            unet=GDUNetConfig.tiny(context_dim=None if cond_kind is None else 24),
+            unet=unet,
             first_stage=DDConfig(ch=16, ch_mult=(1, 2, 4), num_res_blocks=1,
                                  resolution=resolution, z_channels=4,
                                  double_z=fs_kind == "kl", attn_resolutions=()),
@@ -210,20 +246,28 @@ class LatentCoreSpec:
         cfg = self.cond_cfg
         if self.cond_kind is None:
             return None
+        if self.cond_kind == "sdxl":
+            return cfg.clip.max_positions
         return cfg.max_positions if self.cond_kind == "clip" else cfg.max_seq_len
 
 
-def _ctx(context, dtype):
-    return None if context is None else context.to(dtype)
+def _ctx(context, dtype) -> tuple:
+    """(context, UNet keywords) in ``dtype``: SDXL's dict gives its vector
+    as ``y``."""
+    if isinstance(context, dict):
+        return context["context"].to(dtype), {"y": context["vector"].to(dtype)}
+    return (None if context is None else context.to(dtype)), {}
 
 
 def _unet_eps(unet, dtype, x, t, context):
-    return unet(x.to(dtype), t, _ctx(context, dtype)).float()
+    ctx, kw = _ctx(context, dtype)
+    return unet(x.to(dtype), t, ctx, **kw).float()
 
 
 def _unet_cached(unet, dtype, x, t, context, encoder_cache):
-    eps, cache = unet(x.to(dtype), t, _ctx(context, dtype), encoder_cache=encoder_cache,
-                      return_cache=True)
+    ctx, kw = _ctx(context, dtype)
+    eps, cache = unet(x.to(dtype), t, ctx, encoder_cache=encoder_cache,
+                      return_cache=True, **kw)
     return eps.float(), cache
 
 
@@ -278,8 +322,8 @@ class LatentDiffusionCore:
                 else VQModel(spec.first_stage, spec.n_embed, spec.embed_dim))
             self.cond_model = None
             if spec.cond_kind is not None:
-                self.cond_model = {"clip": CLIPTextEncoder,
-                                   "bert": LDMBertEncoder}[spec.cond_kind](spec.cond_cfg)
+                self.cond_model = {"clip": CLIPTextEncoder, "bert": LDMBertEncoder,
+                                   "sdxl": SDXLConditioner}[spec.cond_kind](spec.cond_cfg)
         for m in self.modules():
             m.to(dtype=dtype).eval().requires_grad_(False)
         # the UNet's, the first stage's and the text encoder's calls as CUDA
@@ -354,24 +398,34 @@ class LatentDiffusionCore:
                         use_ema: bool = False) -> "LatentDiffusionCore":
         """Weights from a CompVis ``LatentDiffusion`` checkpoint (SD v1's
         ``sd-v1-4.ckpt``, LDM text2img-large's or the FFHQ/CelebA LDMs'
-        ``model.ckpt`` layout, see ``convert.from_torch``); ``use_ema``
-        takes the UNet's LitEma shadows.  Raises on a missing file, an
-        unmapped or missing key, or a shape mismatch."""
+        ``model.ckpt`` layout) or generative-models' ``DiffusionEngine``
+        (SDXL's), see ``convert.from_torch``; ``use_ema`` takes the UNet's
+        LitEma shadows.  Raises on a missing file, an unmapped or missing
+        key, or a shape mismatch."""
         core = cls(spec, device, dtype, folded_attn)
-        sd = from_torch.load_torch_state_dict(path)
-        unet_sd, fs_sd, cond_sd = from_torch.split_latent_diffusion_state(sd, use_ema)
-        parts = [(core.unet, from_torch.convert_gd_unet, unet_sd),
-                 (core.first_stage, from_torch.convert_vae, fs_sd)]
-        if core.cond_model is not None:
-            parts.append((core.cond_model, {"clip": from_torch.convert_clip_text,
-                                            "bert": from_torch.convert_ldm_bert}[spec.cond_kind],
-                          cond_sd))
+        core.load_torch_state_dict(from_torch.load_torch_state_dict(path), use_ema)
+        return core
+
+    @torch.no_grad()
+    def load_torch_state_dict(self, sd: dict, use_ema: bool = False) -> None:
+        """A checkpoint's state dict (published names) into this core's
+        modules in place (see :meth:`from_torch_ckpt`)."""
+        cond_prefix = (from_torch.CONDITIONER_PREFIX if self.spec.cond_kind == "sdxl"
+                       else from_torch.COND_PREFIX)
+        unet_sd, fs_sd, cond_sd = from_torch.split_latent_diffusion_state(sd, use_ema,
+                                                                          cond_prefix)
+        parts = [(self.unet, from_torch.convert_gd_unet, unet_sd),
+                 (self.first_stage, from_torch.convert_vae, fs_sd)]
+        if self.cond_model is not None:
+            parts.append((self.cond_model, {"clip": from_torch.convert_clip_text,
+                                            "bert": from_torch.convert_ldm_bert,
+                                            "sdxl": from_torch.convert_sdxl_conditioner
+                                            }[self.spec.cond_kind], cond_sd))
         elif cond_sd:
             raise KeyError(f"unmapped cond-stage key of an unconditional model: "
                            f"{from_torch.COND_PREFIX}{next(iter(cond_sd))}")
         for module, convert, part in parts:
             module.load_state_dict(convert(part, module), strict=True)
-        return core
 
     # ---- the driver's checkpoints ---------------------------------------- #
 
@@ -426,17 +480,37 @@ class LatentDiffusionCore:
         """:meth:`apply_model_cached` as eager launches, never a graph."""
         return _unet_cached(self.unet, self.dtype, x, t, context, encoder_cache)
 
-    def get_learned_conditioning(self, token_ids):
+    def get_learned_conditioning(self, token_ids, unconditional: bool = False):
         """(B, T) token ids -> the text context (B, T, width) in the core
-        dtype.  The ids are copied to the device first; on a CUDA device the
-        text encoder then replays a CUDA graph of its call (JAX's
-        ``_cond_jit``), one per (B, T)."""
-        return self._graphed_cond(self._token_ids(token_ids))
+        dtype, or SDXL's ``{"context", "vector"}``.  The ids are copied to
+        the device first; on a CUDA device the text encoder then replays a
+        CUDA graph of its call (JAX's ``_cond_jit``), one per (B, T); SDXL's
+        holds both towers and the pooling.  ``unconditional`` says the ids
+        are the empty prompt of the unconditional branch: SD v1 and LDM
+        encode them, SDXL gives zeros and encodes nothing."""
+        if self.spec.cond_kind != "sdxl":
+            return self._graphed_cond(self._token_ids(token_ids))
+        return self._sdxl_conditioning(token_ids, unconditional, self._graphed_cond)
 
     @torch.no_grad()
-    def get_learned_conditioning_eager(self, token_ids):
+    def get_learned_conditioning_eager(self, token_ids, unconditional: bool = False):
         """:meth:`get_learned_conditioning` as eager launches, never a graph."""
-        return self.cond_model(self._token_ids(token_ids))
+        if self.spec.cond_kind != "sdxl":
+            return self.cond_model(self._token_ids(token_ids))
+        return self._sdxl_conditioning(token_ids, unconditional, self.cond_model)
+
+    def _sdxl_conditioning(self, token_ids, unconditional: bool, encode) -> dict:
+        """SDXL's conditioning: the towers through ``encode`` (or zeros for
+        the unconditional rows, counted as ``cond.zero_rows``), then the
+        vector, assembled in the ``cond.vector`` span."""
+        n, length = len(token_ids), self.spec.context_length
+        if unconditional:
+            profiling.count("cond.zero_rows", n)
+            context, pooled = self.cond_model.zeros(n, length)
+        else:
+            context, pooled = encode(self._token_ids(token_ids))
+        with profiling.span("cond.vector", n):
+            return {"context": context, "vector": self.cond_model.vector(pooled)}
 
     def _token_ids(self, token_ids) -> torch.Tensor:
         if self.cond_model is None:

@@ -1,6 +1,6 @@
-"""Text-guided stochastic translation with SD v1 or LDM text2img-large
-(counterpart of ``StochasticTextPipeline`` in
-``cyclediffusion_tpu.pipelines.latent_text``).
+"""Text-guided stochastic translation with SD v1, LDM text2img-large or
+SDXL base (counterpart of ``StochasticTextPipeline`` in
+``cyclediffusion_tpu.pipelines.latent_text``; SDXL is the port's own).
 
 * ``encode(image, encode_text)`` -> z-ensemble ordered ``trial -> enc_scale
   -> skip``, each z flattened with x_T first and then each eps, every entry
@@ -54,7 +54,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from cyclediffusion_tpu_torch.energy.clean_clip import DirectionalCLIP, normalize
-from cyclediffusion_tpu_torch.ops.cfg import cfg_model_fn, cfg_model_fn_pair
+from cyclediffusion_tpu_torch.ops.cfg import cfg_model_fn, cfg_model_fn_pair, repeat_rows
 from cyclediffusion_tpu_torch.parallel.mesh import all_gather_cat, batch_sharding, mesh_extent
 from cyclediffusion_tpu_torch.pipelines.latent import LatentDiffusionCore
 from cyclediffusion_tpu_torch.runtime import profiling
@@ -140,12 +140,16 @@ class StochasticTextPipeline:
 
     # ---- conditioning --------------------------------------------------- #
 
-    def get_condition(self, texts) -> torch.Tensor:
-        """c context for texts; uc is the encoding of ""."""
+    def get_condition(self, texts):
+        """The conditioning of ``texts``: a context tensor, or SDXL's
+        ``{"context", "vector"}``."""
         return self.core.get_learned_conditioning(self.tokenizer(list(texts)))
 
-    def uncond(self, batch: int) -> torch.Tensor:
-        return self.get_condition([""] * batch)
+    def uncond(self, batch: int):
+        """The unconditional branch's conditioning, as the core gives it: the
+        empty prompt's encoding (SD v1, LDM), or SDXL's zeros."""
+        return self.core.get_learned_conditioning(self.tokenizer([""] * batch),
+                                                  unconditional=True)
 
     # ---- chains ---------------------------------------------------------- #
 
@@ -165,7 +169,7 @@ class StochasticTextPipeline:
         with profiling.span("sync.scales"):
             scale_f = torch.tensor(scales, dtype=torch.float32, device=self.core.device)
         scale_f = scale_f.repeat_interleave(bsz).reshape(K * bsz, 1, 1, 1)
-        uc, c = uc_ctx.repeat(K, 1, 1), c_ctx.repeat(K, 1, 1)
+        uc, c = repeat_rows(uc_ctx, K), repeat_rows(c_ctx, K)
         if self._fast:
             return cfg_model_fn_pair(self.core.apply_model_cached, uc, c, scale_f)
         return cfg_model_fn(self.core.apply_model, uc, c, scale_f)
@@ -408,4 +412,13 @@ def latentdiff_stochastic_text_pipeline(core: LatentDiffusionCore, tokenizer,
     """The pipeline behind the ``LatentDiffStochasticText`` gan_type."""
     if core.spec.cond_kind != "bert":
         raise ValueError("LatentDiffStochasticText needs an LDM-BERT text-conditioned core")
+    return StochasticTextPipeline(core, tokenizer, dclip, **kw)
+
+
+def sdxl_stochastic_text_pipeline(core: LatentDiffusionCore, tokenizer,
+                                  dclip: Optional[DirectionalCLIP], **kw
+                                  ) -> StochasticTextPipeline:
+    """The pipeline behind the ``SDXLStochasticText`` gan_type."""
+    if core.spec.cond_kind != "sdxl":
+        raise ValueError("SDXLStochasticText needs an SDXL-conditioned core")
     return StochasticTextPipeline(core, tokenizer, dclip, **kw)

@@ -11,9 +11,10 @@ is what is captured.  :class:`GraphedCall` wraps ``fn(*args)``:
 * On CPU tensors it is the plain call (the caller asking for the CPU, as
   the tests do).
 * On CUDA tensors the first call of each signature (:func:`signature`: the
-  nesting of the arguments, each tensor's shape, dtype and device, each
-  other argument's value, ``None`` included, and the backend flags that
-  pick convolution and GEMM kernels) runs eagerly on a side stream (the
+  nesting of the arguments (tuples, lists, dicts by key), each tensor's
+  shape, dtype and device, each other argument's value, ``None``
+  included, and the backend flags that pick convolution and GEMM
+  kernels) runs eagerly on a side stream (the
   warm-up: it builds the CUDA kernels, loads their libraries and lets the
   libraries pick their algorithms before any capture) and returns that
   result; then the call is captured once into a ``torch.cuda.CUDAGraph``.
@@ -84,6 +85,8 @@ def backend_flags() -> tuple:
 def _structure(obj, leaves: list):
     if isinstance(obj, (tuple, list)):
         return (type(obj), tuple(_structure(o, leaves) for o in obj))
+    if isinstance(obj, dict):
+        return (dict, tuple((k, _structure(v, leaves)) for k, v in obj.items()))
     if isinstance(obj, torch.Tensor):
         leaves.append(obj)
         return (torch.Tensor, tuple(obj.shape), obj.dtype, obj.device)
@@ -96,8 +99,8 @@ def _structure(obj, leaves: list):
         return (dataclasses.dataclass, type(obj),
                 tuple((f.name, _structure(getattr(obj, f.name), leaves))
                       for f in dataclasses.fields(obj)))
-    raise TypeError(f"a graphed call takes tensors, tuples, lists, frozen dataclasses, "
-                    f"None and Python scalars, not {type(obj).__name__}")
+    raise TypeError(f"a graphed call takes tensors, tuples, lists, dicts, frozen "
+                    f"dataclasses, None and Python scalars, not {type(obj).__name__}")
 
 
 def signature(args) -> tuple:
@@ -119,6 +122,8 @@ def rebuild(key: tuple, leaves) -> Any:
             return next(it)
         if kind in (tuple, list):
             return kind(build(n) for n in node[1])
+        if kind is dict:
+            return {k: build(n) for k, n in node[1]}
         if kind is dataclasses.dataclass:
             return node[1](**{name: build(n) for name, n in node[2]})
         return node[1]
@@ -126,9 +131,12 @@ def rebuild(key: tuple, leaves) -> Any:
 
 
 def map_tensors(fn: Callable, obj):
-    """``obj`` with ``fn`` applied to each tensor of its tuples and lists."""
+    """``obj`` with ``fn`` applied to each tensor of its tuples, lists and
+    dicts."""
     if isinstance(obj, (tuple, list)):
         return type(obj)(map_tensors(fn, o) for o in obj)
+    if isinstance(obj, dict):
+        return {k: map_tensors(fn, v) for k, v in obj.items()}
     return fn(obj) if isinstance(obj, torch.Tensor) else obj
 
 

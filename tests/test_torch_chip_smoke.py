@@ -638,6 +638,7 @@ def test_phase13_checks_pass_on_the_cpu(smoke, tmp_path):
     from cyclediffusion_tpu.pipelines.latent import LatentCoreSpec as JSpec
     from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec
     from cyclediffusion_tpu_torch.runtime import yaml_subset
+    from test_torch_common import port_fields
 
     differ, ms, pillow = smoke.check_jpeg_fixtures(reps=1)
     assert len(differ) == 7 and not any(differ.values()) and pillow
@@ -652,8 +653,9 @@ def test_phase13_checks_pass_on_the_cpu(smoke, tmp_path):
     path = tmp_path / "v1-inference.yaml"
     path.write_text(smoke.SD_V1_YAML)
     spec, jspec = LatentCoreSpec.from_yaml(str(path)), JSpec.from_yaml(str(path))
-    assert dataclasses.asdict(spec.unet) == {k: v for k, v in dataclasses.asdict(jspec.unet)
-                                             .items() if k in dataclasses.asdict(spec.unet)}
+    theirs = dataclasses.asdict(jspec.unet)
+    ours = port_fields(spec.unet, theirs)
+    assert ours == {k: v for k, v in theirs.items() if k in ours}
     assert (spec.resolution, spec.scale_factor, spec.cond_kind) == (
         jspec.resolution, jspec.scale_factor, jspec.cond_kind)
 

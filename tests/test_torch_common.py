@@ -58,6 +58,20 @@ def max_abs(a, b) -> float:
     return float(np.abs(a - b).max())
 
 
+def port_fields(config, theirs: dict) -> dict:
+    """``dataclasses.asdict(config)`` without the fields that the JAX
+    package's config (``theirs``, as a dict) lacks: the port's own options
+    (SDXL's depth by level, linear projections, vector conditioning, exact
+    GEGLU), each checked to be at its default, the JAX behaviour."""
+    import dataclasses
+
+    defaults = {f.name: f.default for f in dataclasses.fields(config)}
+    ours = dataclasses.asdict(config)
+    own = {k: v for k, v in ours.items() if k not in theirs}
+    assert own == {k: defaults[k] for k in own}, own
+    return {k: v for k, v in ours.items() if k in theirs}
+
+
 def test_fill_flax_tree_draws_every_leaf():
     tree = {"params": {"dense": {"kernel": np.zeros((4, 3)), "bias": np.zeros(3)},
                        "norm": {"scale": np.zeros(3), "bias": np.zeros(3)}}}

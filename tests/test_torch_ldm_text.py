@@ -40,7 +40,7 @@ from cyclediffusion_tpu_torch.runtime import context
 from cyclediffusion_tpu_torch.runtime.config import get_config
 from cyclediffusion_tpu_torch.text import BertWordPieceTokenizer
 from cyclediffusion_tpu_torch.tools import sd_assets
-from test_torch_common import REPO, fill_flax_tree, max_abs, to_torch
+from test_torch_common import REPO, fill_flax_tree, max_abs, port_fields, to_torch
 from test_torch_ensemble import _jax_encode_draws, _jax_scores, _np_tree
 
 ATOL = 1e-4
@@ -198,7 +198,8 @@ def test_text2img_large_spec_matches_jax():
     for field in dataclasses.fields(spec):
         got, want = getattr(spec, field.name), getattr(jspec, field.name)
         if dataclasses.is_dataclass(got):
-            got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+            want = dataclasses.asdict(want)
+            got = port_fields(got, want)
             want = {k: v for k, v in want.items() if k in got}
         assert got == want, field.name
     assert (spec.image_size, spec.context_length, jspec.cond_kind) == (32, 77, "bert")

@@ -61,7 +61,7 @@ from cyclediffusion_tpu_torch.runtime.config import get_config
 from cyclediffusion_tpu_torch.samplers import pixel_encode, pixel_generate
 from cyclediffusion_tpu_torch.tasks.unsupervised_translation import UnsupervisedTranslation
 from cyclediffusion_tpu_torch.tools import pixel_assets
-from test_torch_common import REPO, fill_flax_tree, max_abs, to_torch
+from test_torch_common import REPO, fill_flax_tree, max_abs, port_fields, to_torch
 
 STEP_TOL = 1e-5
 ATOL = 1e-4
@@ -227,8 +227,9 @@ def test_tiny_unets_match_jax(kind):
     if kind == "compvis":
         jmod, mod = jud.DDPMUNet(cfg), ud.DDPMUNet(ud.DDPMUNetConfig(**dataclasses.asdict(cfg)))
     else:
+        # the port's own fields (SDXL's), which JAX's config lacks, at their defaults
         jmod, mod = jug.GDUNet(cfg), ug.GDUNet(ug.GDUNetConfig(**{
-            f.name: getattr(cfg, f.name) for f in dataclasses.fields(ug.GDUNetConfig)}))
+            f.name: getattr(cfg, f.name, f.default) for f in dataclasses.fields(ug.GDUNetConfig)}))
     jtree, _ = _unet_pair(jmod, mod, 16, 3, y=kind == "class_conditional")
     x, t = _rand((2, 16, 16, 3), 4), np.array([3, 77], np.int32)
     y = np.array([1, 9], np.int32)
@@ -255,7 +256,9 @@ def _assert_same_spec(spec, jspec):
     """Equal fields, the UNet's on the port's fields (JAX's also has the
     options no model of the zoo changes: ``dropout``, ``conv_resample``)."""
     got, want = dataclasses.asdict(spec), dataclasses.asdict(jspec)
-    ours, theirs = got.pop("unet"), want.pop("unet")
+    got.pop("unet")
+    theirs = want.pop("unet")
+    ours = port_fields(spec.unet, theirs)
     assert got == want, spec.name
     assert ours == {k: theirs[k] for k in ours}, spec.name
     assert {k: v for k, v in theirs.items() if k not in ours} in (

@@ -21,6 +21,7 @@ from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec
 from cyclediffusion_tpu_torch.pipelines.zoo import PIXEL_ZOO, pixel_spec_from_yml
 from cyclediffusion_tpu_torch.runtime import yaml_subset
 from cyclediffusion_tpu_torch.runtime.yaml_subset import YAMLSubsetError
+from test_torch_common import port_fields
 
 SD_V1_INFERENCE = """\
 model:
@@ -407,6 +408,7 @@ def _assert_same_latent_spec(spec, jspec):
     has ``dropout`` / ``conv_resample``, its first stage
     ``resamp_with_conv``, at their defaults)."""
     got, want = _fields(spec), _fields(jspec)
+    got["unet"] = port_fields(spec.unet, want["unet"])
     for key in ("unet", "first_stage", "cond_cfg"):
         if isinstance(got[key], dict):
             assert got[key] == {k: want[key][k] for k in got[key]}, key
@@ -439,7 +441,9 @@ def test_pixel_spec_from_yml_equals_jax_and_the_zoo(tmp_path, name, zoo_entry, k
     path.write_text(DOCUMENTS[name])
     spec, jspec = pixel_spec_from_yml(str(path)), jpixel_spec_from_yml(str(path))
     got, want = _fields(spec), _fields(jspec)
-    ours, theirs = got.pop("unet"), want.pop("unet")
+    got.pop("unet")
+    theirs = want.pop("unet")
+    ours = port_fields(spec.unet, theirs)
     assert got == want and ours == {k: theirs[k] for k in ours}
     assert spec.kind == kind and spec.unet == PIXEL_ZOO[zoo_entry].unet
     assert dataclasses.replace(spec, name=zoo_entry, default_ckpt=PIXEL_ZOO[zoo_entry]
