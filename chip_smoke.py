@@ -278,7 +278,7 @@ def say(msg: str) -> None:
 # ``ops.launches.counts``
 ATTENTION_KERNELS = ("flash_attention_packed", "flash_attention_bhtd",
                      "qout_self_attention_block", "fused_self_attention_block")
-GROUP_NORM_KERNELS = ("group_norm", "group_norm_backward")
+GROUP_NORM_KERNELS = ("group_norm", "group_norm_backward", "group_norm_shift")
 
 
 def reset_launches() -> None:
@@ -773,6 +773,9 @@ def phase_kernels(torch, fa):
 # decoder's 512 px level at batch 1 (the energy's decode) and the SD UNet's
 # 64x64 level at batch 8 (4 images x the CFG pair)
 GN_CASES = (("decoder 512 px", (1, 128, 512, 512)), ("unet 64x64", (8, 320, 64, 64)))
+# the case at which the main path also folds a shift into the norm (each
+# ResBlock's second norm takes the timestep embedding, (N, C))
+GN_SHIFT_CASE = "unet 64x64"
 
 
 def group_norm_bound_ms(shape, backward: bool) -> float:
@@ -800,8 +803,9 @@ def device_ms(torch, fn, calls: int = 10) -> float:
 def phase_group_norm(torch) -> list:
     """Phase 3b: the GroupNorm kernels with the SiLU fused against the plain
     version and ``F.silu(F.group_norm(...))`` (``library_ms``) at
-    ``GN_CASES``, forward and backward (the input's gradient), each beside
-    its byte bound."""
+    ``GN_CASES``, forward and backward (the input's gradient, and the
+    shift's), each beside its byte bound; at ``GN_SHIFT_CASE`` also with the
+    per-channel shift that the main path folds in there."""
     from cyclediffusion_tpu_torch.ops import group_norm as gn
 
     F = torch.nn.functional
@@ -824,45 +828,63 @@ def phase_group_norm(torch) -> list:
 
         x, dy = rand(2.0, 0.7), rand()
         w, b = rand(0.1, 1.0, (c,)), rand(0.1, 0.0, (c,))
-        fns = {"kernel": lambda t: gn.group_norm(t, w, b, 32, 1e-6, silu=True),
-               "plain": lambda t: gn.group_norm_reference(t, w, b, 32, 1e-6, silu=True),
-               "library": lambda t: F.silu(F.group_norm(t, 32, w, b, 1e-6))}
-        outs, grads, ms = {}, {}, {}
-        for kind, fn in fns.items():
-            outs[kind] = fn(x)
-            ms[("forward", kind)] = cuda_time_ms(functools.partial(fn, x))
-            ms[("forward", kind, "device")] = device_ms(torch, functools.partial(fn, x))
-            xg = x.detach().requires_grad_(True)
-            y = fn(xg)
-            grad = functools.partial(torch.autograd.grad, y, xg, dy, retain_graph=True)
-            grads[kind] = grad()[0]
-            ms[("backward", kind)] = cuda_time_ms(grad)
-            ms[("backward", kind, "device")] = device_ms(torch, grad)
-            del y, grad
-        torch.cuda.synchronize()
-        for pass_, got, want in (("forward", outs["kernel"], outs["plain"]),
-                                 ("backward", grads["kernel"], grads["plain"])):
-            rel = float((got.float() - want.float()).abs().max() / want.float().abs().max())
-            bound_ms = group_norm_bound_ms(shape, pass_ == "backward")
-            rec = {"shape": list(shape), "case": label, "pass": pass_, "dtype": "bf16",
-                   "ms": ms[(pass_, "kernel")], "plain_ms": ms[(pass_, "plain")],
-                   "library_ms": ms[(pass_, "library")], "bound_ms": bound_ms,
-                   "bound_by": "bytes", "rel_err": rel,
-                   **{f"{k}device_ms": ms[(pass_, kind, "device")]
-                      for k, kind in (("", "kernel"), ("plain_", "plain"),
-                                      ("library_", "library"))}}
-            say(f"kernel GroupNorm+SiLU [{label}] bf16 shape={shape} {pass_}: kernel "
-                f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), plain "
-                f"{rec['plain_ms']:.4f} ms (device {rec['plain_device_ms']:.4f}), library "
-                f"{rec['library_ms']:.4f} ms (device {rec['library_device_ms']:.4f}); least "
-                f"time {bound_ms:.4f} ms (bytes); max_abs_err / max|plain| {rel:.3e}")
-            if not rel <= (1 if pass_ == "forward" else 2) * BF16_REL_BOUND:
-                fail(f"group_norm {label} {pass_}: max_abs_err / max|plain| = {rel}")
-            record.append(rec)
-        again = gn.group_norm(x, w, b, 32, 1e-6, silu=True)
-        if not torch.equal(again, outs["kernel"]):
-            fail(f"group_norm {label}: two launches differ")
-        del outs, grads
+        shifts = (None, rand(shp=shape[:2])) if label == GN_SHIFT_CASE else (None,)
+        for s in shifts:
+            case = label if s is None else f"{label} + shift"
+            fns = {"kernel": lambda t, sh: gn.group_norm(t, w, b, 32, 1e-6, silu=True,
+                                                         shift=sh),
+                   "plain": lambda t, sh: gn.group_norm_reference(t, w, b, 32, 1e-6,
+                                                                  silu=True, shift=sh),
+                   "library": lambda t, sh: F.silu(F.group_norm(
+                       t if sh is None else t + sh[:, :, None, None], 32, w, b, 1e-6))}
+            outs, grads, ms = {}, {}, {}
+            for kind, fn in fns.items():
+                outs[kind] = fn(x, s)
+                ms[("forward", kind)] = cuda_time_ms(functools.partial(fn, x, s))
+                ms[("forward", kind, "device")] = device_ms(torch, functools.partial(fn, x, s))
+                # the gradients of x and, where there is one, of the shift
+                xg, *sg = (t.detach().requires_grad_(True) for t in (x, s) if t is not None)
+                y = fn(xg, sg[0] if sg else None)
+                grad = functools.partial(torch.autograd.grad, y, (xg, *sg), dy,
+                                         retain_graph=True)
+                grads[kind] = grad()
+                ms[("backward", kind)] = cuda_time_ms(grad)
+                ms[("backward", kind, "device")] = device_ms(torch, grad)
+                del y, grad
+            torch.cuda.synchronize()
+            for pass_, got, want in (("forward", (outs["kernel"],), (outs["plain"],)),
+                                     ("backward", grads["kernel"], grads["plain"])):
+                errs = [float((got[0].float() - want[0].float()).abs().max()
+                              / want[0].float().abs().max())]
+                if len(got) == 2:
+                    # the shift's gradient, the input's summed over the pixels:
+                    # beside its peak, the input gradient's over sqrt(pixels)
+                    # independent roundings (as the card tests hold it)
+                    scale = (float(want[1].abs().max()) + 2 * float(want[0].abs().max())
+                             * math.sqrt(math.prod(shape[2:])))
+                    errs.append(float((got[1].float() - want[1].float()).abs().max()) / scale)
+                rel = max(errs)
+                bound_ms = group_norm_bound_ms(shape, pass_ == "backward")
+                rec = {"shape": list(shape), "case": case, "shift": s is not None,
+                       "pass": pass_, "dtype": "bf16",
+                       "ms": ms[(pass_, "kernel")], "plain_ms": ms[(pass_, "plain")],
+                       "library_ms": ms[(pass_, "library")], "bound_ms": bound_ms,
+                       "bound_by": "bytes", "rel_err": rel,
+                       **{f"{k}device_ms": ms[(pass_, kind, "device")]
+                          for k, kind in (("", "kernel"), ("plain_", "plain"),
+                                          ("library_", "library"))}}
+                say(f"kernel GroupNorm+SiLU [{case}] bf16 shape={shape} {pass_}: kernel "
+                    f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), plain "
+                    f"{rec['plain_ms']:.4f} ms (device {rec['plain_device_ms']:.4f}), library "
+                    f"{rec['library_ms']:.4f} ms (device {rec['library_device_ms']:.4f}); least "
+                    f"time {bound_ms:.4f} ms (bytes); max_abs_err / max|plain| {rel:.3e}")
+                if not rel <= (1 if pass_ == "forward" else 2) * BF16_REL_BOUND:
+                    fail(f"group_norm {case} {pass_}: max_abs_err / max|plain| = {rel}")
+                record.append(rec)
+            again = gn.group_norm(x, w, b, 32, 1e-6, silu=True, shift=s)
+            if not torch.equal(again, outs["kernel"]):
+                fail(f"group_norm {case}: two launches differ")
+            del outs, grads
     return record
 
 
@@ -870,6 +892,7 @@ def phase_slice(torch, fa, attention, HashTokenizer, LatentCoreSpec,
                 LatentDiffusionCore, StochasticTextPipeline):
     """Phase 4 (+5): the SD-v1 translate path at 512 px."""
     from cyclediffusion_tpu_torch.models.nn import GroupNorm
+    from cyclediffusion_tpu_torch.models.unet_gd import GDResBlock
 
     t0 = time.perf_counter()
     spec = LatentCoreSpec.sd_v1()
@@ -981,16 +1004,20 @@ def phase_slice(torch, fa, attention, HashTokenizer, LatentCoreSpec,
     # every GroupNorm of the UNet (graph replays: once a call) and of each
     # first-stage call (a whole number of runs of the model) through the
     # kernel, and no gradient
+    # and each ResBlock's second norm with the timestep embedding as its shift
     stage = {name: [d["group_norm"] for d in ds] for name, ds in stage_launches.items()}
     gn_want = unet_calls[0] * norms["unet"] + sum(map(sum, stage.values()))
-    if (not all(stage.values()) or gn_counts != {"group_norm": gn_want, "group_norm_backward": 0}
+    resblocks = sum(isinstance(m, GDResBlock) for m in core.unet.modules())
+    want = {"group_norm": gn_want, "group_norm_backward": 0,
+            "group_norm_shift": unet_calls[0] * resblocks}
+    if (not all(stage.values()) or gn_counts != want
             or any(n <= 0 or n % norms[name] for name, ns in stage.items() for n in ns)):
-        fail(f"slice: GroupNorm launches {gn_counts}; expected {gn_want} forwards and no "
-             f"gradient ({norms} GroupNorms, {unet_calls[0]} UNet calls, first-stage "
-             f"calls' launches {stage})")
+        fail(f"slice: GroupNorm launches {gn_counts}; expected {want} ({norms} GroupNorms, "
+             f"{resblocks} ResBlocks, {unet_calls[0]} UNet calls, first-stage calls' "
+             f"launches {stage})")
     say(f"slice: GroupNorm launches {gn_counts} = {unet_calls[0]} UNet calls x "
-        f"{norms['unet']} + the first stage's calls {stage} (runs of {norms}): every "
-        f"GroupNorm of the path through the kernel")
+        f"{norms['unet']} + the first stage's calls {stage} (runs of {norms}), "
+        f"{resblocks} shifts a UNet call: every GroupNorm of the path through the kernel")
 
     # per-UNet-step time at the CFG dual batch of the 2 requests
     step_ms = cuda_time_ms(lambda: core.apply_model(x_warm, t_warm, ctx), reps=10)
@@ -2486,7 +2513,11 @@ FD_REL_BOUND = 1e-2
 FD_STEP = 1e-3
 # the same fp32 gradient with the models' GroupNorm through the plain version
 # (autograd) instead of the kernels, max abs diff / max: the statistics'
-# summation order alone differs
+# summation order alone differs.  The energy clamps (img + 1) / 2 to [0, 1],
+# whose gradient jumps where a pixel crosses a bound: a decoded pixel within
+# ~1e-7 of one crosses it under any change of that order (then the kernels'
+# own gradient moves by ~3e-3 of max under a 1e-7 move of the point), so the
+# plain run's decode keeps the kernels' side of the clamp at such pixels
 PLAIN_GN_GRAD_REL_BOUND = 1e-4
 # the FFHQ plain pipeline with K1 against plain attention (fp32, TF32 off),
 # x_T and the sampled latent, max abs diff / max|plain|: 50 inversion and 50
@@ -2522,17 +2553,43 @@ def plain_group_norm():
 def fp32_gradient_check(torch, spec, clip) -> dict:
     """The guided energy's gradient with core and scorer in fp32 (TF32 off)
     at the fp32 chain's own first pred_x0 (a point that no bf16 rounding
-    moves): its gap to the same gradient with the plain GroupNorm, and the
+    moves): its gap to the same gradient with the plain GroupNorm (its
+    decode kept on the kernels' side of the energy's clamp), and the
     directional checks at FD_STEP |p| and 10x either side."""
     from cyclediffusion_tpu_torch.samplers.guided import energy_grad
     from cyclediffusion_tpu_torch.tools import guided_probe
 
     g32 = guided_probe.build(spec, clip, steps=STEPS, device="cuda", dtype=torch.float32)
     x, p32, t = guided_probe.first_step_point(g32)
-    efn = g32.energy_fn
+    efn, core = g32.energy_fn, g32.core
+    decode, seen = core.decode_first_stage_eager, []
+
+    def inside(img):
+        """Pixels where the energy's clamp passes the gradient."""
+        u = (img.detach() + 1.0) / 2.0
+        return (u >= 0.0) & (u <= 1.0)
+
+    def recorded(z):
+        img = decode(z)
+        seen.append(img.detach())
+        return img
+
+    def on_the_kernels_side(z):
+        # the plain decode, shifted by a constant onto the kernels' decode
+        # where the two lie on opposite sides of the clamp
+        img, kernel_img = decode(z), seen[0]
+        flips = inside(img) != inside(kernel_img)
+        seen.append(int(flips.sum()))
+        return img + torch.where(flips, kernel_img - img.detach(), 0.0)
+
+    core.decode_first_stage_eager = recorded
     grad32 = energy_grad(efn, x, p32, t)
-    with plain_group_norm():
-        grad_plain = energy_grad(efn, x, p32, t)
+    core.decode_first_stage_eager = on_the_kernels_side
+    try:
+        with plain_group_norm():
+            grad_plain = energy_grad(efn, x, p32, t)
+    finally:
+        del core.decode_first_stage_eager
     gen = torch.Generator(device="cuda").manual_seed(81)
     v = torch.randn(p32.shape, generator=gen, device="cuda")
     v = v / v.norm()
@@ -2542,8 +2599,8 @@ def fp32_gradient_check(torch, spec, clip) -> dict:
         checks = {m: directional_check(energy, grad32, p32, v, m * h) for m in (10, 1, 0.1)}
         e_p = float(energy(p32))
     out = {"energy": e_p, "grad_max": float(grad32.abs().max()), "h": h, "checks": checks,
-           "plain_rel": rel_diff(torch, [grad32], [grad_plain])}
-    del g32, efn, grad32, grad_plain
+           "plain_rel": rel_diff(torch, [grad32], [grad_plain]), "clamp_flips": seen[-1]}
+    del g32, efn, core, grad32, grad_plain, seen
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -2799,7 +2856,8 @@ def phase_guided(torch, fa, attention):
     checks, rel = fp32["checks"], fp32["checks"][1][2]
     say(f"guided fp32: at the fp32 chain's first pred_x0, E(p) {fp32['energy']:.6e}, "
         f"max|dE/dp| {fp32['grad_max']:.3e}; against the plain GroupNorm's gradient "
-        f"{fp32['plain_rel']:.3e} of max (bound {PLAIN_GN_GRAD_REL_BOUND:.0e}); "
+        f"{fp32['plain_rel']:.3e} of max (bound {PLAIN_GN_GRAD_REL_BOUND:.0e}; "
+        f"{fp32['clamp_flips']} pixel(s) kept on the kernels' side of the clamp); "
         f"<dE/dp, v> {checks[1][0]:.6e}; central difference at h = {fp32['h']:.4g} "
         f"({FD_STEP} |p|): {checks[1][1]:.6e}, relative gap {rel:.3e} (bound "
         f"{FD_REL_BOUND:.0e}); at 10h {checks[10][1]:.6e} ({checks[10][2]:.3e}), at h/10 "

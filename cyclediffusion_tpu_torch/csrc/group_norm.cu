@@ -1,5 +1,6 @@
-// GroupNorm, with an optional SiLU epilogue, on channels-last activations,
-// forward and backward, for Hopper (sm_90a).
+// GroupNorm, with an optional SiLU epilogue and an optional per-sample,
+// per-channel shift of its input, on channels-last activations, forward and
+// backward, for Hopper (sm_90a).
 //
 // It replaces no Pallas kernel: the JAX package leaves GroupNorm to XLA.  It
 // was added for the port's layout and occupancy.  PyTorch's CUDA GroupNorm
@@ -31,12 +32,21 @@
 //     wrapper keeps each chunk below it).  (3) the normalisation, y = x a + b with
 //     a = rstd * gamma and b = beta - mean * a per channel, rounded once to
 //     the input dtype; SiLU, where fused, is applied to that rounded value.
+//   * shift: with a shift s of shape (N, C) the kernels normalise x + s (a
+//     ResBlock's timestep embedding, added after its first conv), the sum
+//     formed in fp32 and never stored.  Only per-channel constants change: a
+//     channel's M2 does not move with s, so (1) adds s to each channel's mean
+//     where its rows' moments become one, and (3) and the backward take the
+//     mean of x itself, mean - s, in b = beta - (mean - s) a and in x_hat.
+//     Without a shift the same arithmetic runs as before it existed.
 //   * backward, three launches of the same shape: (1) per (chunk, sample) and
 //     channel, the sums of dz and dz * x_hat, where dz is dy through the
 //     SiLU's derivative (recomputed from x, mean and rstd when fused) or dy;
 //     (2) those sums over the chunks in a fixed order, and over the samples
 //     into dgamma and dbeta when they are asked for; (3) dx = rstd * (gamma dz
-//     - mean(gamma dz) - x_hat mean(gamma dz x_hat)) over each group.
+//     - mean(gamma dz) - x_hat mean(gamma dz x_hat)) over each group, which is
+//     also the gradient of x + s (the wrapper sums it over the pixels into
+//     the shift's).
 //   * no atomics: every sum is taken in an order fixed by the shapes, so two
 //     calls give the same bits, and the kernels capture into CUDA graphs
 //     (the wrapper allocates every buffer).
@@ -122,6 +132,18 @@ struct Geo {
   int rows;      // pixel rows a block; blockDim.x = (C / V) * rows
 };
 
+// Channel c's mean of x in sample n: its group's mean of x + shift, less
+// the channel's shift (kShift false: no shift, the group's mean itself).
+// Each kernel below takes kShift from whether the launch was given a shift,
+// so a call without one runs the code that ran before shifts existed.
+template <bool kShift, typename T>
+__device__ __forceinline__ float mean_of_x(const float* mean, const T* shift, const Geo& g,
+                                           int n, int c) {
+  const float m = mean[n * g.G + c / g.Cg];
+  if constexpr (kShift) return m - to_f(shift[(long long)n * g.C + c]);
+  return m;
+}
+
 // z / (1 + exp(-z)) for SiLU (x = z) and the logistic function (x = 1):
 // for 16-bit data with the fast exponential and division, whose error (a
 // few fp32 ulps) lies far below a bf16 or fp16 rounding; for float32 data
@@ -151,9 +173,10 @@ __device__ __forceinline__ float silu_grad(float z) {
 
 // Block (chunk k, sample n) -> part[((n * G + g) * K + k) * 3 + {0,1,2}] =
 // (count, mean, M2) of group g over the chunk's pixels.
-template <typename T, int V>
+template <typename T, int V, bool kShift>
 __global__ void __launch_bounds__(kMaxThreads)
-group_norm_stats_kernel(const T* __restrict__ x, float* __restrict__ part, Geo g) {
+group_norm_stats_kernel(const T* __restrict__ x, const T* __restrict__ shift,
+                        float* __restrict__ part, Geo g) {
   extern __shared__ float sm[];
   const int cv = g.C / V;
   const int slot = threadIdx.x % cv, row = threadIdx.x / cv;
@@ -161,9 +184,9 @@ group_norm_stats_kernel(const T* __restrict__ x, float* __restrict__ part, Geo g
   const long long p1 = min((long long)(k + 1) * g.P, g.HW);
   const T* xs = x + (long long)n * g.HW * g.C + slot * V;
 
-  // per channel, sums of d = x - shift and d^2, shift the thread's first
+  // per channel, sums of d = x - ref and d^2, ref the thread's first
   // value: no division in the loop, and little cancellation (d ~ std)
-  float cnt = 0.f, shift[V], s1[V], s2[V];
+  float cnt = 0.f, ref[V], s1[V], s2[V];
   long long p = (long long)k * g.P + row;
   const long long step = g.rows;
   {
@@ -172,7 +195,7 @@ group_norm_stats_kernel(const T* __restrict__ x, float* __restrict__ part, Geo g
     if (any) a = load<T, V>(xs + p * g.C);
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      shift[v] = any ? to_f(a.v[v]) : 0.f;
+      ref[v] = any ? to_f(a.v[v]) : 0.f;
       s1[v] = s2[v] = 0.f;
     }
   }
@@ -180,7 +203,7 @@ group_norm_stats_kernel(const T* __restrict__ x, float* __restrict__ part, Geo g
     cnt += 1.f;
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      const float d = to_f(a.v[v]) - shift[v];
+      const float d = to_f(a.v[v]) - ref[v];
       s1[v] += d;
       s2[v] = fmaf(d, d, s2[v]);
     }
@@ -195,14 +218,16 @@ group_norm_stats_kernel(const T* __restrict__ x, float* __restrict__ part, Geo g
   for (; p < p1; p += step) update(load<T, V>(xs + p * g.C));
 
   // rows (a pairwise tree) -> channels -> groups, in shared memory, in an
-  // order fixed by the shapes
+  // order fixed by the shapes; a channel's shift moves its mean, not its M2
   float* smean = sm;
   float* sm2 = sm + g.rows * g.C;
   float* scnt = sm + 2 * g.rows * g.C;
   const float inv = cnt > 0.f ? 1.f / cnt : 0.f;
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    smean[row * g.C + slot * V + v] = shift[v] + s1[v] * inv;
+    float m = ref[v] + s1[v] * inv;
+    if constexpr (kShift) m += to_f(shift[(long long)n * g.C + slot * V + v]);
+    smean[row * g.C + slot * V + v] = m;
     sm2[row * g.C + slot * V + v] = fmaxf(s2[v] - s1[v] * s1[v] * inv, 0.f);
   }
   if (slot == 0) scnt[row] = cnt;
@@ -266,20 +291,21 @@ group_norm_finalize_kernel(const float* __restrict__ part, float* __restrict__ m
   }
 }
 
-template <typename T, int V>
+template <typename T, int V, bool kShift>
 __global__ void __launch_bounds__(kMaxThreads)
 group_norm_apply_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-                        const T* __restrict__ beta, const float* __restrict__ mean,
-                        const float* __restrict__ rstd, T* __restrict__ y, Geo g, int silu) {
+                        const T* __restrict__ beta, const T* __restrict__ shift,
+                        const float* __restrict__ mean, const float* __restrict__ rstd,
+                        T* __restrict__ y, Geo g, int silu) {
   const int cv = g.C / V;
   const int slot = threadIdx.x % cv, row = threadIdx.x / cv;
   const int k = blockIdx.x, n = blockIdx.y;
   float a[V], b[V];
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    const int c = slot * V + v, gi = n * g.G + c / g.Cg;
-    a[v] = rstd[gi] * to_f(gamma[c]);
-    b[v] = to_f(beta[c]) - mean[gi] * a[v];
+    const int c = slot * V + v;
+    a[v] = rstd[n * g.G + c / g.Cg] * to_f(gamma[c]);
+    b[v] = to_f(beta[c]) - mean_of_x<kShift>(mean, shift, g, n, c) * a[v];
   }
   const long long p1 = min((long long)(k + 1) * g.P, g.HW);
   const long long base = (long long)n * g.HW * g.C + slot * V;
@@ -309,18 +335,20 @@ group_norm_apply_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
 // backward
 // ---------------------------------------------------------------------------
 
-// The per-thread constants of its V channels: the group's mean and rstd,
-// gamma and, for the SiLU's derivative, the forward's a and b.
-template <typename T, int V>
+// The per-thread constants of its V channels: the mean of x (the group's,
+// less the channel's shift), the group's rstd, gamma and, for the SiLU's
+// derivative, the forward's a and b.
+template <typename T, int V, bool kShift>
 struct ChannelConsts {
   float mu[V], r[V], gam[V], a[V], b[V];
-  __device__ __forceinline__ void load_for(const T* gamma, const T* beta, const float* mean,
-                                           const float* rstd, const Geo& g, int n, int slot) {
+  __device__ __forceinline__ void load_for(const T* gamma, const T* beta, const T* shift,
+                                           const float* mean, const float* rstd, const Geo& g,
+                                           int n, int slot) {
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      const int c = slot * V + v, gi = n * g.G + c / g.Cg;
-      mu[v] = mean[gi];
-      r[v] = rstd[gi];
+      const int c = slot * V + v;
+      mu[v] = mean_of_x<kShift>(mean, shift, g, n, c);
+      r[v] = rstd[n * g.G + c / g.Cg];
       gam[v] = to_f(gamma[c]);
       a[v] = r[v] * gam[v];
       b[v] = to_f(beta[c]) - mu[v] * a[v];
@@ -333,19 +361,19 @@ struct ChannelConsts {
 
 // Block (chunk k, sample n) -> the chunk's per-channel sums of dz and of
 // dz * x_hat: part[(n * K + k) * C + c] and part[N * K * C + (n * K + k) * C + c].
-template <typename T, int V>
+template <typename T, int V, bool kShift>
 __global__ void __launch_bounds__(kMaxThreads)
 group_norm_backward_stats_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                                  const T* __restrict__ gamma, const T* __restrict__ beta,
-                                 const float* __restrict__ mean,
+                                 const T* __restrict__ shift, const float* __restrict__ mean,
                                  const float* __restrict__ rstd, float* __restrict__ part,
                                  Geo g, int silu) {
   extern __shared__ float sm[];
   const int cv = g.C / V;
   const int slot = threadIdx.x % cv, row = threadIdx.x / cv;
   const int k = blockIdx.x, n = blockIdx.y;
-  ChannelConsts<T, V> cc;
-  cc.load_for(gamma, beta, mean, rstd, g, n, slot);
+  ChannelConsts<T, V, kShift> cc;
+  cc.load_for(gamma, beta, shift, mean, rstd, g, n, slot);
   float s1[V], s2[V];
 #pragma unroll
   for (int v = 0; v < V; ++v) s1[v] = s2[v] = 0.f;
@@ -437,11 +465,11 @@ group_norm_backward_reduce_kernel(const float* __restrict__ part, float* __restr
   }
 }
 
-template <typename T, int V>
+template <typename T, int V, bool kShift>
 __global__ void __launch_bounds__(kMaxThreads)
 group_norm_backward_apply_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                                  const T* __restrict__ gamma, const T* __restrict__ beta,
-                                 const float* __restrict__ mean,
+                                 const T* __restrict__ shift, const float* __restrict__ mean,
                                  const float* __restrict__ rstd,
                                  const float* __restrict__ sums, T* __restrict__ dx, Geo g,
                                  int silu) {
@@ -462,8 +490,8 @@ group_norm_backward_apply_kernel(const T* __restrict__ x, const T* __restrict__ 
     sm[g.G + gi] = sb * inv_m;
   }
   __syncthreads();
-  ChannelConsts<T, V> cc;
-  cc.load_for(gamma, beta, mean, rstd, g, n, slot);
+  ChannelConsts<T, V, kShift> cc;
+  cc.load_for(gamma, beta, shift, mean, rstd, g, n, slot);
   float ma[V], mb[V];
 #pragma unroll
   for (int v = 0; v < V; ++v) {
@@ -526,32 +554,39 @@ bool valid(const Launch& l, int vec) {
          g.N <= 65535;
 }
 
-template <typename T, int V>
-int forward_t(const void* x, const void* gamma, const void* beta, void* y, float* part,
-              float* mean, float* rstd, const Launch& l, float eps, int silu) {
+template <typename T, int V, bool kShift>
+int forward_k(const void* x, const void* gamma, const void* beta, const void* shift, void* y,
+              float* part, float* mean, float* rstd, const Launch& l, float eps, int silu) {
   const size_t smem = (2 * (size_t)l.g.rows * l.g.C + l.g.rows) * sizeof(float);
-  group_norm_stats_kernel<T, V><<<l.grid, l.block, smem, l.stream>>>(
-      static_cast<const T*>(x), part, l.g);
+  group_norm_stats_kernel<T, V, kShift><<<l.grid, l.block, smem, l.stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(shift), part, l.g);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   group_norm_finalize_kernel<<<l.g.N * l.g.G, kFinalizeThreads, 0, l.stream>>>(
       part, mean, rstd, l.g.K, eps);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  group_norm_apply_kernel<T, V><<<l.grid, l.block, 0, l.stream>>>(
+  group_norm_apply_kernel<T, V, kShift><<<l.grid, l.block, 0, l.stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
-      mean, rstd, static_cast<T*>(y), l.g, silu);
+      static_cast<const T*>(shift), mean, rstd, static_cast<T*>(y), l.g, silu);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int V>
-int backward_t(const void* x, const void* dy, const void* gamma, const void* beta,
-               const float* mean, const float* rstd, void* dx, float* part, float* sums,
-               float* dgamma, float* dbeta, const Launch& l, int silu) {
+int forward_t(const void* x, const void* gamma, const void* beta, const void* shift, void* y,
+              float* part, float* mean, float* rstd, const Launch& l, float eps, int silu) {
+  return (shift == nullptr ? forward_k<T, V, false> : forward_k<T, V, true>)(
+      x, gamma, beta, shift, y, part, mean, rstd, l, eps, silu);
+}
+
+template <typename T, int V, bool kShift>
+int backward_k(const void* x, const void* dy, const void* gamma, const void* beta,
+               const void* shift, const float* mean, const float* rstd, void* dx, float* part,
+               float* sums, float* dgamma, float* dbeta, const Launch& l, int silu) {
   const size_t smem = 2 * (size_t)l.g.rows * l.g.C * sizeof(float);
-  group_norm_backward_stats_kernel<T, V><<<l.grid, l.block, smem, l.stream>>>(
+  group_norm_backward_stats_kernel<T, V, kShift><<<l.grid, l.block, smem, l.stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(gamma),
-      static_cast<const T*>(beta), mean, rstd, part, l.g, silu);
+      static_cast<const T*>(beta), static_cast<const T*>(shift), mean, rstd, part, l.g, silu);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   group_norm_backward_reduce_kernel<<<(l.g.C + kReduceCols - 1) / kReduceCols,
@@ -559,11 +594,20 @@ int backward_t(const void* x, const void* dy, const void* gamma, const void* bet
       part, sums, dgamma, dbeta, l.g.N, l.g.K, l.g.C);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  group_norm_backward_apply_kernel<T, V><<<l.grid, l.block, 2 * l.g.G * sizeof(float),
-                                           l.stream>>>(
+  group_norm_backward_apply_kernel<T, V, kShift><<<l.grid, l.block,
+                                                   2 * l.g.G * sizeof(float), l.stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(gamma),
-      static_cast<const T*>(beta), mean, rstd, sums, static_cast<T*>(dx), l.g, silu);
+      static_cast<const T*>(beta), static_cast<const T*>(shift), mean, rstd, sums,
+      static_cast<T*>(dx), l.g, silu);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V>
+int backward_t(const void* x, const void* dy, const void* gamma, const void* beta,
+               const void* shift, const float* mean, const float* rstd, void* dx, float* part,
+               float* sums, float* dgamma, float* dbeta, const Launch& l, int silu) {
+  return (shift == nullptr ? backward_k<T, V, false> : backward_k<T, V, true>)(
+      x, dy, gamma, beta, shift, mean, rstd, dx, part, sums, dgamma, dbeta, l, silu);
 }
 
 // dtype: 0 float32, 1 bfloat16, 2 float16; vec: 16 bytes' worth, or 1, or
@@ -602,34 +646,37 @@ struct Backward {
 
 }  // namespace
 
-// x, y: (N, HW, C) contiguous; gamma, beta: (C,) in x's dtype; part: N*G*K*3
-// floats; mean, rstd: N*G floats (written, kept for the backward).  Chunk k
-// of a sample covers pixels [k * P, min((k + 1) * P, HW)).  Returns the CUDA
-// error of the launches (0 on success).
+// x, y: (N, HW, C) contiguous; gamma, beta: (C,) in x's dtype; shift: (N, C)
+// contiguous in x's dtype, or null; part: N*G*K*3 floats; mean, rstd: N*G
+// floats (written, kept for the backward; the mean is that of x + shift).
+// Chunk k of a sample covers pixels [k * P, min((k + 1) * P, HW)).  Returns
+// the CUDA error of the launches (0 on success).
 extern "C" int cd_group_norm_forward(const void* x, const void* gamma, const void* beta,
-                                     void* y, void* part, void* mean, void* rstd, int N,
-                                     long long HW, int C, int G, int K, long long P, int rows,
-                                     int vec, float eps, int silu, int dtype, void* stream) {
+                                     const void* shift, void* y, void* part, void* mean,
+                                     void* rstd, int N, long long HW, int C, int G, int K,
+                                     long long P, int rows, int vec, float eps, int silu,
+                                     int dtype, void* stream) {
   const Launch l = make_launch(N, HW, C, G, K, P, rows, vec, stream);
   if (!valid(l, vec)) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<Forward>(dtype, vec, x, gamma, beta, y, static_cast<float*>(part),
+  return dispatch<Forward>(dtype, vec, x, gamma, beta, shift, y, static_cast<float*>(part),
                            static_cast<float*>(mean), static_cast<float*>(rstd), l, eps,
                            silu);
 }
 
-// x, dy, dx: (N, HW, C) contiguous; mean, rstd from the forward; part:
-// 2*N*K*C floats; sums: 2*N*C floats; dgamma, dbeta: C floats each, or both
-// null when the weights' gradients are not wanted.
+// x, dy, dx: (N, HW, C) contiguous; shift, mean, rstd those of the forward;
+// part: 2*N*K*C floats; sums: 2*N*C floats; dgamma, dbeta: C floats each, or
+// both null when the weights' gradients are not wanted.
 extern "C" int cd_group_norm_backward(const void* x, const void* dy, const void* gamma,
-                                      const void* beta, const void* mean, const void* rstd,
-                                      void* dx, void* part, void* sums, void* dgamma,
-                                      void* dbeta, int N, long long HW, int C, int G, int K,
-                                      long long P, int rows, int vec, int silu, int dtype,
-                                      void* stream) {
+                                      const void* beta, const void* shift, const void* mean,
+                                      const void* rstd, void* dx, void* part, void* sums,
+                                      void* dgamma, void* dbeta, int N, long long HW, int C,
+                                      int G, int K, long long P, int rows, int vec, int silu,
+                                      int dtype, void* stream) {
   const Launch l = make_launch(N, HW, C, G, K, P, rows, vec, stream);
   if (!valid(l, vec) || (dgamma == nullptr) != (dbeta == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<Backward>(dtype, vec, x, dy, gamma, beta, static_cast<const float*>(mean),
+  return dispatch<Backward>(dtype, vec, x, dy, gamma, beta, shift,
+                            static_cast<const float*>(mean),
                             static_cast<const float*>(rstd), dx, static_cast<float*>(part),
                             static_cast<float*>(sums), static_cast<float*>(dgamma),
                             static_cast<float*>(dbeta), l, silu);

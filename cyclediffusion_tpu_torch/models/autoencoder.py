@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from cyclediffusion_tpu_torch.models.nn import (
+    Conv2d,
     GroupNorm,
     SpatialSelfAttention,
     channels_last_,
@@ -67,7 +68,7 @@ class AEResnetBlock(nn.Module):
         self.conv2 = _conv3x3(out_channels, out_channels)
         self.nin_shortcut = (
             nn.Identity() if in_channels == out_channels
-            else nn.Conv2d(in_channels, out_channels, 1))
+            else Conv2d(in_channels, out_channels, 1))
 
     def forward(self, x):
         h = self.conv1(self.norm1(x, silu=True))
@@ -199,8 +200,8 @@ class AutoencoderKL(nn.Module):
             raise ValueError("AutoencoderKL needs double_z")
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
-        self.quant_conv = nn.Conv2d(2 * cfg.z_channels, 2 * embed_dim, 1)
-        self.post_quant_conv = nn.Conv2d(embed_dim, cfg.z_channels, 1)
+        self.quant_conv = Conv2d(2 * cfg.z_channels, 2 * embed_dim, 1)
+        self.post_quant_conv = Conv2d(embed_dim, cfg.z_channels, 1)
         channels_last_(self)
 
     def encode_moments(self, x):
@@ -255,8 +256,8 @@ class VQModel(nn.Module):
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
         self.quantize = VectorQuantizer(n_embed, embed_dim)
-        self.quant_conv = nn.Conv2d(cfg.z_channels, embed_dim, 1)
-        self.post_quant_conv = nn.Conv2d(embed_dim, cfg.z_channels, 1)
+        self.quant_conv = Conv2d(cfg.z_channels, embed_dim, 1)
+        self.post_quant_conv = Conv2d(embed_dim, cfg.z_channels, 1)
         channels_last_(self)
 
     def encode(self, x):

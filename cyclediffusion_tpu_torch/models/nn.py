@@ -106,13 +106,30 @@ def avg_pool_2x(x):
     return F.avg_pool2d(x, 2, 2)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (the same parameters and state dict) that runs a
+    pointwise kernel (1x1, stride 1, no padding) as one GEMM over the
+    pixels of the channels-last input, the bias added in the GEMM's
+    epilogue, where cuDNN's convolution adds it in a separate broadcasting
+    pass over its output; the result is a view of channels-last memory.
+    Every 1x1 convolution on the port's channels-last paths is one."""
+
+    def forward(self, x):
+        if (self.kernel_size, self.stride, self.padding, self.groups) == ((1, 1), (1, 1),
+                                                                          (0, 0), 1):
+            y = F.linear(x.flatten(2).transpose(1, 2), self.weight.flatten(1), self.bias)
+            return y.transpose(1, 2).unflatten(2, x.shape[2:])
+        return super().forward(x)
+
+
 class GroupNorm(nn.Module):
     """GroupNorm over the channel axis (dim 1) with fp32 statistics, the
     result rounded once to the input dtype (``ops.group_norm``: the
     hand-written kernels on the card), a channels-last view; ``silu=True``
-    applies SiLU to that rounded result in the same pass.  The group count
-    is clamped to the channel count, as in the JAX module (tiny test
-    configs)."""
+    applies SiLU to that rounded result in the same pass, and ``shift``
+    (N, C) normalises ``x + shift[:, :, None, None]`` (the sum in fp32, not
+    rounded).  The group count is clamped to the channel count, as in the JAX
+    module (tiny test configs)."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float):
         super().__init__()
@@ -123,8 +140,9 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
-    def forward(self, x, silu: bool = False):
-        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, silu=silu)
+    def forward(self, x, silu: bool = False, shift=None):
+        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, silu=silu,
+                          shift=shift)
 
 
 def multi_head_attention(q, k, v, num_heads: int):
@@ -141,10 +159,10 @@ class SpatialSelfAttention(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
         self.norm = GroupNorm(32, channels, 1e-6)
-        self.q = nn.Conv2d(channels, channels, 1)
-        self.k = nn.Conv2d(channels, channels, 1)
-        self.v = nn.Conv2d(channels, channels, 1)
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.q = Conv2d(channels, channels, 1)
+        self.k = Conv2d(channels, channels, 1)
+        self.v = Conv2d(channels, channels, 1)
+        self.proj_out = Conv2d(channels, channels, 1)
 
     def forward(self, x):
         b, c, h, w = x.shape

@@ -5,7 +5,9 @@ the folded self-attention kernels K3/K4 when ``folded_attn`` asks for them).
 ``CrossAttention``: bias-free q/k/v, 1/sqrt(d) scale, biased output
 projection.  ``BasicTransformerBlock``: pre-LayerNorm self-attention ->
 cross-attention -> GEGLU feed-forward, each residual.  ``SpatialTransformer``:
-GroupNorm -> 1x1 in -> blocks over (h w) tokens -> 1x1 out, residual;
+GroupNorm -> 1x1 in -> blocks over (h w) tokens -> 1x1 out, residual (the
+1x1 convs are ``models.nn.Conv2d``: GEMMs over the tokens, biases added in
+their epilogues);
 ``LinearSpatialTransformer`` (SDXL's ``use_linear_in_transformer``):
 GroupNorm -> tokens -> linear in -> blocks -> linear out -> back, residual.
 
@@ -21,7 +23,7 @@ from typing import Optional
 import torch.nn.functional as F
 from torch import nn
 
-from cyclediffusion_tpu_torch.models.nn import GroupNorm, multi_head_attention
+from cyclediffusion_tpu_torch.models.nn import Conv2d, GroupNorm, multi_head_attention
 from cyclediffusion_tpu_torch.ops import flash_attention
 
 
@@ -132,7 +134,7 @@ class SpatialTransformer(nn.Module):
 
     @staticmethod
     def _projection(cin: int, cout: int) -> nn.Module:
-        return nn.Conv2d(cin, cout, 1)
+        return Conv2d(cin, cout, 1)
 
     def forward(self, x, context=None):
         h, w = x.shape[2:]

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cyclediffusion_tpu_torch.models.nn import (
+    Conv2d,
     GroupNorm,
     SpatialSelfAttention,
     channels_last_,
@@ -79,7 +80,7 @@ class ResnetBlock(nn.Module):
         self.norm2 = GroupNorm(32, out_channels, 1e-6)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
-            self.nin_shortcut = nn.Conv2d(in_channels, out_channels, 1)
+            self.nin_shortcut = Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x, temb):
         h = self.conv1(self.norm1(x, silu=True))

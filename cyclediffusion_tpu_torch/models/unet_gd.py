@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from cyclediffusion_tpu_torch.models.nn import (
+    Conv2d,
     GDAttentionBlock,
     GroupNorm,
     avg_pool_2x,
@@ -176,7 +177,12 @@ class GDResBlock(nn.Module):
     ``h`` (after the first norm and SiLU, before the first conv) and the
     skip input.  Each norm runs its SiLU in the same pass (``silu=True``),
     except the second one under scale and shift; the ``nn.SiLU`` slots keep
-    the reference's module indices."""
+    the reference's module indices.
+
+    Without scale and shift the embedding is the second norm's per-channel
+    ``shift``, added in its kernels (the sum never stored) and not in a
+    broadcasting pass of its own; a 1x1 skip is a GEMM
+    (``models.nn.Conv2d``)."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_dim: int,
                  norm_eps: float = 1e-5, use_scale_shift_norm: bool = False,
@@ -194,21 +200,19 @@ class GDResBlock(nn.Module):
             _conv3x3(out_channels, out_channels))
         self.skip_connection = (
             nn.Identity() if in_channels == out_channels
-            else nn.Conv2d(in_channels, out_channels, 1))
+            else Conv2d(in_channels, out_channels, 1))
 
     def forward(self, x, emb):
         h = self.in_layers[0](x, silu=True)
         if self.resample is not None:
             h, x = self.resample(h), self.resample(x)
         h = self.in_layers[2](h)
-        emb_out = self.emb_layers(emb)[:, :, None, None]
         if self.use_scale_shift_norm:
-            scale, shift = torch.chunk(emb_out, 2, dim=1)
-            h = self.out_layers[0](h) * (1 + scale) + shift
-            h = self.out_layers[3](self.out_layers[1](h))
+            scale, shift = torch.chunk(self.emb_layers(emb)[:, :, None, None], 2, dim=1)
+            h = self.out_layers[1](self.out_layers[0](h) * (1 + scale) + shift)
         else:
-            h = self.out_layers[3](self.out_layers[0](h + emb_out, silu=True))
-        return self.skip_connection(x) + h
+            h = self.out_layers[0](h, silu=True, shift=self.emb_layers(emb))
+        return self.skip_connection(x) + self.out_layers[3](h)
 
 
 class GDDownsample(nn.Module):

@@ -3,7 +3,9 @@
 :func:`group_norm` normalises ``x`` of shape ``(N, C, *S)`` over each of
 ``num_groups`` groups of channels and all of ``S``, with fp32 statistics,
 applies the per-channel affine and rounds once to ``x``'s dtype; with
-``silu`` it returns ``silu`` of that rounded value.  It reads ``x`` as the
+``silu`` it returns ``silu`` of that rounded value.  With ``shift`` (N, C)
+it normalises ``x + shift[:, :, None, None]``, the sum formed in fp32 and
+never rounded or stored (a ResBlock's timestep embedding, folded in).  It reads ``x`` as the
 ``(N, prod(S), C)`` array that a channels-last tensor holds in memory (a
 view there, a copy for any other layout) and returns an ``(N, C, *S)`` view
 of channels-last memory, so the convolutions around it keep that layout.
@@ -24,9 +26,10 @@ on the meta device, whose tensors carry shapes alone), it is
 :func:`group_norm_reference`, differentiated by autograd.
 
 Each call that launches adds one to ``ops.launches.counts`` (``group_norm``
-for a forward, ``group_norm_backward`` for a gradient); a call captured into
-a CUDA graph launches nothing, and each replay of the graph adds what its
-capture counted (``runtime.graphs``).
+for a forward, ``group_norm_backward`` for a gradient; a forward with a
+shift adds one to ``group_norm_shift`` too); a call captured into a CUDA
+graph launches nothing, and each replay of the graph adds what its capture
+counted (``runtime.graphs``).
 """
 
 from __future__ import annotations
@@ -58,9 +61,9 @@ MAX_CHUNK_ELEMENTS = 1 << 24
 
 _VP, _CI, _CF, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
-    "cd_group_norm_forward": [_VP] * 7 + [_CI, _CL, _CI, _CI, _CI, _CL, _CI, _CI, _CF, _CI,
+    "cd_group_norm_forward": [_VP] * 8 + [_CI, _CL, _CI, _CI, _CI, _CL, _CI, _CI, _CF, _CI,
                                           _CI, _VP],
-    "cd_group_norm_backward": [_VP] * 11 + [_CI, _CL, _CI, _CI, _CI, _CL, _CI, _CI, _CI,
+    "cd_group_norm_backward": [_VP] * 12 + [_CI, _CL, _CI, _CI, _CI, _CL, _CI, _CI, _CI,
                                             _CI, _VP],
 }
 
@@ -87,14 +90,19 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def group_norm_reference(x, weight, bias, num_groups: int, eps: float, silu: bool = False):
+def group_norm_reference(x, weight, bias, num_groups: int, eps: float, silu: bool = False,
+                         shift=None):
     """The plain version: ``F.group_norm`` in fp32 (fp32 statistics, biased
     variance, ``y = x a + b`` with ``a = rstd * weight`` and
-    ``b = bias - mean * a`` per channel) on the channels-last copy of ``x``,
-    the weights first cast to ``x``'s dtype, one rounding to that dtype, then
-    SiLU on the rounded value.  The result is a channels-last view, as the
+    ``b = bias - mean * a`` per channel) on the channels-last copy of ``x``
+    (plus ``shift``, the sum in fp32 and not rounded), the weights and the
+    shift first cast to ``x``'s dtype, one rounding to that dtype, then SiLU
+    on the rounded value.  The result is a channels-last view, as the
     kernel's."""
-    xf = _channels_last(x.float())
+    xf = x.float()
+    if shift is not None:
+        xf = xf + shift.to(x.dtype).float().view(*shift.shape, *[1] * (x.ndim - 2))
+    xf = _channels_last(xf)
     y = F.group_norm(xf, num_groups, weight.to(x.dtype).float(), bias.to(x.dtype).float(),
                      eps)
     y = _channels_last(y).to(x.dtype)
@@ -107,7 +115,7 @@ def _channels_last(t):
     return t.movedim(1, -1).contiguous().movedim(-1, 1)
 
 
-def _check(x, weight, bias, num_groups: int) -> None:
+def _check(x, weight, bias, num_groups: int, shift=None) -> None:
     """Shape checks on any device."""
     if x.ndim < 3:
         raise ValueError(f"group_norm: input {tuple(x.shape)}; it takes (N, C, *S)")
@@ -119,6 +127,9 @@ def _check(x, weight, bias, num_groups: int) -> None:
                          f"{tuple(bias.shape)} for {c} channels")
     if x.numel() == 0:
         raise ValueError(f"group_norm: empty input {tuple(x.shape)}")
+    if shift is not None and tuple(shift.shape) != tuple(x.shape[:2]):
+        raise ValueError(f"group_norm: shift {tuple(shift.shape)} for input "
+                         f"{tuple(x.shape)}; it takes (N, C)")
 
 
 def _token_major(t):
@@ -155,11 +166,11 @@ def _geometry(x3, num_groups: int, *others) -> Tuple[int, int, int, int]:
     return vec, rows, -(-hw // per_chunk), per_chunk
 
 
-def _check_kernel_inputs(x, weight, bias) -> None:
+def _check_kernel_inputs(x, weight, bias, shift) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"group_norm: tensors on {x.device}; the kernel needs CUDA")
-    if weight.device != x.device or bias.device != x.device:
-        raise ValueError("group_norm: x, weight and bias on different devices")
+    if any(t.device != x.device for t in (weight, bias, shift) if t is not None):
+        raise ValueError("group_norm: x, weight, bias and shift on different devices")
     if x.dtype not in _DTYPES:
         raise ValueError(f"group_norm: dtype {x.dtype}; the kernel takes "
                          f"{list(_DTYPES)}")
@@ -170,8 +181,13 @@ def _raise_on_error(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
 
 
-def _forward(x3, weight, bias, num_groups: int, eps: float, silu: bool):
-    """(y, mean, rstd) of the (N, HW, C) input, y in its layout."""
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _forward(x3, weight, bias, shift, num_groups: int, eps: float, silu: bool):
+    """(y, mean, rstd) of the (N, HW, C) input (plus ``shift`` (N, C) or
+    None), y in its layout."""
     n, hw, c = x3.shape
     vec, rows, chunks, per_chunk = _geometry(x3, num_groups)
     y = torch.empty_like(x3)
@@ -180,19 +196,21 @@ def _forward(x3, weight, bias, num_groups: int, eps: float, silu: bool):
     rstd = torch.empty_like(mean)
     with torch.cuda.device(x3.device):
         rc = _library()[1].cd_group_norm_forward(
-            x3.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), part.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), n, hw, c, num_groups, chunks, per_chunk, rows,
-            vec, float(eps), int(silu), _DTYPES[x3.dtype],
+            x3.data_ptr(), weight.data_ptr(), bias.data_ptr(), _ptr(shift), y.data_ptr(),
+            part.data_ptr(), mean.data_ptr(), rstd.data_ptr(), n, hw, c, num_groups, chunks,
+            per_chunk, rows, vec, float(eps), int(silu), _DTYPES[x3.dtype],
             torch.cuda.current_stream(x3.device).cuda_stream)
     _raise_on_error("group_norm", rc)
     launches.counts["group_norm"] += 1
+    launches.counts["group_norm_shift"] += shift is not None
     return y, mean, rstd
 
 
-def _backward(x3, dy3, weight, bias, mean, rstd, num_groups: int, silu: bool,
+def _backward(x3, dy3, weight, bias, shift, mean, rstd, num_groups: int, silu: bool,
               weight_grads: bool):
-    """(dx, dweight, dbias) of the (N, HW, C) arrays; the weights' gradients
-    (fp32) are None unless ``weight_grads``."""
+    """(dx, dweight, dbias) of the (N, HW, C) arrays; dx is also the
+    gradient of ``x3 + shift``; the weights' gradients (fp32) are None
+    unless ``weight_grads``."""
     n, hw, c = x3.shape
     vec, rows, chunks, per_chunk = _geometry(x3, num_groups, dy3)
     dx = torch.empty_like(x3)
@@ -202,10 +220,9 @@ def _backward(x3, dy3, weight, bias, mean, rstd, num_groups: int, silu: bool,
     db = torch.empty_like(dw) if weight_grads else None
     with torch.cuda.device(x3.device):
         rc = _library()[1].cd_group_norm_backward(
-            x3.data_ptr(), dy3.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            x3.data_ptr(), dy3.data_ptr(), weight.data_ptr(), bias.data_ptr(), _ptr(shift),
             mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), part.data_ptr(),
-            sums.data_ptr(), None if dw is None else dw.data_ptr(),
-            None if db is None else db.data_ptr(), n, hw, c, num_groups, chunks, per_chunk,
+            sums.data_ptr(), _ptr(dw), _ptr(db), n, hw, c, num_groups, chunks, per_chunk,
             rows, vec, int(silu), _DTYPES[x3.dtype],
             torch.cuda.current_stream(x3.device).cuda_stream)
     _raise_on_error("group_norm_backward", rc)
@@ -214,38 +231,46 @@ def _backward(x3, dy3, weight, bias, mean, rstd, num_groups: int, silu: bool,
 
 
 class _GroupNormFunction(torch.autograd.Function):
-    """The kernels' forward and backward (weights already in x's dtype)."""
+    """The kernels' forward and backward (weights and shift already in x's
+    dtype; shift contiguous, or None)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, num_groups: int, eps: float, silu: bool):
+    def forward(ctx, x, weight, bias, shift, num_groups: int, eps: float, silu: bool):
         x3 = _token_major(x)
-        y3, mean, rstd = _forward(x3, weight, bias, num_groups, eps, silu)
-        ctx.save_for_backward(x3, weight, bias, mean, rstd)
+        y3, mean, rstd = _forward(x3, weight, bias, shift, num_groups, eps, silu)
+        ctx.save_for_backward(x3, weight, bias, shift, mean, rstd)
         ctx.num_groups, ctx.silu, ctx.shape = num_groups, silu, x.shape
         return y3.view(x.shape[0], *x.shape[2:], x.shape[1]).movedim(-1, 1)
 
     @staticmethod
     def backward(ctx, dy):
-        x3, weight, bias, mean, rstd = ctx.saved_tensors
+        x3, weight, bias, shift, mean, rstd = ctx.saved_tensors
         weight_grads = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
-        dx3, dw, db = _backward(x3, _token_major(dy), weight, bias, mean, rstd,
+        dx3, dw, db = _backward(x3, _token_major(dy), weight, bias, shift, mean, rstd,
                                 ctx.num_groups, ctx.silu, weight_grads)
         shape = ctx.shape
         dx = (dx3.view(shape[0], *shape[2:], shape[1]).movedim(-1, 1)
               if ctx.needs_input_grad[0] else None)
+        # the shift's gradient: dx (that of x + shift) over the pixels
+        dshift = dx3.float().sum(1).to(shift.dtype) if ctx.needs_input_grad[3] else None
         if not weight_grads:
-            return dx, None, None, None, None, None
-        return dx, dw.to(weight.dtype), db.to(bias.dtype), None, None, None
+            return dx, None, None, dshift, None, None, None
+        return dx, dw.to(weight.dtype), db.to(bias.dtype), dshift, None, None, None
 
 
-def group_norm(x, weight, bias, num_groups: int, eps: float, silu: bool = False):
-    """GroupNorm of ``x`` (N, C, *S) over ``num_groups`` groups with
-    per-channel ``weight`` and ``bias`` (cast to ``x``'s dtype), then SiLU
-    when ``silu``; a channels-last view of ``x``'s shape and dtype."""
-    _check(x, weight, bias, num_groups)
+def group_norm(x, weight, bias, num_groups: int, eps: float, silu: bool = False,
+               shift=None):
+    """GroupNorm of ``x`` (N, C, *S), plus ``shift`` (N, C) per sample and
+    channel when given, over ``num_groups`` groups with per-channel
+    ``weight`` and ``bias`` (weights and shift cast to ``x``'s dtype), then
+    SiLU when ``silu``; a channels-last view of ``x``'s shape and dtype."""
+    _check(x, weight, bias, num_groups, shift)
     if x.device.type in ("cpu", "meta"):
-        return group_norm_reference(x, weight, bias, num_groups, eps, silu)
-    _check_kernel_inputs(x, weight, bias)
+        return group_norm_reference(x, weight, bias, num_groups, eps, silu, shift)
+    _check_kernel_inputs(x, weight, bias, shift)
     weight, bias = (t.to(x.dtype).contiguous() for t in (weight, bias))
-    return _GroupNormFunction.apply(x, weight, bias, num_groups, float(eps), bool(silu))
+    if shift is not None:
+        shift = shift.to(x.dtype).contiguous()
+    return _GroupNormFunction.apply(x, weight, bias, shift, num_groups, float(eps),
+                                    bool(silu))
 

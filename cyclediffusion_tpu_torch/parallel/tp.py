@@ -37,6 +37,13 @@ from cyclediffusion_tpu_torch.parallel.mesh import (
 _KERNEL_LAYERS = {nn.Linear: -1, nn.Conv1d: 1, nn.Conv2d: 1}
 
 
+def _kernel_out_dim(module: nn.Module) -> Optional[int]:
+    """The output's feature axis of a kernel layer (subclasses included:
+    ``models.nn.Conv2d``), or None for any other module."""
+    return next((dim for cls, dim in _KERNEL_LAYERS.items() if isinstance(module, cls)),
+                None)
+
+
 def data_model_mesh(n_data: int, n_model: int, device_type: Optional[str] = None):
     """2-D ``DeviceMesh`` over ``("data", "model")``, the group's ranks in
     row-major order (rank ``d * n_model + m``)."""
@@ -54,7 +61,7 @@ def data_model_mesh(n_data: int, n_model: int, device_type: Optional[str] = None
 def _flax_axis(module: nn.Module, pname: str, p: torch.Tensor):
     """(the torch dim holding the Flax leaf's last axis, the Flax leaf's
     number of dimensions)."""
-    if pname == "weight" and type(module) in _KERNEL_LAYERS:
+    if pname == "weight" and _kernel_out_dim(module) is not None:
         return 0, max(p.ndim, 2)      # a Dense kernel may be a 1x1 conv here
     if pname == "weight" and isinstance(module, nn.Embedding):
         return 1, 2
@@ -108,8 +115,8 @@ def shard_params_tp(mesh, module: nn.Module, min_size: int = 512) -> int:
         if picked != ["weight"] or id(mod) in readers or getattr(mod, "groups", 1) != 1:
             raise NotImplementedError(f"no tensor-parallel layer for {where} "
                                       f"({type(mod).__name__})")
-        if type(mod) in _KERNEL_LAYERS:
-            out_dim = _KERNEL_LAYERS[type(mod)]
+        out_dim = _kernel_out_dim(mod)
+        if out_dim is not None:
             size = mod.weight.shape[0] // n_model
             block = slice(rank * size, (rank + 1) * size)
             mod.weight = nn.Parameter(mod.weight[block].clone(), requires_grad=False)

@@ -594,7 +594,8 @@ def test_launched_reads_the_one_launch_count_dict(smoke, monkeypatch):
     monkeypatch.setattr(launches, "counts", dict.fromkeys(launches.counts, 3))
     assert smoke.launched() == dict.fromkeys(smoke.ATTENTION_KERNELS, 3)
     assert smoke.launched(smoke.GROUP_NORM_KERNELS) == {"group_norm": 3,
-                                                       "group_norm_backward": 3}
+                                                       "group_norm_backward": 3,
+                                                       "group_norm_shift": 3}
     smoke.reset_launches()
     assert set(launches.counts.values()) == {0}
     assert set(launches.counts) == set(smoke.ATTENTION_KERNELS + smoke.GROUP_NORM_KERNELS)

@@ -126,7 +126,7 @@ def test_a_replay_adds_what_its_capture_counted(replays, monkeypatch):
     counts.update(before)
     assert delta == {"flash_attention_packed": 5, "flash_attention_bhtd": 5,
                      "qout_self_attention_block": 0, "fused_self_attention_block": 0,
-                     "group_norm": 0, "group_norm_backward": 0}
+                     "group_norm": 0, "group_norm_backward": 0, "group_norm_shift": 0}
     fake = types.SimpleNamespace(replay=lambda: None)
     captured = graphs.Captured(fake, [], None, delta, 0.0)
     for _ in range(replays):

@@ -12,16 +12,18 @@ parity with the JAX package, GroupNorm's included, is
 ``test_torch_models.py``'s and the other parity files'.
 """
 
+import dataclasses
 import types
 
 import pytest
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from cyclediffusion_tpu_torch.models import nn as tnn
-from cyclediffusion_tpu_torch.models.autoencoder import AutoencoderKL, DDConfig
+from cyclediffusion_tpu_torch.models.autoencoder import AutoencoderKL, DDConfig, VQModel
 from cyclediffusion_tpu_torch.models.unet_ddpm import DDPMUNet, DDPMUNetConfig
-from cyclediffusion_tpu_torch.models.unet_gd import GDUNet, GDUNetConfig
+from cyclediffusion_tpu_torch.models.unet_gd import GDResBlock, GDUNet, GDUNetConfig
 from cyclediffusion_tpu_torch.ops import group_norm as gn
 from cyclediffusion_tpu_torch.ops import launches
 from cyclediffusion_tpu_torch.runtime import graphs
@@ -98,6 +100,68 @@ def test_plain_gradients_match_functional_group_norm():
     want = torch.autograd.grad(F.silu(F.group_norm(x, 8, w, b, 1e-6)), (x, w, b), dy)
     for g, h in zip(got, want):
         torch.testing.assert_close(g, h, rtol=1e-4, atol=1e-5)
+
+
+def _shift(n, c, dtype=torch.float32, seed=4, device="cpu"):
+    """A per-sample, per-channel shift on the scale of ``_input``'s values."""
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn(n, c, generator=gen) * 1.5 - 0.3).to(dtype).to(device)
+
+
+def _shifted(x, shift):
+    """``x + shift`` broadcast over the spatial axes, in fp32 (not rounded)."""
+    return x.float() + shift.float().view(*shift.shape, *[1] * (x.ndim - 2))
+
+
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,layout", [
+    ((2, 64, 6, 5), 32, "channels_last"),
+    ((2, 64, 6, 5), 32, "contiguous"),
+    ((3, 40, 17), 4, "channels_last"),
+    ((1, 16, 4, 4), 16, "channels_last"),
+])
+def test_plain_with_shift_matches_functional_group_norm(shape, groups, layout, dtype, silu):
+    """With a shift the plain version is F.group_norm of x + shift formed in
+    fp32 (the sum not rounded to x's dtype), then the one rounding and the
+    SiLU; tolerances as without a shift."""
+    x = _input(shape, dtype, layout)
+    w, b = _affine(shape[1], dtype)
+    shift = _shift(shape[0], shape[1], dtype)
+    got = gn.group_norm(x, w, b, groups, 1e-5, silu=silu, shift=shift)
+    want = F.group_norm(_shifted(x, shift), groups, w.float(), b.float(), 1e-5).to(dtype)
+    want = F.silu(want) if silu else want
+    assert got.shape == x.shape and got.dtype == dtype and _is_channels_last(got)
+    tol = 1e-5 if dtype == torch.float32 else 5 * 2.0 ** -8
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert launches.counts["group_norm_shift"] == 0
+
+
+@pytest.mark.parametrize("silu", [False, True])
+def test_plain_shift_gradients_match_autograd(silu):
+    """Gradients of x, the shift and the weights through the plain version
+    with a shift equal autograd's through the composition."""
+    x = _input((2, 32, 5, 4)).requires_grad_(True)
+    w, b = (t.requires_grad_(True) for t in _affine(32))
+    shift = _shift(2, 32).requires_grad_(True)
+    dy = _input((2, 32, 5, 4), seed=2)
+    got = torch.autograd.grad(gn.group_norm(x, w, b, 8, 1e-6, silu=silu, shift=shift),
+                              (x, shift, w, b), dy)
+    want = F.group_norm(x + shift[:, :, None, None], 8, w, b, 1e-6)
+    want = torch.autograd.grad(F.silu(want) if silu else want, (x, shift, w, b), dy)
+    for g, h in zip(got, want):
+        torch.testing.assert_close(g, h, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("shape", [(2,), (2, 4), (1, 8), (2, 8, 1, 1), (8, 2)])
+def test_refuses_a_shift_of_the_wrong_shape(shape, device):
+    """A shift is (N, C) exactly; anything else is refused before any
+    arithmetic, whatever the device (the card's path runs the same check
+    first)."""
+    x, (w, b) = _input((2, 8, 3, 3), device=device), _affine(8, device=device)
+    with pytest.raises(ValueError, match="shift"):
+        gn.group_norm(x, w, b, 4, 1e-5, shift=torch.zeros(shape, device=device))
 
 
 @pytest.mark.parametrize("bad", ["groups", "weight", "empty", "rank"])
@@ -279,6 +343,208 @@ def test_spatial_transformer_takes_its_tokens_as_a_view():
     assert proj_in[0].data_ptr() == blocks_out[0].data_ptr()
 
 
+class _Adds(TorchDispatchMode):
+    """Records the shapes of every ``aten.add`` operand outside GroupNorm
+    (whose plain version adds the shift itself, as the kernels do in
+    registers), and each convolution's kernel size and whether it was given
+    a bias (on the card, a separate broadcasting pass over its output)."""
+
+    def __init__(self):
+        super().__init__()
+        self.inside_norm = False
+        self.adds = []
+        self.convs = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket is torch.ops.aten.add and not self.inside_norm:
+            self.adds.append([tuple(a.shape) for a in args if isinstance(a, torch.Tensor)])
+        if func.overloadpacket is torch.ops.aten.convolution:
+            self.convs.append((tuple(args[1].shape[2:]), args[2] is not None))
+        return func(*args, **(kwargs or {}))
+
+
+def _count_shifted_norms(model, monkeypatch, *inputs):
+    """(GroupNorm calls given a shift, calls without, the add operands'
+    shapes outside GroupNorm, the convolutions' (kernel, biased)) over one
+    forward of ``model``."""
+    calls = {"shift": 0, "plain": 0}
+    mode = _Adds()
+    real = tnn.group_norm
+
+    def counted(*args, shift=None, **kwargs):
+        calls["shift" if shift is not None else "plain"] += 1
+        mode.inside_norm = True
+        try:
+            return real(*args, shift=shift, **kwargs)
+        finally:
+            mode.inside_norm = False
+
+    monkeypatch.setattr(tnn, "group_norm", counted)
+    with torch.no_grad(), mode:
+        model(*inputs)
+    return calls["shift"], calls["plain"], mode.adds, mode.convs
+
+
+def _embedding_adds(adds):
+    """The adds that broadcast a (B, C, 1, 1) operand over another's pixels:
+    a timestep embedding's."""
+    return [a for a in adds
+            if len(set(a)) > 1 and any(len(s) == 4 and s[2:] == (1, 1) for s in a)]
+
+
+@pytest.mark.parametrize("name,want", [("sd_v1", 22), ("sdxl_base", 17)])
+def test_full_width_unets_fold_every_embedding_into_a_norm(name, want, monkeypatch):
+    """On the meta device (shapes alone; an 8x8 latent keeps every attention
+    on the plain route): the published UNets call GroupNorm with a shift once
+    per ResBlock, 22 for SD v1 (LDM text2img-large shares its topology) and
+    17 for SDXL base, and add no embedding anywhere else."""
+    cfg = getattr(GDUNetConfig, name)()
+    with torch.device("meta"):
+        unet = GDUNet(cfg).to(torch.bfloat16)
+        x = torch.zeros(2, 8, 8, 4, dtype=torch.bfloat16)
+        t = torch.zeros(2, dtype=torch.int64)
+        ctx = torch.zeros(2, 77, cfg.context_dim, dtype=torch.bfloat16)
+        y = (torch.zeros(2, cfg.adm_in_channels, dtype=torch.bfloat16)
+             if cfg.adm_in_channels else None)
+    assert sum(isinstance(m, GDResBlock) for m in unet.modules()) == want
+    shifted, plain, adds, _ = _count_shifted_norms(unet, monkeypatch, x, t, ctx, None, False,
+                                                   y)
+    assert shifted == want and plain > 0
+    assert not _embedding_adds(adds), _embedding_adds(adds)
+
+
+@pytest.mark.parametrize("name,biased", [("sd_v1", 52), ("sdxl_base", 40)])
+def test_full_width_unets_run_no_pointwise_convolution(name, biased, monkeypatch):
+    """On the meta device: no 1x1 convolution runs (the ResBlocks' skips and
+    SD v1's transformer projections are GEMMs); the convolutions, each with
+    its own bias, are the input conv, the resamplers, the output conv and
+    each ResBlock's two (SD v1 1 + 3 + 3 + 1 + 2 x 22, SDXL
+    1 + 2 + 2 + 1 + 2 x 17)."""
+    cfg = getattr(GDUNetConfig, name)()
+    with torch.device("meta"):
+        unet = GDUNet(cfg).to(torch.bfloat16)
+        x = torch.zeros(2, 8, 8, 4, dtype=torch.bfloat16)
+        t = torch.zeros(2, dtype=torch.int64)
+        ctx = torch.zeros(2, 77, cfg.context_dim, dtype=torch.bfloat16)
+        y = (torch.zeros(2, cfg.adm_in_channels, dtype=torch.bfloat16)
+             if cfg.adm_in_channels else None)
+    *_, convs = _count_shifted_norms(unet, monkeypatch, x, t, ctx, None, False, y)
+    assert all(k == (3, 3) for k, _ in convs), sorted(set(convs))
+    assert len(convs) == biased and all(b for _, b in convs)
+
+
+@pytest.mark.parametrize("name", ["gd_unet", "gd_unet_attn", "kl", "ddpm", "vq"])
+def test_tiny_models_run_every_pointwise_conv_as_a_gemm(name):
+    """Every 1x1 conv of the channels-last models (the UNets' skips and
+    projections, KL-f8's and VQ-f4's shortcuts, quant convs and mid-block
+    attention, the DDPM UNet's shortcuts and attention) is a
+    ``models.nn.Conv2d``, and a forward runs no 1x1 convolution."""
+    model = (VQModel(DDConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1, resolution=16,
+                              z_channels=3, double_z=False), n_embed=16)
+             if name == "vq" else _tiny_models()[name]).eval()
+    tnn.fill_random_(model, torch.Generator().manual_seed(0))
+    pointwise = [m for m in model.modules()
+                 if isinstance(m, torch.nn.Conv2d) and m.kernel_size == (1, 1)]
+    assert pointwise and all(type(m) is tnn.Conv2d for m in pointwise)
+    gen = torch.Generator().manual_seed(1)
+    mode = _Adds()
+    with torch.no_grad(), mode:
+        if name in ("kl", "vq"):
+            h = (model.encode_moments if name == "kl" else model.encode)(
+                torch.randn(2, 16, 16, 3, generator=gen))
+            model.decode(h[..., :4] if name == "kl" else h)
+        elif name == "ddpm":
+            model(torch.randn(2, 16, 16, 3, generator=gen), torch.tensor([3, 500]))
+        else:
+            ctx = torch.randn(2, 7, 24, generator=gen) if name == "gd_unet" else None
+            model(torch.randn(2, 8, 8, 4, generator=gen), torch.tensor([3, 500]), ctx)
+    assert mode.convs and all(k != (1, 1) for k, _ in mode.convs), mode.convs
+
+
+@pytest.mark.parametrize("name", ["tiny", "tiny_unconditional", "tiny_sdxl", "scale_shift"])
+def test_tiny_unets_fold_every_embedding_into_a_norm(name, monkeypatch):
+    """On the CPU, once per ResBlock for the tiny configurations; under
+    ``use_scale_shift_norm`` (the pixel models) none, and the embedding's
+    scale and shift stay outside the norm."""
+    cfg = {"tiny": GDUNetConfig.tiny(), "tiny_unconditional": GDUNetConfig.tiny(None),
+           "tiny_sdxl": GDUNetConfig.tiny_sdxl(24, 16),
+           "scale_shift": dataclasses.replace(GDUNetConfig.tiny(None),
+                                              use_scale_shift_norm=True)}[name]
+    unet = GDUNet(cfg).eval()
+    tnn.fill_random_(unet, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 8, 8, 4, generator=gen)
+    ctx = torch.randn(2, 7, cfg.context_dim, generator=gen) if cfg.context_dim else None
+    y = torch.randn(2, cfg.adm_in_channels, generator=gen) if cfg.adm_in_channels else None
+    blocks = sum(isinstance(m, GDResBlock) for m in unet.modules())
+    shifted, _, adds, _ = _count_shifted_norms(unet, monkeypatch, x,
+                                               torch.tensor([3, 500]), ctx, None, False, y)
+    if cfg.use_scale_shift_norm:
+        assert shifted == 0 and len(_embedding_adds(adds)) == blocks
+    else:
+        assert blocks > 0 and shifted == blocks and not _embedding_adds(adds)
+
+
+@pytest.mark.parametrize("cin,cout,updown", [(32, 64, {}), (32, 32, {}),
+                                              (32, 64, {"down": True}),
+                                              (32, 32, {"up": True})])
+def test_resblock_with_a_folded_shift_equals_the_add_then_norm(cin, cout, updown):
+    """The ResBlock's output through the folded shift equals, in fp32, the
+    reference's order: the first conv, the embedding added, then the norm
+    (+SiLU), the second conv and the skip (a 1x1 conv, here a GEMM, or the
+    identity), each conv as ``F.conv2d`` with its bias."""
+    block = GDResBlock(cin, cout, 48, **updown).eval()
+    tnn.fill_random_(block, torch.Generator().manual_seed(2))
+    x = _input((2, cin, 6, 6), seed=3)
+    emb = torch.randn(2, 48, generator=torch.Generator().manual_seed(4))
+    conv1, conv2, skip = block.in_layers[2], block.out_layers[3], block.skip_connection
+
+    def conv(m, h):
+        return F.conv2d(h, m.weight, m.bias, m.stride, m.padding)
+
+    with torch.no_grad():
+        h = block.in_layers[0](x, silu=True)
+        if block.resample is not None:
+            h, x_skip = block.resample(h), block.resample(x)
+        else:
+            x_skip = x
+        h = conv(conv1, h) + block.emb_layers(emb)[:, :, None, None]
+        h = conv(conv2, F.silu(F.group_norm(h, 32, block.out_layers[0].weight,
+                                            block.out_layers[0].bias, 1e-5)))
+        want = (x_skip if cin == cout else conv(skip, x_skip)) + h
+        got = block(x, emb)
+    assert isinstance(skip, torch.nn.Identity) == (cin == cout)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+@pytest.mark.parametrize("bias", ["own", "none", "given"])
+@pytest.mark.parametrize("kernel,stride,padding", [(1, 1, 0), (3, 1, 1), (3, 2, 1)])
+def test_conv2d_moves_its_bias_and_runs_pointwise_as_a_gemm(kernel, stride, padding, bias,
+                                                           layout):
+    """``models.nn.Conv2d`` equals ``F.conv2d`` with its own bias, with
+    none (``bias=False``), and with one loaded from an ``nn.Conv2d``'s state
+    dict (a checkpoint's); a pointwise one runs as a GEMM (no convolution),
+    its bias added in the GEMM, and returns a view of channels-last
+    memory."""
+    conv = tnn.Conv2d(16, 24, kernel, stride=stride, padding=padding, bias=bias != "none")
+    if bias == "given":
+        ref = torch.nn.Conv2d(16, 24, kernel, stride=stride, padding=padding)
+        torch.nn.init.normal_(ref.bias, generator=torch.Generator().manual_seed(6))
+        conv.load_state_dict(ref.state_dict())
+        assert torch.equal(conv.bias, ref.bias)
+    tnn.channels_last_(conv)
+    x = _input((2, 16, 7, 6), seed=5, layout=layout)
+    mode = _Adds()
+    with torch.no_grad(), mode:
+        got = conv(x)
+    want = F.conv2d(x, conv.weight, conv.bias, stride, padding)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert (mode.convs == []) == (kernel == 1)
+    if kernel == 1:
+        assert _is_channels_last(got)
+
+
 # ---- the kernels on the card ----------------------------------------------- #
 
 MAIN_SHAPES = [(1, 128, 512, 512), (1, 512, 64, 64), (8, 320, 64, 64), (8, 1280, 8, 8),
@@ -325,6 +591,94 @@ def test_kernel_matches_plain(card, shape, dtype, silu):
     out2 = gn.group_norm(xg2, w, b, groups, 1e-6, silu=silu)
     (dx2,) = torch.autograd.grad(out2, xg2, dy)
     assert torch.equal(out, out2) and torch.equal(dx, dx2)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", MAIN_SHAPES + [TINY])
+def test_kernel_with_shift_matches_plain(card, shape, dtype, silu):
+    """With a per-sample, per-channel shift: the forward, the input's and
+    the shift's gradients against the plain version on the card, each
+    repeated bit for bit, one launch of each kernel and one shift counted.
+    The shift's gradient is the input's summed over the pixels and rounded
+    once to the dtype: its bound is that rounding plus the input gradient's
+    bound over sqrt(pixels) independent roundings."""
+    groups, (n, c), hw = min(32, shape[1]), shape[:2], shape[2] * shape[3]
+    x = _input(shape, dtype, device=card)
+    w, b = _affine(c, dtype, device=card)
+    shift = _shift(n, c, dtype, device=card)
+    dy = _input(shape, dtype, seed=3, device=card)
+
+    def run(fn):
+        xg, sg = x.clone().requires_grad_(True), shift.clone().requires_grad_(True)
+        out = fn(xg, w, b, groups, 1e-6, silu=silu, shift=sg)
+        return (out, *torch.autograd.grad(out, (xg, sg), dy))
+
+    launches.reset()
+    out, dx, dshift = run(gn.group_norm)
+    assert _gn_launches() == (1, 1) and launches.counts["group_norm_shift"] == 1
+    assert _is_channels_last(out) and _is_channels_last(dx)
+    assert dx.dtype == dshift.dtype == dtype and dshift.shape == (n, c)
+    want, want_dx, want_dshift = run(gn.group_norm_reference)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(dx).all()
+    assert _rel(out, want) <= _bound(dtype), _rel(out, want)
+    assert _rel(dx, want_dx) <= 2 * _bound(dtype), _rel(dx, want_dx)
+    gap = float((dshift.float() - want_dshift.float()).abs().max())
+    scale = float(want_dshift.abs().max()) + 2 * float(want_dx.abs().max()) * hw ** 0.5
+    assert gap <= _bound(dtype) * scale, (gap, scale)
+    again = run(gn.group_norm)
+    assert all(torch.equal(p_, q) for p_, q in zip((out, dx, dshift), again))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", MAIN_SHAPES)
+def test_kernel_zero_shift_gives_the_bits_of_no_shift(card, shape, dtype, silu):
+    """A zero shift changes no constant: forward and input gradient equal
+    the call without a shift bit for bit."""
+    x = _input(shape, dtype, device=card)
+    w, b = _affine(shape[1], dtype, device=card)
+    dy = _input(shape, dtype, seed=3, device=card)
+    zero = torch.zeros(shape[:2], dtype=dtype, device=card)
+
+    def run(shift):
+        xg = x.clone().requires_grad_(True)
+        out = gn.group_norm(xg, w, b, 32, 1e-6, silu=silu, shift=shift)
+        return out, torch.autograd.grad(out, xg, dy)[0]
+
+    assert all(torch.equal(p_, q) for p_, q in zip(run(None), run(zero)))
+
+
+@pytest.mark.card
+def test_tiny_unet_replay_counts_its_shifts(card):
+    """A CUDA-graph replay of a tiny UNet adds one ``group_norm_shift`` per
+    ResBlock, as its capture counted, and gives the eager call's bits."""
+    unet = GDUNet(GDUNetConfig.tiny()).to(card, torch.bfloat16).eval()
+    tnn.fill_random_(unet, torch.Generator(device=card).manual_seed(0))
+    blocks = sum(isinstance(m, GDResBlock) for m in unet.modules())
+    gen = torch.Generator(device=card).manual_seed(1)
+    x = torch.randn((2, 8, 8, 4), generator=gen, device=card).to(torch.bfloat16)
+    t = torch.tensor([3, 500], device=card)
+    ctx = torch.randn((2, 7, 24), generator=gen, device=card).to(torch.bfloat16)
+
+    def fn(x):
+        with torch.no_grad():
+            return unet(x, t, ctx)
+
+    graphs.warm_up(fn, (x.clone(),), calls=2)
+    launches.reset()
+    captured = graphs.capture(fn, (x.clone(),))
+    assert captured.launches["group_norm_shift"] == blocks > 0
+    assert launches.counts["group_norm_shift"] == 0
+    captured.inputs[0].copy_(x)
+    captured.replay()
+    captured.replay()
+    torch.cuda.synchronize()
+    assert launches.counts["group_norm_shift"] == 2 * blocks
+    assert torch.equal(captured.output, fn(x))
 
 
 @pytest.mark.card
@@ -436,8 +790,9 @@ def test_main_path_runs_no_layout_conversion(card):
     """One captured SD v1 UNet replay (batch 8, 512 px), one KL-f8 decode and
     one CLIP-energy gradient: no PyTorch GroupNorm kernel and no cuDNN
     layout conversion runs, every GroupNorm is one launch of the kernel
-    (and one of its backward in the gradient), and the gradient repeats
-    bit for bit."""
+    (and one of its backward in the gradient), each of the UNet's 22
+    ResBlocks folds its timestep embedding into one of them as a shift, and
+    the gradient repeats bit for bit."""
     from cyclediffusion_tpu_torch.models.clip import CLIPConfig
     from cyclediffusion_tpu_torch.pipelines.latent import LatentCoreSpec
     from cyclediffusion_tpu_torch.tools import guided_probe
@@ -458,6 +813,9 @@ def test_main_path_runs_no_layout_conversion(card):
              "energy": lambda: energy.grad(x, p, tt)}
     want = {"unet": (norms["unet"], 0), "decode": (norms["decoder"], 0),
             "energy": (norms["decoder"], norms["decoder"])}
+    # the UNet's ResBlocks fold their timestep embedding into a norm
+    shifts = {"unet": sum(isinstance(m, GDResBlock) for m in core.unet.modules()),
+              "decode": 0, "energy": 0}
     for name, fn in calls.items():
         fn()                                    # warm-up and capture
         launches.reset()
@@ -467,6 +825,7 @@ def test_main_path_runs_no_layout_conversion(card):
         assert any("group_norm_apply_kernel" in k for k in kernels), name
         got = _gn_launches()
         assert got == want[name], (name, got, want[name])
+        assert launches.counts["group_norm_shift"] == shifts[name], name
     first = energy.grad(x, p, tt)
     assert torch.equal(first, energy.grad(x, p, tt))
     assert torch.equal(first, energy.grad_eager(x, p, tt))
